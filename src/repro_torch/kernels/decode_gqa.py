@@ -1,0 +1,92 @@
+"""Single-token GQA flash-decode (port of ``repro/kernels/decode_gqa.py``).
+
+``decode_gqa`` dispatches on where its tensors lie: on a CUDA tensor it
+launches the hand-written kernel in ``csrc/decode_gqa.cu`` (which replaces
+the Pallas ``_kernel``) and counts the launch; on a CPU tensor it runs
+``decode_gqa_plain``. There is no fallback from the card to the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG = -1e30
+GROUPS = (1, 2, 4, 8)          # query heads per K/V head the kernel takes
+
+launches = _build.LaunchCounter()
+
+
+def decode_gqa_plain(q, k, v, lengths):
+    """Plain fp32 version (``repro/kernels/ref.py::decode_gqa_ref``).
+    q: (B,H,hd); k,v: (B,C,KV,hd); lengths: (B,). Returns (B,H,hd)."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, hd)
+    s = torch.einsum("bkgd,bckd->bkgc", qf, k.float()) / math.sqrt(hd)
+    C = k.shape[1]
+    valid = (torch.arange(C, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", w, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def _bind(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.decode_gqa_launch.argtypes = ([p] * 5 + [i] * 5
+                                      + [ctypes.c_float, i, p])
+    lib.decode_gqa_launch.restype = i
+
+
+_build.register_binding("decode_gqa", _bind)
+
+
+def _launch(q, k, v, lengths):
+    B, H, hd = q.shape
+    C, KV = k.shape[1], k.shape[2]
+    dtype, dev = q.dtype, q.device
+    if dtype not in _build.DTYPE_CODE:
+        raise ValueError(f"decode_gqa kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
+    if H // KV not in GROUPS:
+        raise ValueError(f"decode_gqa kernel takes H/KV in {GROUPS}, got {H // KV}")
+    lanes = hd * q.element_size() // 16
+    if hd * q.element_size() % 16 or lanes > 32 or lanes & (lanes - 1):
+        raise ValueError(f"decode_gqa kernel needs hd·{q.element_size()} B to be "
+                         f"16 B times a power of two <= 32, got hd={hd}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _build.check_operand(name, t, dtype, dev)
+    _build.check_operand("lengths", lengths, torch.int32, dev)
+    out = torch.empty_like(q)
+    err = _build.load("decode_gqa").decode_gqa_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, H, KV, C, hd, 1.0 / math.sqrt(hd), _build.DTYPE_CODE[dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_gqa kernel launch failed: CUDA error {err}")
+    launches.n += 1
+    return out
+
+
+def decode_gqa(q, k, v, lengths):
+    """q: (B,H,hd); k,v: (B,C,KV,hd); lengths: (B,) valid prefix per row,
+    in [1, C]. Returns (B,H,hd) in q.dtype: softmax over the first
+    lengths[b] cache slots, scale 1/sqrt(hd), fp32 accumulation. CUDA
+    tensors launch the kernel, CPU tensors run the plain version."""
+    B, H, hd = q.shape
+    if k.ndim != 4 or k.shape[0] != B or k.shape[3] != hd or k.shape != v.shape:
+        raise ValueError(f"k, v must be (B={B}, C, KV, hd={hd}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"H={H} must be a multiple of KV={k.shape[2]}")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be (B={B},), got {tuple(lengths.shape)}")
+    if q.device.type == "cpu":
+        return decode_gqa_plain(q, k, v, lengths)
+    return _launch(q, k, v, lengths.to(torch.int32).contiguous())

@@ -1,0 +1,44 @@
+"""Public wrappers around the port's kernels (mirror of ``repro/kernels/ops.py``).
+
+Each wrapper launches its hand-written CUDA kernel when given CUDA tensors
+and runs the kernel's plain PyTorch version when given CPU tensors. The
+other Pallas kernels of the reference are listed in ROADMAP.md queue B.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import decode_gqa as _decode_gqa_mod
+from repro_torch.kernels import masked_ffn as _masked_ffn_mod
+
+BLOCK_NEURONS = 128
+
+# launch counters of the kernels, by public name
+LAUNCHES = {"masked_ffn_batch": _masked_ffn_mod.launches,
+            "decode_gqa": _decode_gqa_mod.launches}
+
+
+def reset_launch_counts():
+    for c in LAUNCHES.values():
+        c.reset()
+
+
+def launch_counts() -> dict:
+    return {name: c.n for name, c in LAUNCHES.items()}
+
+
+def masked_ffn_batch(x, w_in, w_out, row_mask, w_gate=None, act="silu"):
+    """Per-row-masked FFN forward: each row of x (M, d) carries its own
+    (F,) 0/1 neuron mask (row_mask: (M, F)); w_in/(w_gate): (d, F), w_out:
+    (F, d), F a multiple of 128. An (8-row, 128-neuron) tile that every row
+    drops is skipped; kept tiles apply the exact per-row mask.
+    Plain version: masked_ffn.masked_ffn_batch_plain."""
+    return _masked_ffn_mod.masked_ffn_batch(x, w_in, w_out, row_mask,
+                                            w_gate=w_gate, act=act)
+
+
+def decode_gqa(q, k, v, lengths):
+    """Flash-decode grouped-query attention over a ragged KV cache.
+
+    q: (B, H, hd); k/v: (B, C, KV, hd); lengths: (B,) valid prefix per
+    batch row. Returns (B, H, hd). Forward-only (serving path).
+    Plain version: decode_gqa.decode_gqa_plain."""
+    return _decode_gqa_mod.decode_gqa(q, k, v, lengths)

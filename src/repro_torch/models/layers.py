@@ -1,0 +1,214 @@
+"""Shared layer primitives: norms, RoPE, embeddings, FFN (port of
+``repro/models/layers.py``).
+
+Params are plain dicts of tensors with the reference's keys. Weights are
+cast to the compute dtype at use (``.to`` is a no-op when
+``init_params(dtype=...)`` already stored them in it).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from dataclasses import dataclass
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cdtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def pdtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Shape and dtype of a tensor not yet allocated (jax.ShapeDtypeStruct)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+
+def dense_init(gen: torch.Generator, fan_in, *shape, dtype, device,
+               repeats=None):
+    """normal * 1/sqrt(fan_in), drawn in fp32 and cast to ``dtype``. With
+    ``repeats`` the result is stacked (repeats, *shape) and drawn one repeat
+    at a time, so the fp32 draw never holds more than one layer's matrix."""
+    scale = 1.0 / math.sqrt(fan_in)
+    lead = (repeats,) if repeats else ()
+    out = torch.empty(lead + shape, dtype=dtype, device=device)
+    for sub in (out if repeats else [out]):
+        sub.copy_(torch.randn(sub.shape, generator=gen, device=device) * scale)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+def init_norm(cfg: ModelConfig, device, dim=None, repeats=None):
+    dim = dim or cfg.d_model
+    lead = (repeats,) if repeats else ()
+    p = {"scale": torch.ones(*lead, dim, dtype=pdtype(cfg), device=device)}
+    if cfg.norm_kind == "layernorm":
+        p["bias"] = torch.zeros(*lead, dim, dtype=pdtype(cfg), device=device)
+    return p
+
+
+def apply_norm(p, x, cfg: ModelConfig, eps=1e-6):
+    """RMSNorm / LayerNorm computed in fp32, returned in x.dtype."""
+    xf = x.float()
+    if cfg.norm_kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+def rope_freqs(dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs_on(dim: int, theta: float, device: torch.device):
+    # cached per device: a host-to-device copy per call would block the
+    # host until the card's queue drains, every layer of every decode step
+    return torch.from_numpy(rope_freqs(dim, theta)).to(device)
+
+
+def apply_rope(x, positions, theta: float):
+    """Split-halves RoPE. x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs_on(hd, theta, x.device)
+    ang = positions[..., None].float() * freqs          # (..., S, hd/2)
+    ang = ang[..., None, :]                              # heads axis
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+
+def init_embed(gen, cfg: ModelConfig, device, dtype):
+    v = cfg.padded_vocab
+    p = {"embed": dense_init(gen, cfg.d_model, v, cfg.d_model, dtype=dtype,
+                             device=device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.d_model, v,
+                                  dtype=dtype, device=device)
+    return p
+
+
+def embed_tokens(p, tokens, cfg: ModelConfig):
+    # gather, then cast: the same numbers as casting the table first
+    return p["embed"][tokens.long()].to(cdtype(cfg))
+
+
+def lm_logits(p, x, cfg: ModelConfig):
+    w = p.get("lm_head")
+    if w is None:
+        w = p["embed"].T
+    logits = x @ w.to(cdtype(cfg))
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# FFN
+
+GATED = {"swiglu", "gelu_gated"}
+
+
+def init_ffn(gen, cfg: ModelConfig, device, dtype, repeats=None):
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device, repeats=repeats)
+    p = {"w_in": dense_init(gen, d, d, f, **kw),
+         "w_out": dense_init(gen, f, f, d, **kw)}
+    if cfg.ffn_kind in GATED:
+        p["w_gate"] = dense_init(gen, d, d, f, **kw)
+    if cfg.use_bias:
+        lead = (repeats,) if repeats else ()
+        zeros = lambda n: torch.zeros(*lead, n, dtype=pdtype(cfg), device=device)
+        p["b_in"], p["b_out"] = zeros(f), zeros(d)
+        if cfg.ffn_kind in GATED:
+            p["b_gate"] = zeros(f)
+    return p
+
+
+def _act(h, kind):
+    if kind == "swiglu":
+        return F.silu(h)
+    if kind in ("gelu", "gelu_gated"):
+        return F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
+    if kind == "relu":
+        return torch.relu(h)
+    if kind == "relu2":
+        return torch.square(torch.relu(h))
+    raise ValueError(kind)
+
+
+_KERNEL_ACT = {"swiglu": ("silu", True), "gelu_gated": ("gelu", True),
+               "gelu": ("gelu", False), "relu": ("relu", False),
+               "relu2": ("relu2", False)}
+
+
+def _ffn_kernel_ok(p, x, cfg, neuron_mask) -> bool:
+    """masked_ffn_batch applies on the single-token decode shape:
+    per-request masks, no biases, 128-aligned hidden dim."""
+    return (x.ndim == 3 and x.shape[1] == 1
+            and neuron_mask is not None and neuron_mask.ndim == 3
+            and "b_in" not in p
+            and p["w_in"].shape[1] % ops.BLOCK_NEURONS == 0
+            and cfg.ffn_kind in _KERNEL_ACT)
+
+
+def apply_ffn(p, x, cfg: ModelConfig, neuron_mask=None):
+    """FFN with an optional 0/1 neuron mask (the invariant-dropout
+    sub-model): (f,) for one mask, (B, 1, f) per request at decode, where
+    the masked FFN kernel runs."""
+    dt = cdtype(cfg)
+    if _ffn_kernel_ok(p, x, cfg, neuron_mask):
+        act, gated = _KERNEL_ACT[cfg.ffn_kind]
+        B, _, d = x.shape
+        y = ops.masked_ffn_batch(
+            x.reshape(B, d).to(dt), p["w_in"].to(dt), p["w_out"].to(dt),
+            neuron_mask.reshape(B, -1),
+            w_gate=p["w_gate"].to(dt) if gated else None, act=act)
+        return y.reshape(B, 1, d)
+    h = x @ p["w_in"].to(dt)
+    if "b_in" in p:
+        h = h + p["b_in"].to(dt)
+    if cfg.ffn_kind in GATED:
+        g = x @ p["w_gate"].to(dt)
+        if "b_gate" in p:
+            g = g + p["b_gate"].to(dt)
+        h = _act(g, cfg.ffn_kind) * h
+    else:
+        h = _act(h, cfg.ffn_kind)
+    if neuron_mask is not None:
+        h = h * neuron_mask.to(dt)
+    out = h @ p["w_out"].to(dt)
+    if "b_out" in p:
+        out = out + p["b_out"].to(dt)
+    return out

@@ -1,0 +1,97 @@
+"""Model API (port of ``repro/models/model.py``), decoder-only stacks.
+
+  init_params(cfg, seed, device, dtype)        -> params dict
+  forward_seq(params, cfg, batch, ...)         -> (logits, caches, aux)
+  decode_step(params, cfg, caches, ...)        -> (logits, caches)
+  cache_specs(cfg, batch, seq_len, ...)        -> pytree of TensorSpec
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import (apply_norm, embed_tokens, init_embed,
+                                       init_norm, lm_logits, pdtype)
+
+
+def _check_decoder_only(cfg: ModelConfig):
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            "encoder-decoder models are not ported to repro_torch yet "
+            "(see ROADMAP.md queue A)")
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
+    """Random params with the reference's keys and stacked layout:
+    normal * 1/sqrt(fan_in) per matrix from a torch.Generator on ``device``
+    seeded with ``seed``. Matrices are stored in ``dtype`` (default
+    cfg.param_dtype), cast one layer at a time as they are drawn; norm
+    scales stay in cfg.param_dtype. The numbers differ from the reference's
+    jax.random init: to compare the two packages, convert the reference's
+    params with ``repro_torch.interop.params_from_numpy``."""
+    _check_decoder_only(cfg)
+    device = torch.device(device)
+    dtype = dtype or pdtype(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    seg_params, _ = transformer.init_stack(gen, cfg, device, dtype)
+    return {"tok": init_embed(gen, cfg, device, dtype),
+            "final_norm": init_norm(cfg, device),
+            "stack": {f"seg{i}": sp for i, sp in enumerate(seg_params)}}
+
+
+def _seg_list(params, cfg):
+    segs = transformer.build_segments(cfg)
+    return [params["stack"][f"seg{i}"] for i in range(len(segs))], segs
+
+
+def forward_seq(params, cfg: ModelConfig, batch, masks=None,
+                want_cache=False, cache_len=None):
+    """batch: {'tokens': (B,S) int}. Returns (logits, caches, aux); aux is
+    the MoE router loss of the reference, 0 for the ported dense stacks."""
+    _check_decoder_only(cfg)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    x = embed_tokens(params["tok"], tokens, cfg)
+    seg_params, segs = _seg_list(params, cfg)
+    x, caches = transformer.run_stack_seq(
+        seg_params, segs, x, cfg, positions, masks=masks,
+        want_cache=want_cache, cache_len=cache_len)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = lm_logits(params["tok"], x, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, (caches if want_cache else None), aux
+
+
+def decode_hidden(params, cfg: ModelConfig, caches, token, pos, masks=None):
+    """The final-normed hidden state (B,1,d) of one decode step; the caches
+    are updated in place."""
+    _check_decoder_only(cfg)
+    x = embed_tokens(params["tok"], token, cfg)
+    seg_params, segs = _seg_list(params, cfg)
+    x = transformer.run_stack_decode(seg_params, segs, caches, x, cfg, pos,
+                                     masks=masks)
+    return apply_norm(params["final_norm"], x, cfg)
+
+
+def decode_step(params, cfg: ModelConfig, caches, token, pos, masks=None):
+    """token: (B,1) int; pos: (B,) int. Returns (logits, caches); unlike
+    the reference the caches are updated in place and returned as given."""
+    x = decode_hidden(params, cfg, caches, token, pos, masks=masks)
+    return lm_logits(params["tok"], x, cfg), caches
+
+
+def cache_specs(cfg: ModelConfig, batch, seq_len):
+    _check_decoder_only(cfg)
+    return transformer.stack_cache_specs(cfg, batch, seq_len)
+
+
+def init_caches(cfg: ModelConfig, batch, seq_len, device):
+    """Zero caches of ``cache_specs`` shape on ``device``."""
+    def alloc(tree):
+        if isinstance(tree, dict):
+            return {k: alloc(v) for k, v in tree.items()}
+        return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+    return [alloc(s) for s in cache_specs(cfg, batch, seq_len)]

@@ -1,0 +1,212 @@
+"""Segment-based decoder stack (port of ``repro/models/transformer.py``).
+
+A model is a list of *segments*: (unit_pattern, repeats). Params of a
+segment are stacked over repeats with a leading axis R, as in the
+reference, and the reference's ``lax.scan`` over repeats is a Python loop
+over r here. Only the ("attn", "dense") layer kind is ported; the other
+mixers and FFN kinds raise NotImplementedError (see ROADMAP.md queue A).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention
+from repro_torch.models.layers import apply_ffn, apply_norm, init_ffn, init_norm
+
+LayerSpec = Tuple[str, str]        # (mixer, ffn)
+
+PORTED = ("attn", "dense")
+
+
+@dataclass(frozen=True)
+class Segment:
+    unit: Tuple[LayerSpec, ...]
+    repeats: int
+
+
+def layer_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
+    out = []
+    for i in range(cfg.n_layers):
+        mixer = cfg.block_pattern[i % len(cfg.block_pattern)]
+        ffn = "cmix" if mixer == "rwkv" else cfg.ffn_kind_for_layer(i)
+        out.append((mixer, ffn))
+    return tuple(out)
+
+
+def _rle(specs):
+    runs = []
+    for s in specs:
+        if runs and runs[-1][0] == s:
+            runs[-1][1] += 1
+        else:
+            runs.append([s, 1])
+    return runs
+
+
+def build_segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    specs = layer_specs(cfg)
+    runs = _rle(specs)
+    if len(runs) <= 3:
+        return tuple(Segment((s,), n) for s, n in runs)
+    unit = specs[:len(cfg.block_pattern)]
+    k = len(specs) // len(unit)
+    rem = specs[k * len(unit):]
+    segs = [Segment(unit, k)]
+    segs += [Segment((s,), n) for s, n in _rle(rem)]
+    return tuple(segs)
+
+
+def _check_ported(spec: LayerSpec, cfg: ModelConfig):
+    if spec != PORTED or cfg.use_mla or cfg.parallel_block:
+        raise NotImplementedError(
+            f"layer kind {spec} (use_mla={cfg.use_mla}, parallel_block="
+            f"{cfg.parallel_block}) is not ported to repro_torch yet; only "
+            f"{PORTED} is (see ROADMAP.md queue A)")
+
+
+def _at(tree, r):
+    """Repeat r of a stacked (R, ...) param or mask dict."""
+    if isinstance(tree, dict):
+        return {k: _at(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+# ---------------------------------------------------------------------------
+# init
+
+def init_segment(gen, seg: Segment, cfg: ModelConfig, device, dtype):
+    out = {}
+    for i, spec in enumerate(seg.unit):
+        _check_ported(spec, cfg)
+        R = seg.repeats
+        out[f"l{i}"] = {
+            "norm1": init_norm(cfg, device, repeats=R),
+            "attn": attention.init_attention(gen, cfg, device, dtype, repeats=R),
+            "norm2": init_norm(cfg, device, repeats=R),
+            "ffn": init_ffn(gen, cfg, device, dtype, repeats=R)}
+    return out
+
+
+def init_stack(gen, cfg: ModelConfig, device, dtype):
+    segs = build_segments(cfg)
+    return [init_segment(gen, s, cfg, device, dtype) for s in segs], segs
+
+
+# ---------------------------------------------------------------------------
+# sequence (prefill) pass
+
+def _m(masks, key):
+    if masks is None:
+        return None
+    return masks.get(key)
+
+
+def _ring_from_seq(tensors, positions, cache_len=None):
+    """Fold full-sequence K/V (B,S,...) into a cache of C = cache_len slots;
+    position p lands in slot p % C. cache_len > S leaves decode headroom."""
+    S = positions.shape[-1]
+    C = cache_len or S
+    out = {}
+    for name, t in tensors.items():
+        if C == S:
+            out[name] = t
+            continue
+        n = min(C, S)
+        idx = (positions[-n:] % C).long()
+        ring = torch.zeros((t.shape[0], C) + tuple(t.shape[2:]), dtype=t.dtype,
+                           device=t.device)
+        ring[:, idx] = t[:, -n:]
+        out[name] = ring
+    return out
+
+
+def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
+                     want_cache, cache_len=None):
+    """Returns (x, cache_entry)."""
+    _check_ported(spec, cfg)
+    h = apply_norm(p["norm1"], x, cfg)
+    y, (k, v) = attention.attn_seq(p["attn"], h, cfg, positions)
+    cache = ({"attn": _ring_from_seq({"k": k, "v": v}, positions, cache_len)}
+             if want_cache else {})
+    x = x + y
+    h2 = apply_norm(p["norm2"], x, cfg)
+    return x + apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn")), cache
+
+
+def _stack_caches(per_repeat):
+    """[{'l0': {'attn': {'k': t}}}] * R -> {'l0': {'attn': {'k': (R, ...)}}}."""
+    first = per_repeat[0]
+    if isinstance(first, dict):
+        return {k: _stack_caches([c[k] for c in per_repeat]) for k in first}
+    return torch.stack(per_repeat)
+
+
+def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
+                  masks=None, want_cache=False, cache_len=None):
+    """x: (B,S,d). Returns (x, caches). masks: list per segment of per-unit
+    dicts with stacked (R, ...) leaves, or None."""
+    caches = []
+    for si, (seg, sp) in enumerate(zip(segs, seg_params)):
+        smasks = masks[si] if masks is not None else None
+        per_repeat = []
+        for r in range(seg.repeats):
+            cache_u = {}
+            for i, spec in enumerate(seg.unit):
+                lm = _at(smasks[f"l{i}"], r) if smasks is not None else None
+                x, cache_u[f"l{i}"] = _apply_layer_seq(
+                    spec, _at(sp[f"l{i}"], r), x, cfg, positions, lm,
+                    want_cache, cache_len)
+            per_repeat.append(cache_u)
+        caches.append(_stack_caches(per_repeat) if want_cache else None)
+    return x, caches
+
+
+# ---------------------------------------------------------------------------
+# decode pass
+
+def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks):
+    _check_ported(spec, cfg)
+    h = apply_norm(p["norm1"], x, cfg)
+    x = x + attention.attn_decode(p["attn"], h, cfg, cache["attn"], pos)
+    h2 = apply_norm(p["norm2"], x, cfg)
+    return x + apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn"))
+
+
+def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
+                     masks=None):
+    """x: (B,1,d). Returns x; the caches are updated in place."""
+    for si, (seg, sp) in enumerate(zip(segs, seg_params)):
+        smasks = masks[si] if masks is not None else None
+        for r in range(seg.repeats):
+            for i, spec in enumerate(seg.unit):
+                lm = _at(smasks[f"l{i}"], r) if smasks is not None else None
+                x = _apply_layer_decode(spec, _at(sp[f"l{i}"], r), x,
+                                        _at(caches[si][f"l{i}"], r), cfg, pos,
+                                        lm)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# cache specs
+
+def _layer_cache_spec(spec, cfg: ModelConfig, batch, seq_len):
+    _check_ported(spec, cfg)
+    return {"attn": attention.cache_spec(cfg, batch, seq_len)}
+
+
+def stack_cache_specs(cfg: ModelConfig, batch, seq_len):
+    """Per segment, {'l<i>': {'attn': {'k','v': TensorSpec (R, B, C, KV, hd)}}}."""
+    out = []
+    for seg in build_segments(cfg):
+        unit = {}
+        for i, s in enumerate(seg.unit):
+            lc = _layer_cache_spec(s, cfg, batch, seq_len)
+            unit[f"l{i}"] = {m: {k: type(t)((seg.repeats,) + t.shape, t.dtype)
+                                 for k, t in d.items()}
+                             for m, d in lc.items()}
+        out.append(unit)
+    return out
