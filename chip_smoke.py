@@ -1,17 +1,32 @@
 #!/usr/bin/env python3
 """Prove the PyTorch port runs on one NVIDIA GPU: build its CUDA kernels,
-hold each against its plain PyTorch version at the serving path's shapes,
-serve StableLM-2-12B at full width through ``repro_torch``, and check the
-result.
+hold each against its plain PyTorch version at its path's shapes, serve
+StableLM-2-12B at full width and run FLuID training through
+``repro_torch``, and check the results.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases print one JSON line each (env,
-build, kernels, small, serve, step, profile); any failure exits non-zero. The last
-three lines are the per-kernel summary, the card's name and power limit as
-nvidia-smi gives them, and {"ok": true, "device": {...}}. Without a CUDA
-device, or without the repo beside this script, it exits 2 and prints no
-result.
+Run from the root of a checkout. Phases print one JSON line each:
+
+  env      torch, CUDA, the card and its power limit
+  build    one nvcc per kernel source, all at once
+  kernels  each kernel against its plain version, timed beside its bound:
+           the serving forms at the decode shapes, the training forms at
+           the fleet's (C 5 and 64 clients, M 10, d 64, F 1024)
+  small    a smoke-size fp32 model, card vs CPU
+  serve    24 mixed-rate requests at full width (serving's main path)
+  step     every launch of a full-width decode step against its plain version
+  profile  device time by kernel over a few decode steps
+  train    6 FLuID rounds of femnist_kernel on the fleet backend (training's
+           main path): each training kernel launched once per SGD step; the
+           same run with the plain versions must reach the same stragglers,
+           rates, keep-maps and round times; busy share, tile-skip shares,
+           and a 64-client cohort
+
+Any failure exits non-zero. The last three lines are the per-kernel
+summary, the card's name and power limit as nvidia-smi gives them, and
+{"ok": true, "device": {...}}. Without a CUDA device, or without the repo
+beside this script, it exits 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -26,8 +41,12 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense tensor-core peak, bf16
+FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 FFN_SHAPE = dict(M=8, d=5120, F=13824)
 GQA_SHAPE = dict(B=8, H=32, KV=8, hd=128, C=576)
+TRAIN_SHAPE = dict(M=10, d=64, F=1024)     # KernelMLP's FFN, batch 10
+SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa")
+TRAIN_KERNELS = ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")
 N_TIMED = 25
 
 
@@ -72,8 +91,46 @@ def rel_inf(got, want):
                  / want.float().abs().max().clamp_min(1e-30))
 
 
-def bound_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def time_loop_ms(fn, torch, n=50, reps=5, warmup=3):
+    """Median over reps of the mean time of one call in n back-to-back
+    calls between two CUDA events: for kernels of a few microseconds,
+    where a single call's events would time the launch."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def graph_ms(fn, torch, n=20, reps=N_TIMED):
+    """Device time of one call of fn, without the host's launch time (which
+    bounds a loop of kernels of a few microseconds): n calls captured in a
+    CUDA graph, each replay timed by CUDA events; the median over reps
+    replays, over n."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):              # warm-up off the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return time_ms(graph.replay, torch, n=reps) / n
+
+
+def bound_ms(nbytes, flops, peak=BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -175,17 +232,169 @@ def phase_kernels(torch, np):
     return out
 
 
+def train_masks(torch, np, C, kind, dev):
+    """(C, M, F) row masks from the port's own policies: every client all
+    kept, ordered at rate 0.5 (whole blocks dropped), invariant at 0.75
+    (scattered neurons), or "main" — the training path's mix, one client in
+    eight (client 0 of 5) on the invariant 0.75 keep-map, the rest full."""
+    from repro_torch.core.dropout import get_policy
+    M, F = TRAIN_SHAPE["M"], TRAIN_SHAPE["F"]
+    spec = [{"name": "ffn", "size": F, "out": [], "in": []}]
+    inv = get_policy("invariant", spec)
+    rng = np.random.RandomState(0)
+    stats = [{"ffn": torch.from_numpy(np.abs(rng.randn(F)).astype(np.float32))}
+             for _ in range(4)]
+    inv.observe(stats, float(np.median([s["ffn"].numpy() for s in stats])))
+
+    def row(keep):
+        r = torch.zeros(F)
+        r[torch.as_tensor(keep)] = 1.0
+        return r
+    full = torch.ones(F)
+    rows = {"all_kept": [full] * C,
+            "ordered0.5": [row(get_policy("ordered", spec).keep_map(0.5)["ffn"])] * C,
+            "invariant0.75": [row(inv.keep_map(0.75)["ffn"])] * C,
+            "main": [row(inv.keep_map(0.75)["ffn"]) if c % 8 == 0 else full
+                     for c in range(C)]}[kind]
+    return torch.stack(rows)[:, None, :].expand(C, M, F).contiguous().to(dev)
+
+
+def train_work(torch, mask, d, gated, elem):
+    """(bytes, flops) per training kernel that this mask's data needs: x/gy
+    read and y/dx written once, the weights of the blocks some m-tile keeps,
+    the mask, dW written whole; one product is 2·rows·d·128 FLOPs per kept
+    (m-tile, f-block) tile. Also the share of tiles skipped."""
+    C, M, F = mask.shape
+    nmt, nfb = -(-M // 8), F // 128
+    mp = torch.zeros(C, nmt * 8, F, device=mask.device)
+    mp[:, :M] = mask
+    kept = mp.view(C, nmt, 8, nfb, 128).amax(dim=(2, 4)) > 0       # (C, nmt, nfb)
+    rows = torch.tensor([min(8, M - 8 * t) for t in range(nmt)], device=mask.device)
+    product = int((kept * rows[None, :, None]).sum()) * 128 * d * 2
+    nmat = 3 if gated else 2
+    wbytes = int(kept.any(dim=1).sum()) * 128 * d * elem * nmat
+    io, mbytes = C * M * d * elem, C * M * F * 4
+    work = {"masked_ffn_train_fwd": (2 * io + wbytes + mbytes, product * nmat),
+            "masked_ffn_dx": (3 * io + wbytes + mbytes, product * (5 if gated else 3)),
+            "masked_ffn_dw": (2 * io + wbytes + mbytes + C * d * F * elem * nmat,
+                              product * (6 if gated else 4))}
+    return work, 1.0 - float(kept.float().mean())
+
+
+def phase_train_kernels(torch, np, dev="cuda"):
+    """The three training kernels against their plain versions at the
+    fleet's shapes: C 5 and 64, fp32 gelu under four masks, and one gated
+    bf16 case. Relative ∞-norm <= 1e-4 in fp32 (1e-2 in bf16); the dW of a
+    tile no row keeps is exactly 0. ``ms`` is device time per call, from
+    CUDA events around a CUDA graph of calls (the kernels are a few
+    microseconds, below the host's launch time, which ``host_ms`` gives:
+    one call in a back-to-back loop)."""
+    from repro_torch.kernels import masked_ffn as ffn
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    M, d, F = TRAIN_SHAPE["M"], TRAIN_SHAPE["d"], TRAIN_SHAPE["F"]
+    cases = [(C, kind, torch.float32, "gelu", False) for C in (5, 64)
+             for kind in ("main", "all_kept", "ordered0.5", "invariant0.75")]
+    cases.append((5, "ordered0.5", torch.bfloat16, "gelu", True))
+    per = {k: [] for k in TRAIN_KERNELS}
+    for C, kind, dtype, act, gated in cases:
+        r = lambda *sh, fan: (torch.randn(*sh, generator=g, device=dev)
+                              / fan ** 0.5).to(dtype)
+        x, gy = r(C, M, d, fan=1), r(C, M, d, fan=1)
+        w_in, w_out = r(C, d, F, fan=d), r(C, F, d, fan=F)
+        w_gate = r(C, d, F, fan=d) if gated else None
+        mask = train_masks(torch, np, C, kind, dev)
+        args = (x, w_in, w_out, mask, w_gate)
+        runs = {"masked_ffn_train_fwd": (
+                    lambda: ffn.masked_ffn_train_fwd(*args, act=act),
+                    lambda: ffn.masked_ffn_batch_plain(*args, act)),
+                "masked_ffn_dx": (
+                    lambda: ffn.masked_ffn_dx(gy, *args, act=act),
+                    lambda: ffn.masked_ffn_dx_plain(gy, *args, act)),
+                "masked_ffn_dw": (
+                    lambda: ffn.masked_ffn_dw(gy, *args, act=act),
+                    lambda: ffn.masked_ffn_dw_plain(gy, *args, act))}
+        work, skipped = train_work(torch, mask, d, gated, x.element_size())
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        dropped = (mask.amax(dim=1).view(C, F // 128, 128).amax(dim=2) == 0
+                   ).repeat_interleave(128, dim=1)                    # (C, F)
+        name = f"C{C}/{kind}/{str(dtype)[6:]}/{act}{'/gated' if gated else ''}"
+        for k, (kern, plain) in runs.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [rel_inf(a, b) for a, b in zip(got, want) if b is not None]
+            check(max(errs) <= tol, f"{k}[{name}] rel err {errs}")
+            if k == "masked_ffn_dw":
+                for t, cols_first in zip(got, (False, True, False)):
+                    if t is not None:
+                        z = t if cols_first else t.transpose(1, 2)
+                        check(bool((z[dropped] == 0).all()),
+                              f"{k}[{name}] dropped dW tile not exactly 0")
+            nbytes, flops = work[k]
+            b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOPS
+                                  if dtype == torch.float32 else BF16_FLOPS)
+            per[k].append({
+                "case": name, "skipped_tile_share": skipped,
+                "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                   for a, b in zip(got, want) if b is not None),
+                "rel_err": max(errs), "ms": graph_ms(kern, torch),
+                "plain_ms": graph_ms(plain, torch),
+                "host_ms": time_loop_ms(kern, torch),
+                "plain_host_ms": time_loop_ms(plain, torch, n=20),
+                "bound_ms": b_ms, "bound_by": b_by})
+    src = "src/repro_torch/kernels/csrc/masked_ffn_train.cu"
+    replaces = {"masked_ffn_train_fwd": "src/repro/kernels/masked_ffn.py:107",
+                "masked_ffn_dx": "src/repro/kernels/masked_ffn.py:165",
+                "masked_ffn_dw": "src/repro/kernels/masked_ffn.py:193"}
+    out = []
+    for k in TRAIN_KERNELS:
+        head = per[k][0]                  # C 5, the training path's mask mix
+        out.append({"name": k, "route": "cuda", "source": src,
+                    "replaces": replaces[k],
+                    "max_abs_err": max(c["max_abs_err"] for c in per[k]),
+                    "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                    "library_ms": None, "shape": dict(TRAIN_SHAPE, C=5),
+                    "mixes": per[k]})
+    return out
+
+
+def plain_train(torch):
+    """ops.masked_ffn_train with the plain forward, dx and dW versions."""
+    from repro_torch.kernels import masked_ffn as ffn
+
+    class PlainTrain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, wi, wo, m, wg, act):
+            ctx.act = act
+            ctx.save_for_backward(x, wi, wo, m, wg)
+            return ffn.masked_ffn_batch_plain(x, wi, wo, m, wg, act)
+
+        @staticmethod
+        def backward(ctx, gy):
+            x, wi, wo, m, wg = ctx.saved_tensors
+            dx = ffn.masked_ffn_dx_plain(gy, x, wi, wo, m, wg, ctx.act)
+            dwi, dwo, dwg = ffn.masked_ffn_dw_plain(gy, x, wi, wo, m, wg, ctx.act)
+            return dx, dwi, dwo, None, dwg, None
+    return lambda x, wi, wo, m, w_gate=None, act="silu": PlainTrain.apply(
+        x, wi, wo, m.float().contiguous(), w_gate, act)
+
+
 def swap_in_plain(ops):
-    """Point the model's kernel calls at the plain versions; returns undo."""
+    """Point the models' kernel calls at the plain versions; returns undo."""
+    import torch
     from repro_torch.kernels import decode_gqa as gqa
     from repro_torch.kernels import masked_ffn as ffn
-    saved = ops.masked_ffn_batch, ops.decode_gqa
+    saved = ops.masked_ffn_batch, ops.decode_gqa, ops.masked_ffn_train
     ops.masked_ffn_batch = lambda x, wi, wo, m, w_gate=None, act="silu": \
         ffn.masked_ffn_batch_plain(x, wi, wo, m, w_gate, act)
     ops.decode_gqa = gqa.decode_gqa_plain
+    ops.masked_ffn_train = plain_train(torch)
 
     def undo():
-        ops.masked_ffn_batch, ops.decode_gqa = saved
+        ops.masked_ffn_batch, ops.decode_gqa, ops.masked_ffn_train = saved
     return undo
 
 
@@ -246,6 +455,7 @@ def phase_serve(torch, np):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = ops.launch_counts()               # main path ends here
+    counts = {k: counts[k] for k in SERVE_KERNELS}
 
     steps = summ["decode_steps"]
     check(len(results) == 24, f"serve: {len(results)} of 24 requests finished")
@@ -374,6 +584,178 @@ def phase_profile(torch, params, cfg, state, steps=3):
             "device_busy_share": dev_us / wall_us, "top": top}
 
 
+class RoundRecorder:
+    """While active, wraps the server's and the fleet backend's run_round:
+    keeps each round's wall seconds, its cohort-training seconds, step
+    count and keep-maps (synchronised before each clock reading)."""
+
+    def __init__(self, torch):
+        from repro_torch.core.fluid import FluidServer
+        from repro_torch.fl.rounds import FleetBackend
+        self.torch, self.log, self.round_s = torch, [], []
+        self.orig = {FluidServer: FluidServer.run_round,
+                     FleetBackend: FleetBackend.run_round}
+
+    def _timed(self, fn):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def __enter__(self):
+        (server_cls, srv), (backend_cls, bk) = self.orig.items()
+
+        def server_round(server, *a, **kw):
+            res, dt = self._timed(lambda: srv(server, *a, **kw))
+            self.round_s.append(dt)
+            return res
+
+        def backend_round(backend, params, keep_maps, rates):
+            res, dt = self._timed(lambda: bk(backend, params, keep_maps, rates))
+            self.log.append({"train_s": dt, "steps": backend.engine.steps,
+                             "clients": len(backend.clients),
+                             "keep_maps": {c: {g: k.copy() for g, k in km.items()}
+                                           for c, km in keep_maps.items()}})
+            return res
+        server_cls.run_round, backend_cls.run_round = server_round, backend_round
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fn in self.orig.items():
+            cls.run_round = fn
+
+
+def skip_shares(log, F):
+    """Share of (m-tile, f-block) tiles the kernels skip, per round: over
+    the whole cohort, and over the stragglers alone. A client's rows share
+    its keep-map, so a block it keeps no neuron of is skipped in every
+    m-tile."""
+    nfb = F // 128
+    out = []
+    for r in log:
+        skipped = [nfb - len({int(i) // 128 for i in km["ffn"]})
+                   for km in r["keep_maps"].values()]
+        out.append({"cohort": sum(skipped) / (r["clients"] * nfb),
+                    "stragglers": (sum(skipped) / (len(skipped) * nfb)
+                                   if skipped else None)})
+    return out
+
+
+def busy_share(torch, fn):
+    """Device busy share of one call of fn, and device ms by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    top = [{"kernel": e.key[:90], "calls": e.count,
+            "us_per_call": e.self_device_time_total / max(e.count, 1)}
+           for e in kern[:8]]
+    if not dev_us:                     # the profiler saw no device activity
+        return {"wall_ms": wall_us / 1e3, "device_ms": None,
+                "device_busy_share": None, "top": []}
+    return {"wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
+            "device_busy_share": dev_us / wall_us, "top": top}
+
+
+def phase_train(torch, np, dev="cuda"):
+    """FLuID training through the port's entry point: femnist_kernel on the
+    fleet backend, the paper's 5 clients with straggler 0, n_data 2000, 6
+    rounds. Each training kernel must launch once per SGD step. The same
+    experiment with the plain versions swapped in must give identical
+    stragglers, rates, keep-maps and round times, and final params within
+    5e-4 (the reference's fleet-vs-sequential tolerance)."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl.simulation import (CohortConfig, SimulationConfig,
+                                           run_experiment)
+    from repro_torch.kernels import ops
+
+    def experiment(n_clients, rounds, policy="invariant"):
+        cfg = SimulationConfig(
+            workload="femnist_kernel", backend="fleet", use_kernels=True,
+            policy=policy, device=dev,
+            cohort=CohortConfig(n_clients=n_clients, straggler_ids=(0,),
+                                n_data=2000))
+        with RoundRecorder(torch) as rec:
+            t0 = time.perf_counter()
+            sim, hist = run_experiment(cfg, rounds=rounds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for r, dt in zip(rec.log, rec.round_s):
+            r["round_s"] = dt
+        return sim, list(hist), rec.log, wall
+
+    ops.reset_launch_counts()                  # main path starts here
+    sim, hist, log, wall = experiment(5, 6)
+    counts = ops.launch_counts()               # main path ends here
+    steps = sum(r["steps"] for r in log)
+    for k in TRAIN_KERNELS:
+        check(counts[k] == steps,
+              f"train: {k} launched {counts[k]} times, expected one per SGD step ({steps})")
+    params = tree_leaves(sim.server.params)
+    check(all(bool(torch.isfinite(p).all()) for p in params), "train: non-finite params")
+    check(any(h.stragglers for h in hist), "train: dropout never engaged")
+    acc = hist[-1].accuracy
+    check(acc == acc and acc > 1 / 62, f"train: final accuracy {acc} not above chance")
+
+    undo = swap_in_plain(ops)
+    try:
+        psim, phist, plog, pwall = experiment(5, 6)
+    finally:
+        undo()
+    for a, b, ra, rb in zip(hist, phist, log, plog):
+        check(a.stragglers == b.stragglers and a.rates == b.rates,
+              f"train: round {a.round} plan differs from the plain run")
+        check(a.round_time == b.round_time,
+              f"train: round {a.round} time {a.round_time} vs plain {b.round_time}")
+        check(ra["keep_maps"].keys() == rb["keep_maps"].keys() and all(
+            np.array_equal(ra["keep_maps"][c][g], rb["keep_maps"][c][g])
+            for c in ra["keep_maps"] for g in ra["keep_maps"][c]),
+            f"train: round {a.round} keep-maps differ from the plain run")
+    diff = max(float((p - q).abs().max()) for p, q in
+               zip(params, tree_leaves(psim.server.params)))
+    check(diff <= 5e-4, f"train: params differ from the plain run by {diff}")
+
+    # one more round of the same cohort under the profiler
+    prof5 = busy_share(torch, lambda: sim.server.run_round())
+    policies = {"invariant": skip_shares(log, TRAIN_SHAPE["F"])}
+    for pol in ("ordered", "random"):
+        policies[pol] = skip_shares(experiment(5, 3, pol)[2], TRAIN_SHAPE["F"])
+    s64, h64, log64, wall64 = experiment(64, 2)
+    prof64 = busy_share(torch, lambda: s64.server.run_round())
+    train_s = [r["train_s"] for r in log]
+    return {
+        "cohort": 5, "rounds": 6, "n_data": 2000, "steps_per_round": log[0]["steps"],
+        "wall_s": wall, "plain_wall_s": pwall,
+        "round_s": [r["round_s"] for r in log],
+        "plain_round_s": [r["round_s"] for r in plog],
+        "round_train_s": train_s, "plain_round_train_s": [r["train_s"] for r in plog],
+        "ms_per_sgd_step": 1e3 * sum(train_s[1:]) / sum(r["steps"] for r in log[1:]),
+        "plain_ms_per_sgd_step": 1e3 * sum(r["train_s"] for r in plog[1:])
+        / sum(r["steps"] for r in plog[1:]),
+        "round_times_sim": [h.round_time for h in hist],
+        "stragglers": [h.stragglers for h in hist],
+        "rates": [{str(c): r for c, r in h.rates.items()} for h in hist],
+        "accuracy": [h.accuracy for h in hist],
+        "plain_accuracy": [h.accuracy for h in phist],
+        "params_max_abs_diff_vs_plain": diff, "launches": counts,
+        "profile_round": prof5, "skipped_tile_share": policies,
+        "cohort64": {"rounds": 2, "steps_per_round": log64[0]["steps"],
+                     "wall_s": wall64, "round_s": [r["round_s"] for r in log64],
+                     "round_train_s": [r["train_s"] for r in log64],
+                     "ms_per_sgd_step": 1e3 * log64[-1]["train_s"] / log64[-1]["steps"],
+                     "accuracy": [h.accuracy for h in h64],
+                     "profile_round": prof64}}, counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -401,7 +783,7 @@ def main() -> int:
                  for n, log in _build.build_log.items()}
         emit("build", seconds=time.perf_counter() - t0, per_source=built,
              ptxas=ptxas)
-        kernels = phase_kernels(torch, np)
+        kernels = phase_kernels(torch, np) + phase_train_kernels(torch, np)
         emit("kernels", kernels=kernels)
         emit("small", **phase_small(torch, np))
         serve, counts, params, cfg = phase_serve(torch, np)
@@ -409,12 +791,20 @@ def main() -> int:
         step, state = phase_step(torch, np, params, cfg)
         emit("step", **step)
         emit("profile", **phase_profile(torch, params, cfg, state))
+        del params, state
+        torch.cuda.empty_cache()
+        train, train_counts = phase_train(torch, np)
+        emit("train", **train)
+        # launches: serving's kernels from the serve phase, training's from train
+        launches = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS}}
+        check(set(launches) == {k["name"] for k in kernels},
+              "the kernels phase and the main paths cover different kernels")
     except SmokeFailure as e:
         emit("failed", error=str(e))
         return 1
     summary = [{k: v for k, v in kern.items()
                 if k not in ("mixes", "shape", "lengths", "rel_err", "library_call")}
-               | {"launches": counts[kern["name"]]} for kern in kernels]
+               | {"launches": launches[kern["name"]]} for kern in kernels]
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,205 @@
+"""Vectorized client-fleet execution (port of ``repro/fl/fleet.py``).
+
+The whole cohort trains as one batched program:
+
+  * Sub-models are dense keep-masks (core/submodel.keep_mask), deduplicated
+    into a (K, ...) bank (core/maskbank.MaskBank) and indexed per client;
+    full-model clients use the all-ones row 0.
+  * Where the reference vmaps one client's SGD over the cohort, the port
+    carries the client axis C explicitly: params are stacked (C, ...) once
+    a round (``w0 = apply_mask(params, bank[idx])``), and each SGD step is
+    one batched forward over all clients, ``loss.sum()`` over the clients'
+    weighted-mean losses, one ``backward()``, and ``w -= lr * m * g`` under
+    ``no_grad``. Through ``KernelMLP.apply_kernels`` a step launches the
+    masked-FFN forward, dx and dW kernels once each for the whole cohort.
+  * Shards pad to the cohort-max step count and batch size with sample
+    weight 0, so ragged shards and per-client step counts share the
+    program; an all-zero step is an exact no-op.
+  * Gradients are mask-projected each step, so deltas come back mask-zeroed
+    in full coordinates and aggregation is one masked-FedAvg reduce
+    (core/aggregate.aggregate_stacked).
+
+The round's host data is built in numpy, in the reference's RNG order, and
+moved to the device once a round. Only the kernel path (``use_kernels``)
+is ported.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import invariant as inv
+from repro_torch.core import submodel as sub
+from repro_torch.core.aggregate import ClientUpdate, aggregate_stacked
+from repro_torch.core.maskbank import MaskBank
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.fl.client import FleetClient, make_weighted_kernel_loss
+
+
+@dataclass
+class CohortResult:
+    """Stacked outputs of one fleet round + per-client views."""
+    engine: "FleetEngine"
+    deltas: dict                    # tree of (C, ...) leaves, mask-zeroed
+    weights: torch.Tensor           # (C,) sample counts
+    mask_bank: dict                 # tree of (K, ...) leaves
+    mask_idx: torch.Tensor          # (C,) int64
+    client_ids: List[int]
+    sim_times: Dict[int, float]
+    straggler_ids: frozenset
+
+    def aggregate(self, global_params):
+        """Masked FedAvg of the cohort (== core.aggregate.aggregate)."""
+        return aggregate_stacked(global_params, self.deltas, self.weights,
+                                 self.mask_bank, self.mask_idx)
+
+    def non_straggler_stats(self, prev_params) -> List[Dict[str, torch.Tensor]]:
+        """Per-client invariant-neuron stats (fp32, on the host)."""
+        out = []
+        for i, cid in enumerate(self.client_ids):
+            if cid in self.straggler_ids:
+                continue
+            new = tree_map(lambda p, d: p + d[i], prev_params, self.deltas)
+            stats = inv.neuron_stats(prev_params, new, self.engine.unit_specs)
+            out.append({g: v.cpu() for g, v in stats.items()})
+        return out
+
+    def updates(self) -> List[ClientUpdate]:
+        """Sequential-style ClientUpdates (tests / inspection)."""
+        out = []
+        for i, cid in enumerate(self.client_ids):
+            mask = None
+            if cid in self.straggler_ids:
+                row = int(self.mask_idx[i])
+                mask = tree_map(lambda b: b[row], self.mask_bank)
+            out.append(ClientUpdate(tree_map(lambda d: d[i], self.deltas),
+                                    int(self.weights[i]), mask,
+                                    self.sim_times[cid], 0.0, cid))
+        return out
+
+
+class FleetEngine:
+    """Runs a homogeneous-model client fleet as one batched program per
+    round. Per-client learning rates, step counts and sub-model masks are
+    data, not program structure."""
+
+    def __init__(self, model_cls, clients: Sequence[FleetClient], unit_specs,
+                 use_kernels: bool = True, device="cuda"):
+        self.model_cls = model_cls
+        self.clients = list(clients)
+        self.unit_specs = unit_specs
+        self.device = torch.device(device)
+        if not self.clients:
+            raise ValueError("FleetEngine needs at least one client")
+        if not use_kernels:
+            raise NotImplementedError(
+                "the port's fleet runs the kernel path only "
+                "(use_kernels=True); the dense path waits (ROADMAP.md)")
+        if not hasattr(model_cls, "apply_kernels"):
+            raise ValueError(
+                f"use_kernels=True needs a model exposing apply_kernels / "
+                f"kernel_masks (see models/kernel_models.py); "
+                f"{model_cls.__name__} does not")
+        # batch dim pads to the cohort max; smaller shards get sample weights
+        self.bs = max(c.eff_batch_size for c in self.clients)
+        self.steps = max(c.local_epochs * (c.n_samples // c.eff_batch_size)
+                         for c in self.clients)
+        self.lrs = np.array([c.lr for c in self.clients], np.float32)
+        self._loss = make_weighted_kernel_loss(model_cls)
+        self._ones_mask: Optional[dict] = None
+        self._bank_cache = None        # (fingerprint, bank, idx, n_by_row)
+
+    # ------------------------------------------------------------- internals
+    def _stacked_data(self):
+        """(xs, ys, sw) on the device: per-client epoch batches padded to
+        (steps, bs); sw is 1.0 on real samples, 0.0 on batch/step padding.
+        Built on the host, consuming each client's RNG as the reference
+        does, and moved to the device in one copy each."""
+        C = len(self.clients)
+        feat = self.clients[0].x.shape[1:]
+        xs = np.zeros((C, self.steps, self.bs, *feat),
+                      self.clients[0].x.dtype)
+        ys = np.zeros((C, self.steps, self.bs), np.int64)
+        sw = np.zeros((C, self.steps, self.bs), np.float32)
+        for i, c in enumerate(self.clients):
+            x, y = c.local_batches()
+            s, b = x.shape[0], x.shape[1]
+            xs[i, :s, :b] = x
+            ys[i, :s, :b] = y
+            sw[i, :s, :b] = 1.0
+        to = functools.partial(torch.as_tensor, device=self.device)
+        return to(xs), to(ys), to(sw)
+
+    def _mask_bank(self, params, keep_maps: Dict[int, dict]):
+        """(bank, idx, n_params_by_row): all-ones row 0 + one row per
+        *distinct* straggler keep-map; idx maps client position -> bank row.
+        Cached across rounds while the keep-maps are unchanged."""
+        km_fp = {cid: tuple((g, kept.tobytes())
+                            for g, kept in sorted(km.items()))
+                 for cid, km in keep_maps.items()}
+        fp = tuple(sorted(km_fp.items()))
+        if self._bank_cache is not None and self._bank_cache[0] == fp:
+            return self._bank_cache[1:]
+        if self._ones_mask is None:
+            self._ones_mask = tree_map(
+                lambda p: torch.ones(p.shape, dtype=torch.float32,
+                                     device=p.device), params)
+        bank_obj = MaskBank(self._ones_mask, device=self.device)
+        row_of = {cid: bank_obj.row_for(
+            km_fp[cid],
+            functools.partial(sub.keep_mask, params, self.unit_specs,
+                              keep_maps[cid]))
+            for cid in sorted(keep_maps)}
+        bank = bank_obj.stacked()
+        idx = torch.tensor([row_of.get(c.id, 0) for c in self.clients],
+                           dtype=torch.int64, device=self.device)
+        # exact integer param counts per row, int64 across leaves
+        n_by_row = sum(b.reshape(b.shape[0], -1).sum(1, dtype=torch.int64)
+                       .cpu().numpy() for b in tree_leaves(bank))
+        self._bank_cache = (fp, bank, idx, n_by_row)
+        return bank, idx, n_by_row
+
+    def _run(self, params, bank, idx, xs, ys, sw, lrs):
+        """Masked local SGD for the whole cohort; returns the (C, ...)
+        mask-zeroed deltas."""
+        m = tree_map(lambda b: b[idx], bank)
+        w0 = sub.apply_mask(tree_map(lambda p: p[None], params), m)
+        kmasks = self.model_cls.kernel_masks(m)
+        w = tree_map(lambda a: a.clone().requires_grad_(True), w0)
+        leaves, masks = tree_leaves(w), tree_leaves(m)
+        lr_of = [lrs.reshape((-1,) + (1,) * (a.ndim - 1)) for a in leaves]
+        for s in range(self.steps):
+            self._loss(w, xs[:, s], ys[:, s], sw[:, s], kmasks).sum().backward()
+            with torch.no_grad():
+                for a, mk, lr in zip(leaves, masks, lr_of):
+                    a -= lr * mk * a.grad
+                    a.grad = None
+        with torch.no_grad():
+            return tree_map(lambda a, b: a.detach() - b, w, w0)
+
+    # ------------------------------------------------------------------- API
+    def run_cohort(self, params, keep_maps: Dict[int, dict],
+                   rates: Optional[Dict[int, float]] = None) -> CohortResult:
+        """One FL round for the whole fleet: keep_maps/rates per straggler
+        client id (absent => full model). The reference's partial-cohort
+        and per-round (lr, n_steps) overrides serve its async backend and
+        wait with it."""
+        rates = rates or {}
+        xs, ys, sw = self._stacked_data()
+        bank, idx, n_by_row = self._mask_bank(params, keep_maps)
+        weights = torch.tensor([float(c.n_samples) for c in self.clients],
+                               device=self.device)
+        deltas = self._run(params, bank, idx, xs, ys, sw,
+                           torch.as_tensor(self.lrs, device=self.device))
+        idx_host = idx.cpu().numpy()
+        sim_times = {c.id: c.draw_sim_time(rates.get(c.id, 1.0),
+                                           int(n_by_row[idx_host[i]]))
+                     for i, c in enumerate(self.clients)}
+        return CohortResult(
+            engine=self, deltas=deltas, weights=weights, mask_bank=bank,
+            mask_idx=idx, client_ids=[c.id for c in self.clients],
+            sim_times=sim_times, straggler_ids=frozenset(keep_maps))

@@ -1,5 +1,6 @@
 // Shared helpers for the repro_torch CUDA kernels: element types, 16-byte
-// vector loads, conversions. Every kernel computes in fp32.
+// vector loads, conversions, activations and their derivatives. Every
+// kernel computes in fp32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +31,39 @@ __device__ __forceinline__ void load16(const T* p, float (&out)[Vec<T>::N]) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < Vec<T>::N; ++i) out[i] = to_f(e[i]);
+}
+
+// Activation codes passed from Python (kernels/masked_ffn.py _ACT_CODE).
+enum Act : int { kRelu = 0, kRelu2 = 1, kGelu = 2, kSilu = 3 };
+
+__device__ __forceinline__ float act_f(float z, int act) {
+  switch (act) {
+    case kRelu: return fmaxf(z, 0.f);
+    case kRelu2: { const float r = fmaxf(z, 0.f); return r * r; }
+    case kGelu: {   // tanh form, as jax.nn.gelu
+      const float c = 0.7978845608028654f;
+      return 0.5f * z * (1.f + tanhf(c * (z + 0.044715f * z * z * z)));
+    }
+    default: return z / (1.f + expf(-z));   // silu
+  }
+}
+
+// d act / dz, as repro/kernels/masked_ffn.py _DACTS (gelu: _dgelu, silu: _dsilu).
+__device__ __forceinline__ float dact_f(float z, int act) {
+  switch (act) {
+    case kRelu: return z > 0.f ? 1.f : 0.f;
+    case kRelu2: return 2.f * fmaxf(z, 0.f);
+    case kGelu: {
+      const float c = 0.7978845608028654f;
+      const float t = tanhf(c * (z + 0.044715f * z * z * z));
+      const float du = c * (1.f + 3.f * 0.044715f * z * z);
+      return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
+    }
+    default: {
+      const float s = 1.f / (1.f + expf(-z));
+      return s * (1.f + z * (1.f - s));
+    }
+  }
 }
 
 // Dispatch a templated launcher on the dtype code.

@@ -51,19 +51,7 @@ constexpr int FG = 2;            // f-blocks per down-kernel group
 constexpr int DN_WARPS = 4;
 constexpr int SMEM_FLOATS = 8192;
 
-enum Act : int { kRelu = 0, kRelu2 = 1, kGelu = 2, kSilu = 3 };
-
-__device__ __forceinline__ float act_f(float z, int act) {
-  switch (act) {
-    case kRelu: return fmaxf(z, 0.f);
-    case kRelu2: { const float r = fmaxf(z, 0.f); return r * r; }
-    case kGelu: {   // tanh form, as jax.nn.gelu
-      const float c = 0.7978845608028654f;
-      return 0.5f * z * (1.f + tanhf(c * (z + 0.044715f * z * z * z)));
-    }
-    default: return z / (1.f + expf(-z));   // silu
-  }
-}
+using rt::act_f;
 
 // Row k of a weight column slice, or zeros past the end of the chunk.
 template <typename T>

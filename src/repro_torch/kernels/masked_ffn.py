@@ -1,13 +1,26 @@
-"""Per-row-masked FFN forward (port of ``repro/kernels/masked_ffn.py``).
+"""Per-row-masked FFN (port of ``repro/kernels/masked_ffn.py``).
 
     y = (act(x @ W_in) [* act(x @ W_gate)] ⊙ row_mask) @ W_out
 
-``masked_ffn_batch`` dispatches on where its tensors lie: on a CUDA tensor
-it launches the hand-written kernel in ``csrc/masked_ffn.cu`` (which
-replaces the Pallas ``_fwd_kernel``) and counts the launch; on a CPU tensor
-it runs ``masked_ffn_batch_plain``. There is no fallback from the card to
-the plain version. The block-mask ``masked_ffn`` and the backward kernels
-(``_dx_kernel``, ``_dw_kernel``) come with the training slice.
+Two forms, each dispatching on where its tensors lie — a CUDA tensor
+launches the hand-written kernel and counts the launch, a CPU tensor runs
+the kernel's plain PyTorch version; there is no fallback from the card to
+the plain version:
+
+* ``masked_ffn_batch`` — the serving form: x (M, d), one weight set,
+  forward only. Kernel ``csrc/masked_ffn.cu`` (replaces the Pallas
+  ``_fwd_kernel``).
+* ``masked_ffn_train`` — the fleet's training form: a client axis C in
+  front of everything (x (C, M, d), weights (C, ...), row_mask (C, M, F)),
+  differentiable through ``MaskedFFNTrain`` (a ``torch.autograd.Function``
+  whose forward launches the forward kernel and whose backward launches
+  the dx and dW kernels of ``csrc/masked_ffn_train.cu``, which replace the
+  Pallas ``_fwd_kernel``, ``_dx_kernel`` and ``_dw_kernel`` under
+  ``jax.vmap``). The backward recomputes the pre-activations from the
+  saved (x, weights, mask) — the reference's recompute policy — and the
+  mask gets no gradient.
+
+The block-mask ``masked_ffn`` entry point is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -24,9 +37,31 @@ _ACTS = {"relu": torch.relu,
          "relu2": lambda h: torch.square(torch.relu(h)),
          "gelu": lambda h: F.gelu(h, approximate="tanh"),
          "silu": F.silu}
-_ACT_CODE = {"relu": 0, "relu2": 1, "gelu": 2, "silu": 3}   # csrc/masked_ffn.cu
+_ACT_CODE = {"relu": 0, "relu2": 1, "gelu": 2, "silu": 3}   # csrc/common.cuh
 
-launches = _build.LaunchCounter()
+
+def _dgelu(z):
+    # derivative of the tanh-form gelu (repro _dgelu)
+    c = 0.7978845608028654            # sqrt(2/pi)
+    t = torch.tanh(c * (z + 0.044715 * z * z * z))
+    du = c * (1.0 + 3 * 0.044715 * z * z)
+    return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * du
+
+
+def _dsilu(z):
+    s = torch.sigmoid(z)
+    return s * (1.0 + z * (1.0 - s))
+
+
+_DACTS = {"relu": lambda z: (z > 0).to(z.dtype),
+          "relu2": lambda z: 2.0 * torch.relu(z),
+          "gelu": _dgelu,
+          "silu": _dsilu}
+
+launches = _build.LaunchCounter()          # masked_ffn_batch (serving)
+train_fwd_launches = _build.LaunchCounter()
+dx_launches = _build.LaunchCounter()
+dw_launches = _build.LaunchCounter()
 
 
 def _validate(x, w_in, w_out, w_gate, mask):
@@ -53,19 +88,26 @@ def _validate(x, w_in, w_out, w_gate, mask):
             f"row of x — got {tuple(mask.shape)}")
 
 
+def _ct(t):
+    """The type the kernels compute in: fp32 (fp64 stays fp64, so that the
+    plain versions can be gradient-checked)."""
+    return t.to(torch.float64 if t.dtype == torch.float64 else torch.float32)
+
+
 def masked_ffn_batch_plain(x, w_in, w_out, row_mask, w_gate=None, act="silu"):
-    """Plain version of the kernel's arithmetic: fp32 products, hidden
-    activations times each row's own (M, F) mask, rounded to x.dtype before
-    the down product as the Pallas ``_fwd_kernel`` rounds them. In fp32 this
-    is ``repro/kernels/ref.py::masked_ffn_batch_ref`` exactly."""
-    xf = x.float()
-    h = xf @ w_in.float()
+    """Plain version of the forward kernels' arithmetic, for either form
+    (leading client axis or none): fp32 products, hidden activations times
+    each row's own mask, rounded to x.dtype before the down product as the
+    Pallas ``_fwd_kernel`` rounds them. In fp32 this is
+    ``repro/kernels/ref.py::masked_ffn_batch_ref`` exactly."""
+    xf = _ct(x)
+    h = xf @ _ct(w_in)
     if w_gate is not None:
-        h = _ACTS[act](xf @ w_gate.float()) * h
+        h = _ACTS[act](xf @ _ct(w_gate)) * h
     else:
         h = _ACTS[act](h)
-    h = (h * row_mask.float()).to(x.dtype)
-    return (h.float() @ w_out.float()).to(x.dtype)
+    h = (h * _ct(row_mask)).to(x.dtype)
+    return (_ct(h) @ _ct(w_out)).to(x.dtype)
 
 
 def _launch(x, w_in, w_out, row_mask, w_gate, act):
@@ -130,3 +172,235 @@ def masked_ffn_batch(x, w_in, w_out, row_mask, w_gate=None, *,
         return masked_ffn_batch_plain(x, w_in, w_out, row_mask, w_gate, act)
     return _launch(x, w_in, w_out, row_mask.to(torch.float32).contiguous(),
                    w_gate, act)
+
+
+# ---------------------------------------------------------------------------
+# training form: client-batched, differentiable
+
+def _validate_train(x, w_in, w_out, w_gate, mask):
+    """The reference's ValueErrors, with the client axis C in front."""
+    if x.ndim != 3:
+        raise ValueError(f"x must be (C, M, d), got shape {tuple(x.shape)}")
+    C, M, d = x.shape
+    if w_in.ndim != 3 or tuple(w_in.shape[:2]) != (C, d):
+        raise ValueError(f"w_in must be (C={C}, d={d}, F), got {tuple(w_in.shape)}")
+    Fh = w_in.shape[2]
+    if Fh % BLOCK_NEURONS != 0:
+        raise ValueError(
+            f"masked FFN hidden dim F={Fh} must be a multiple of "
+            f"BLOCK_NEURONS={BLOCK_NEURONS}; pad w_in/w_out (and the mask) "
+            f"to 128 alignment — anything else would mis-tile the block "
+            f"skip (DESIGN.md §10)")
+    if tuple(w_out.shape) != (C, Fh, d):
+        raise ValueError(f"w_out must be (C={C}, F={Fh}, d={d}), "
+                         f"got {tuple(w_out.shape)}")
+    if w_gate is not None and tuple(w_gate.shape) != (C, d, Fh):
+        raise ValueError(f"w_gate must be (C={C}, d={d}, F={Fh}), "
+                         f"got {tuple(w_gate.shape)}")
+    if tuple(mask.shape) != (C, M, Fh):
+        raise ValueError(
+            f"row_mask must be (C={C}, M={M}, F={Fh}) — one 0/1 neuron mask "
+            f"per row of x — got {tuple(mask.shape)}")
+
+
+def _bwd_core_plain(gy, x, w_in, w_out, row_mask, w_gate, act):
+    """(hm, dzh, dzg) of repro ``_bwd_core``, recomputed from the inputs."""
+    xf, rm = _ct(x), _ct(row_mask)
+    zh = xf @ _ct(w_in)
+    ghm = (_ct(gy) @ _ct(w_out).transpose(-1, -2)) * rm
+    if w_gate is not None:
+        zg = xf @ _ct(w_gate)
+        a = _ACTS[act](zg)
+        return a * zh * rm, ghm * a, ghm * zh * _DACTS[act](zg)
+    return _ACTS[act](zh) * rm, ghm * _DACTS[act](zh), None
+
+
+def masked_ffn_dx_plain(gy, x, w_in, w_out, row_mask, w_gate=None,
+                        act="silu"):
+    """Plain version of the dx kernel: the sum over 128-neuron blocks, in
+    block order as the kernel and ``_dx_kernel`` add them, of
+    dzh·W_inᵀ (+ dzg·W_gateᵀ), in fp32; returned in x.dtype."""
+    _, dzh, dzg = _bwd_core_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
+    dx = 0
+    for f0 in range(0, dzh.shape[-1], BLOCK_NEURONS):
+        f = slice(f0, f0 + BLOCK_NEURONS)
+        dx = dx + dzh[..., f] @ _ct(w_in[..., f]).transpose(-1, -2)
+        if w_gate is not None:
+            dx = dx + dzg[..., f] @ _ct(w_gate[..., f]).transpose(-1, -2)
+    return dx.to(x.dtype)
+
+
+def _sum_mtiles(a, b):
+    """Σ over 8-row m-tiles, in order, of a_tᵀ·b_t — the dW kernel's and
+    ``_dw_kernel``'s accumulation over the rows."""
+    acc = 0
+    for m0 in range(0, a.shape[-2], 8):
+        acc = acc + a[..., m0:m0 + 8, :].transpose(-1, -2) @ b[..., m0:m0 + 8, :]
+    return acc
+
+
+def masked_ffn_dw_plain(gy, x, w_in, w_out, row_mask, w_gate=None,
+                        act="silu"):
+    """Plain version of the dW kernel: (dW_in, dW_out, dW_gate) = (xᵀ·dzh,
+    hmᵀ·gy, xᵀ·dzg) in fp32, each in its weight's dtype (dW_gate None when
+    ungated)."""
+    hm, dzh, dzg = _bwd_core_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
+    xf = _ct(x)
+    dw_in = _sum_mtiles(xf, dzh).to(w_in.dtype)
+    dw_out = _sum_mtiles(hm, _ct(gy)).to(w_out.dtype)
+    dw_gate = None if w_gate is None else _sum_mtiles(xf, dzg).to(w_gate.dtype)
+    return dw_in, dw_out, dw_gate
+
+
+def _check_train(name, x, w_in, w_out, row_mask, w_gate, gy=None):
+    dtype, dev = x.dtype, x.device
+    if dtype not in _build.DTYPE_CODE:
+        raise ValueError(f"{name} kernel takes {list(_build.DTYPE_CODE)}, "
+                         f"got {dtype}")
+    for arg, t in (("x", x), ("gy", gy), ("w_in", w_in), ("w_out", w_out),
+                   ("w_gate", w_gate)):
+        if t is not None:
+            _build.check_operand(arg, t, dtype, dev)
+    _build.check_operand("row_mask", row_mask, torch.float32, dev)
+    C, M, d = x.shape
+    return dtype, dev, C, M, d, w_in.shape[2]
+
+
+def _partials(dev, C, M, d, Fh):
+    nfb = Fh // BLOCK_NEURONS
+    keep = torch.empty((C, -(-M // 8), nfb), dtype=torch.int32, device=dev)
+    part = torch.empty((nfb, C, M, d), dtype=torch.float32, device=dev)
+    return keep, part
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_train_fwd(x, w_in, w_out, row_mask, w_gate, act):
+    dtype, dev, C, M, d, Fh = _check_train("masked_ffn_train_fwd", x, w_in,
+                                           w_out, row_mask, w_gate)
+    lib = _build.load("masked_ffn_train")
+    keep, part = _partials(dev, C, M, d, Fh)
+    y = torch.empty((C, M, d), dtype=dtype, device=dev)
+    err = lib.masked_ffn_train_fwd_launch(
+        x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
+        row_mask.data_ptr(), keep.data_ptr(), part.data_ptr(), y.data_ptr(),
+        C, M, d, Fh, _ACT_CODE[act], _build.DTYPE_CODE[dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"masked_ffn_train_fwd kernel launch failed: CUDA error {err}")
+    train_fwd_launches.n += 1
+    return y
+
+
+def _launch_dx(gy, x, w_in, w_out, row_mask, w_gate, act):
+    dtype, dev, C, M, d, Fh = _check_train("masked_ffn_dx", x, w_in, w_out,
+                                           row_mask, w_gate, gy)
+    lib = _build.load("masked_ffn_train")
+    keep, part = _partials(dev, C, M, d, Fh)
+    dx = torch.empty((C, M, d), dtype=dtype, device=dev)
+    err = lib.masked_ffn_dx_launch(
+        gy.data_ptr(), x.data_ptr(), w_in.data_ptr(), _ptr(w_gate),
+        w_out.data_ptr(), row_mask.data_ptr(), keep.data_ptr(),
+        part.data_ptr(), dx.data_ptr(), C, M, d, Fh, _ACT_CODE[act],
+        _build.DTYPE_CODE[dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"masked_ffn_dx kernel launch failed: CUDA error {err}")
+    dx_launches.n += 1
+    return dx
+
+
+def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
+    dtype, dev, C, M, d, Fh = _check_train("masked_ffn_dw", x, w_in, w_out,
+                                           row_mask, w_gate, gy)
+    lib = _build.load("masked_ffn_train")
+    # every element is written by the kernel, dropped tiles as exact zeros
+    dw_in = torch.empty_like(w_in)
+    dw_out = torch.empty_like(w_out)
+    dw_gate = None if w_gate is None else torch.empty_like(w_gate)
+    err = lib.masked_ffn_dw_launch(
+        gy.data_ptr(), x.data_ptr(), w_in.data_ptr(), _ptr(w_gate),
+        w_out.data_ptr(), row_mask.data_ptr(), dw_in.data_ptr(),
+        _ptr(dw_gate), dw_out.data_ptr(), C, M, d, Fh, _ACT_CODE[act],
+        _build.DTYPE_CODE[dtype], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"masked_ffn_dw kernel launch failed: CUDA error {err}")
+    dw_launches.n += 1
+    return dw_in, dw_out, dw_gate
+
+
+def _bind_train(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.masked_ffn_train_fwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.masked_ffn_train_fwd_launch.restype = i
+    lib.masked_ffn_dx_launch.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.masked_ffn_dx_launch.restype = i
+    lib.masked_ffn_dw_launch.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.masked_ffn_dw_launch.restype = i
+
+
+_build.register_binding("masked_ffn_train", _bind_train)
+
+
+def masked_ffn_train_fwd(x, w_in, w_out, row_mask, w_gate=None, *,
+                         act="silu"):
+    """Forward of the training form (no autograd): CUDA tensors launch the
+    kernel, CPU tensors run ``masked_ffn_batch_plain``."""
+    if x.device.type == "cpu":
+        return masked_ffn_batch_plain(x, w_in, w_out, row_mask, w_gate, act)
+    return _launch_train_fwd(x, w_in, w_out, row_mask, w_gate, act)
+
+
+def masked_ffn_dx(gy, x, w_in, w_out, row_mask, w_gate=None, *, act="silu"):
+    """dL/dx of the training form: CUDA tensors launch the dx kernel, CPU
+    tensors run ``masked_ffn_dx_plain``."""
+    if x.device.type == "cpu":
+        return masked_ffn_dx_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
+    return _launch_dx(gy, x, w_in, w_out, row_mask, w_gate, act)
+
+
+def masked_ffn_dw(gy, x, w_in, w_out, row_mask, w_gate=None, *, act="silu"):
+    """(dW_in, dW_out, dW_gate) of the training form: CUDA tensors launch
+    the dW kernel, CPU tensors run ``masked_ffn_dw_plain``."""
+    if x.device.type == "cpu":
+        return masked_ffn_dw_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
+    return _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act)
+
+
+class MaskedFFNTrain(torch.autograd.Function):
+    """The reference's ``custom_vjp`` (``_differentiable`` :443): saves only
+    (x, weights, mask), and its backward recomputes. The mask's gradient is
+    None — it is sub-model structure, not a trained weight."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, w_out, row_mask, w_gate, act):
+        ctx.act = act
+        ctx.save_for_backward(x, w_in, w_out, row_mask, w_gate)
+        return masked_ffn_train_fwd(x, w_in, w_out, row_mask, w_gate, act=act)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w_in, w_out, row_mask, w_gate = ctx.saved_tensors
+        gy = gy.contiguous()
+        dx = masked_ffn_dx(gy, x, w_in, w_out, row_mask, w_gate, act=ctx.act)
+        dw_in, dw_out, dw_gate = masked_ffn_dw(gy, x, w_in, w_out, row_mask,
+                                               w_gate, act=ctx.act)
+        return dx, dw_in, dw_out, None, dw_gate, None
+
+
+def masked_ffn_train(x, w_in, w_out, row_mask, w_gate=None, *,
+                     act: str = "silu"):
+    """Client-batched, differentiable per-row-masked FFN: client c's rows
+    ``x[c]`` (M, d) go through its own weights ``w_in[c]`` [, ``w_gate[c]``]
+    (d, F) and ``w_out[c]`` (F, d) under its own ``row_mask[c]`` (M, F).
+    Returns (C, M, d) in ``x.dtype``. F must be a multiple of 128.
+    One forward launch, and one dx and one dW launch in the backward, cover
+    all C clients. Tiles that no row of an 8-row m-tile keeps are skipped;
+    their dW is exactly 0."""
+    _validate_train(x, w_in, w_out, w_gate, row_mask)
+    if act not in _ACTS:
+        raise ValueError(f"act must be one of {sorted(_ACTS)}, got {act!r}")
+    return MaskedFFNTrain.apply(x, w_in, w_out,
+                                row_mask.to(torch.float32).contiguous(),
+                                w_gate, act)

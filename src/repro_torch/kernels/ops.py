@@ -3,6 +3,8 @@
 Each wrapper launches its hand-written CUDA kernel when given CUDA tensors
 and runs the kernel's plain PyTorch version when given CPU tensors. The
 other Pallas kernels of the reference are listed in ROADMAP.md queue B.
+Models call the kernels through this module, so a caller can swap a
+wrapper for its plain version (chip_smoke.py does, to compare).
 """
 from __future__ import annotations
 
@@ -13,7 +15,10 @@ BLOCK_NEURONS = 128
 
 # launch counters of the kernels, by public name
 LAUNCHES = {"masked_ffn_batch": _masked_ffn_mod.launches,
-            "decode_gqa": _decode_gqa_mod.launches}
+            "decode_gqa": _decode_gqa_mod.launches,
+            "masked_ffn_train_fwd": _masked_ffn_mod.train_fwd_launches,
+            "masked_ffn_dx": _masked_ffn_mod.dx_launches,
+            "masked_ffn_dw": _masked_ffn_mod.dw_launches}
 
 
 def reset_launch_counts():
@@ -32,6 +37,17 @@ def masked_ffn_batch(x, w_in, w_out, row_mask, w_gate=None, act="silu"):
     drops is skipped; kept tiles apply the exact per-row mask.
     Plain version: masked_ffn.masked_ffn_batch_plain."""
     return _masked_ffn_mod.masked_ffn_batch(x, w_in, w_out, row_mask,
+                                            w_gate=w_gate, act=act)
+
+
+def masked_ffn_train(x, w_in, w_out, row_mask, w_gate=None, act="silu"):
+    """Client-batched, differentiable per-row-masked FFN (the fleet's
+    training form): x (C, M, d), w_in/(w_gate) (C, d, F), w_out (C, F, d),
+    row_mask (C, M, F). Its forward launches one kernel for all C clients,
+    its backward one dx and one dW kernel; dropped tiles are skipped and
+    their dW is exactly 0. Plain versions: masked_ffn.masked_ffn_batch_plain,
+    masked_ffn_dx_plain, masked_ffn_dw_plain."""
+    return _masked_ffn_mod.masked_ffn_train(x, w_in, w_out, row_mask,
                                             w_gate=w_gate, act=act)
 
 

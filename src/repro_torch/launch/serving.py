@@ -37,6 +37,9 @@ from repro_torch.models import model as model_lib
 from repro_torch.models import transformer
 
 
+SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa")   # ops.LAUNCHES keys
+
+
 # ---------------------------------------------------------------------------
 # mask construction helpers
 
@@ -295,9 +298,10 @@ class ServeEngine:
         return results
 
     def summary(self) -> dict:
-        """Counters of the run, and the kernels' launch counts (process-wide
-        counters: reset them with ops.reset_launch_counts())."""
+        """Counters of the run, and the serving kernels' launch counts
+        (process-wide counters: reset them with ops.reset_launch_counts())."""
         d = dict(self.stats)
         d["tok_per_s"] = d["decode_tokens"] / max(d["decode_s"], 1e-9)
-        d["kernel_launches"] = ops.launch_counts()
+        counts = ops.launch_counts()
+        d["kernel_launches"] = {k: counts[k] for k in SERVE_KERNELS}
         return d

@@ -102,3 +102,90 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     k = torch.zeros(2, 8, 3, 64, device=dev)
     with pytest.raises(ValueError, match="H/KV"):
         ops.decode_gqa(q, k, k, torch.ones(2, dtype=torch.int32, device=dev))
+
+
+def _train_masks(C, M, F, g, dev):
+    """Per-client row masks: all kept, ordered rate 0.5 (whole blocks
+    dropped), scattered neurons at 0.75, one all-zero row, all dropped."""
+    masks = []
+    for c in range(C):
+        kind = c % 5
+        if kind == 0:
+            m = torch.ones(M, F, device=dev)
+        elif kind == 1:
+            m = torch.zeros(M, F, device=dev)
+            m[:, :F // 2] = 1.0
+        elif kind == 2:
+            m = (torch.rand(F, generator=g, device=dev) < 0.75).float().expand(M, F)
+        elif kind == 3:
+            m = (torch.rand(M, F, generator=g, device=dev) < 0.5).float()
+            m[0] = 0.0
+        else:
+            m = torch.zeros(M, F, device=dev)
+        masks.append(m)
+    return torch.stack(masks).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True),
+                                       ("relu", False), ("relu2", True)])
+@pytest.mark.parametrize("C,M,d,F", [(5, 10, 64, 1024), (3, 13, 200, 384),
+                                     (2, 1, 40, 128)])
+def test_masked_ffn_train_kernels_match_plain(dev, dtype, act, gated, C, M, d, F):
+    g = torch.Generator(device=dev).manual_seed(C * F + d)
+    r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev)
+                         / math.sqrt(fan)).to(dtype)
+    x, gy = r(C, M, d, fan=1), r(C, M, d, fan=1)
+    w_in, w_out = r(C, d, F, fan=d), r(C, F, d, fan=F)
+    w_gate = r(C, d, F, fan=d) if gated else None
+    mask = _train_masks(C, M, F, g, dev)
+    before = {k: c.n for k, c in ops.LAUNCHES.items()}
+    y = ffn.masked_ffn_train_fwd(x, w_in, w_out, mask, w_gate, act=act)
+    dx = ffn.masked_ffn_dx(gy, x, w_in, w_out, mask, w_gate, act=act)
+    dws = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act=act)
+    torch.cuda.synchronize()
+    for k in ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw"):
+        assert ops.LAUNCHES[k].n == before[k] + 1
+    want_y = ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, act)
+    want_dx = ffn.masked_ffn_dx_plain(gy, x, w_in, w_out, mask, w_gate, act)
+    want_dws = ffn.masked_ffn_dw_plain(gy, x, w_in, w_out, mask, w_gate, act)
+    assert y.dtype == dtype and y.shape == (C, M, d)
+    assert _rel_err(y, want_y) <= _tol(dtype)
+    assert _rel_err(dx, want_dx) <= _tol(dtype)
+    for got, want in zip(dws, want_dws):
+        if want is None:
+            assert got is None
+            continue
+        assert got.dtype == dtype
+        assert _rel_err(got, want) <= _tol(dtype)
+    # tiles no row keeps: dW exactly 0; an all-dropped client: y and dx 0
+    blk = mask.view(C, M, F // 128, 128).amax(dim=(1, 3)) == 0      # (C, nfb)
+    cols = blk.repeat_interleave(128, dim=1)                          # (C, F)
+    assert (dws[0].transpose(1, 2)[cols] == 0).all()
+    assert (dws[1][cols] == 0).all()
+    if gated:
+        assert (dws[2].transpose(1, 2)[cols] == 0).all()
+    dead = mask.sum(dim=(1, 2)) == 0
+    assert (y[dead] == 0).all() and (dx[dead] == 0).all()
+
+
+def test_masked_ffn_train_autograd_launches_each_kernel_once(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    C, M, d, F = 5, 10, 64, 1024
+    x = torch.randn(C, M, d, generator=g, device=dev, requires_grad=True)
+    w_in = (torch.randn(C, d, F, generator=g, device=dev) / 8).requires_grad_()
+    w_out = (torch.randn(C, F, d, generator=g, device=dev) / 32).requires_grad_()
+    mask = _train_masks(C, M, F, g, dev)
+    ops.reset_launch_counts()
+    y = ops.masked_ffn_train(x, w_in, w_out, mask, act="gelu")
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("masked_ffn_train_fwd", "masked_ffn_dx",
+                                "masked_ffn_dw")] == [1, 1, 1]
+    gy = 2 * y.detach()
+    args = (x.detach(), w_in.detach(), w_out.detach(), mask)
+    assert _rel_err(x.grad, ffn.masked_ffn_dx_plain(gy, *args, None, "gelu")) <= 1e-4
+    want_in, want_out, _ = ffn.masked_ffn_dw_plain(gy, *args, None, "gelu")
+    assert _rel_err(w_in.grad, want_in) <= 1e-4
+    assert _rel_err(w_out.grad, want_out) <= 1e-4

@@ -58,7 +58,7 @@ def test_masked_ffn_batch_plain_matches_pallas(act, gated, F):
     np.testing.assert_allclose(plain, want, **TOL)
     np.testing.assert_array_equal(got, plain)       # CPU dispatch = plain
     assert (plain[4] == 0.0).all()                  # all-dropped row: exact 0
-    assert ops.launch_counts() == {"masked_ffn_batch": 0, "decode_gqa": 0}
+    assert ops.launch_counts() == {name: 0 for name in ops.LAUNCHES}
 
 
 @pytest.mark.parametrize("case", ["unaligned_F", "row_mask_shape"])
@@ -99,7 +99,7 @@ def test_decode_gqa_plain_matches_pallas(G, lengths):
     np.testing.assert_allclose(plain, pallas, **TOL)
     np.testing.assert_allclose(plain, oracle, **TOL)
     np.testing.assert_array_equal(got, plain)
-    assert ops.launch_counts() == {"masked_ffn_batch": 0, "decode_gqa": 0}
+    assert ops.launch_counts() == {name: 0 for name in ops.LAUNCHES}
 
 
 def test_decode_gqa_rejects_bad_shapes():
