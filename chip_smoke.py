@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
 """Prove the PyTorch port runs on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version at its path's shapes, serve
-StableLM-2-12B at full width and run FLuID training through
-``repro_torch``, and check the results.
+StableLM-2-12B at full width and run FLuID training on both kernel
+workloads through ``repro_torch``, and check the results.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. Phases print one JSON line each:
+Run from the root of a checkout. Phases print one JSON line each, with
+the seconds the phase took (``phase_s``):
 
-  env      torch, CUDA, the card and its power limit
-  build    one nvcc per kernel source, all at once
-  kernels  each kernel against its plain version, timed beside its bound:
-           the serving forms at the decode shapes, the training forms at
-           the fleet's (C 5 and 64 clients, M 10, d 64, F 1024)
-  small    a smoke-size fp32 model, card vs CPU
-  serve    24 mixed-rate requests at full width (serving's main path)
-  step     every launch of a full-width decode step against its plain version
-  profile  device time by kernel over a few decode steps
-  train    6 FLuID rounds of femnist_kernel on the fleet backend (training's
-           main path): each training kernel launched once per SGD step; the
-           same run with the plain versions must reach the same stragglers,
-           rates, keep-maps and round times; busy share, tile-skip shares,
-           and a 64-client cohort
+  env        torch, CUDA, the card and its power limit
+  build      one nvcc per kernel source, all at once
+  kernels    each kernel against its plain version, timed beside its bound
+             and, where one exists, a library call: the serving forms at
+             the decode shapes; the masked-FFN training forms at the
+             fleet's (C 5 and 64 clients, M 10, d 64, F 1024) and at
+             femnist_attn's FFN (C 5, M 490, F 256); the six head-masked
+             projection kernels at femnist_attn's (C 5 and 64, M 490,
+             d 64, 4 heads of 16)
+  small      a smoke-size fp32 model, card vs CPU
+  serve      24 mixed-rate requests at full width (serving's main path)
+  step       every launch of a full-width decode step against its plain version
+  profile    device time by kernel over a few decode steps
+  train      6 FLuID rounds of femnist_kernel on the fleet backend (the
+             FFN training path): each masked-FFN kernel launched once per
+             SGD step; the same run with the plain versions must reach the
+             same stragglers, rates, keep-maps and round times; busy share,
+             tile-skip shares, and a 64-client cohort
+  train_attn the same for femnist_attn (KernelAttnClassifier): each
+             head-masked projection kernel launched 3 times per SGD step
+             (Q, K, V), each merge kernel once, each FFN kernel once; also
+             the share of (client, head) slabs skipped per policy
 
 Any failure exits non-zero. The last three lines are the per-kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
@@ -45,8 +54,14 @@ FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 FFN_SHAPE = dict(M=8, d=5120, F=13824)
 GQA_SHAPE = dict(B=8, H=32, KV=8, hd=128, C=576)
 TRAIN_SHAPE = dict(M=10, d=64, F=1024)     # KernelMLP's FFN, batch 10
+# KernelAttnClassifier at batch 10: 490 rows a client, 4 heads of 16, FFN 256
+ATTN_SHAPE = dict(M=490, d=64, H=4, hd=16, F=256)
 SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa")
 TRAIN_KERNELS = ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")
+# the head-masked kernels and their launches per SGD step (Q, K, V or O)
+ATTN_KERNELS = {"masked_head_proj": 3, "masked_head_proj_dx": 3,
+                "masked_head_proj_dw": 3, "masked_head_merge": 1,
+                "masked_head_merge_da": 1, "masked_head_merge_dw": 1}
 N_TIMED = 25
 
 
@@ -54,8 +69,15 @@ class SmokeFailure(Exception):
     pass
 
 
+_last_emit = [time.perf_counter()]
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for a phase, with the seconds since the last line."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": phase, "phase_s": now - _last_emit[0], **kw}),
+          flush=True)
+    _last_emit[0] = now
 
 
 def check(ok, msg):
@@ -232,13 +254,12 @@ def phase_kernels(torch, np):
     return out
 
 
-def train_masks(torch, np, C, kind, dev):
+def train_masks(torch, np, C, kind, dev, M=TRAIN_SHAPE["M"], F=TRAIN_SHAPE["F"]):
     """(C, M, F) row masks from the port's own policies: every client all
     kept, ordered at rate 0.5 (whole blocks dropped), invariant at 0.75
     (scattered neurons), or "main" — the training path's mix, one client in
     eight (client 0 of 5) on the invariant 0.75 keep-map, the rest full."""
     from repro_torch.core.dropout import get_policy
-    M, F = TRAIN_SHAPE["M"], TRAIN_SHAPE["F"]
     spec = [{"name": "ffn", "size": F, "out": [], "in": []}]
     inv = get_policy("invariant", spec)
     rng = np.random.RandomState(0)
@@ -284,7 +305,7 @@ def train_work(torch, mask, d, gated, elem):
 def phase_train_kernels(torch, np, dev="cuda"):
     """The three training kernels against their plain versions at the
     fleet's shapes: C 5 and 64, fp32 gelu under four masks, and one gated
-    bf16 case. Relative ∞-norm <= 1e-4 in fp32 (1e-2 in bf16); the dW of a
+    bf16 case; and at femnist_attn's FFN shape (C 5, M 490, F 256). Relative ∞-norm <= 1e-4 in fp32 (1e-2 in bf16); the dW of a
     tile no row keeps is exactly 0. ``ms`` is device time per call, from
     CUDA events around a CUDA graph of calls (the kernels are a few
     microseconds, below the host's launch time, which ``host_ms`` gives:
@@ -292,18 +313,23 @@ def phase_train_kernels(torch, np, dev="cuda"):
     from repro_torch.kernels import masked_ffn as ffn
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(1)
-    M, d, F = TRAIN_SHAPE["M"], TRAIN_SHAPE["d"], TRAIN_SHAPE["F"]
-    cases = [(C, kind, torch.float32, "gelu", False) for C in (5, 64)
+    d = TRAIN_SHAPE["d"]
+    mlp = (TRAIN_SHAPE["M"], TRAIN_SHAPE["F"])
+    cases = [(C, mlp, kind, torch.float32, "gelu", False) for C in (5, 64)
              for kind in ("main", "all_kept", "ordered0.5", "invariant0.75")]
-    cases.append((5, "ordered0.5", torch.bfloat16, "gelu", True))
+    cases.append((5, mlp, "ordered0.5", torch.bfloat16, "gelu", True))
+    # femnist_attn's FFN: 490 rows a client, F 256
+    attn = (ATTN_SHAPE["M"], ATTN_SHAPE["F"])
+    cases += [(5, attn, kind, torch.float32, "gelu", False)
+              for kind in ("main", "all_kept")]
     per = {k: [] for k in TRAIN_KERNELS}
-    for C, kind, dtype, act, gated in cases:
+    for C, (M, F), kind, dtype, act, gated in cases:
         r = lambda *sh, fan: (torch.randn(*sh, generator=g, device=dev)
                               / fan ** 0.5).to(dtype)
         x, gy = r(C, M, d, fan=1), r(C, M, d, fan=1)
         w_in, w_out = r(C, d, F, fan=d), r(C, F, d, fan=F)
         w_gate = r(C, d, F, fan=d) if gated else None
-        mask = train_masks(torch, np, C, kind, dev)
+        mask = train_masks(torch, np, C, kind, dev, M, F)
         args = (x, w_in, w_out, mask, w_gate)
         runs = {"masked_ffn_train_fwd": (
                     lambda: ffn.masked_ffn_train_fwd(*args, act=act),
@@ -318,7 +344,8 @@ def phase_train_kernels(torch, np, dev="cuda"):
         tol = 1e-4 if dtype == torch.float32 else 1e-2
         dropped = (mask.amax(dim=1).view(C, F // 128, 128).amax(dim=2) == 0
                    ).repeat_interleave(128, dim=1)                    # (C, F)
-        name = f"C{C}/{kind}/{str(dtype)[6:]}/{act}{'/gated' if gated else ''}"
+        name = (f"C{C}/M{M}/F{F}/{kind}/{str(dtype)[6:]}/{act}"
+                f"{'/gated' if gated else ''}")
         for k, (kern, plain) in runs.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -361,6 +388,132 @@ def phase_train_kernels(torch, np, dev="cuda"):
     return out
 
 
+PAIRS = ((0, 1), (2, 3), (0, 2), (1, 3), (0, 3), (1, 2))   # heads a "half" client drops
+
+
+def head_masks(torch, C, kind, dev):
+    """(C, H) head masks: "main" — the femnist_attn path's mix, one client
+    in eight (client 0 of 5) on 3 of 4 heads (the invariant policy's
+    keep_count at rate 0.75), the rest full — or "half", every client on 2
+    of 4 heads, a different pair each."""
+    H = ATTN_SHAPE["H"]
+    m = torch.ones(C, H)
+    for c in range(C):
+        if kind == "main" and c % 8 == 0:
+            m[c, 1] = 0.0
+        elif kind == "half":
+            m[c, list(PAIRS[c % len(PAIRS)])] = 0.0
+    return m.to(dev)
+
+
+def attn_work(mask, M, width, hd, elem=4):
+    """(bytes, flops) per head-masked kernel that this head mask's data
+    needs: the kept heads' slabs of each head-partitioned input and of the
+    weights, the other input of the clients that keep any head, the output
+    written whole and the mask; 2 FLOPs a multiply-add over kept heads."""
+    C, H = mask.shape
+    N = H * hd
+    kh = int((mask != 0).sum())                 # kept (client, head) pairs
+    kc = int((mask != 0).any(dim=1).sum())      # clients that keep a head
+    slab = kh * M * hd * elem                   # kept slabs of a (C, M, N) operand
+    full = kc * M * width * elem                # a (C, M, width) operand
+    w = kh * width * hd * elem                  # kept slabs of the weight
+    out_mn, out_mw, out_w = C * M * N * elem, C * M * width * elem, C * width * N * elem
+    flops = 2 * M * width * hd * kh
+    mbytes = C * H * 4
+    return {"masked_head_proj": (full + w + out_mn + mbytes, flops),
+            "masked_head_proj_dx": (slab + w + out_mw + mbytes, flops),
+            "masked_head_proj_dw": (full + slab + out_w + mbytes, flops),
+            "masked_head_merge": (slab + w + out_mw + mbytes, flops),
+            "masked_head_merge_da": (full + w + out_mn + mbytes, flops),
+            "masked_head_merge_dw": (slab + full + out_w + mbytes, flops)}
+
+
+def phase_attn_kernels(torch, np, dev="cuda"):
+    """The six head-masked kernels against their plain versions at the
+    femnist_attn shapes (C 5 and 64 clients, M 490, d 64, H 4, hd 16,
+    fp32) under two head-mask mixes. Relative ∞-norm <= 1e-4; a dropped
+    head's output slab (y, da, dW columns or rows) is exactly 0. ``ms`` is
+    device time per call from CUDA events around a CUDA graph of 20 calls;
+    ``library_ms`` one ``torch.bmm`` that computes the same function with
+    the head mask folded into an operand beforehand."""
+    from repro_torch.kernels import masked_attn as attn
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    M, d, H, hd = (ATTN_SHAPE[k] for k in ("M", "d", "H", "hd"))
+    N = H * hd
+    per = {k: [] for k in ATTN_KERNELS}
+    for C in (5, 64):
+        for kind in ("main", "half"):
+            r = lambda *sh, fan: torch.randn(*sh, generator=g, device=dev) / fan ** 0.5
+            x, gy_p, w_p = r(C, M, d, fan=1), r(C, M, N, fan=1), r(C, d, N, fan=d)
+            a, gy_m, w_m = r(C, M, N, fan=1), r(C, M, d, fan=1), r(C, N, d, fan=N)
+            mask = head_masks(torch, C, kind, dev)
+            cols = (mask != 0).float().repeat_interleave(hd, dim=1)      # (C, N)
+            # the library call's operands, head mask folded in ahead of time
+            w_pm, gy_pm = w_p * cols[:, None, :], gy_p * cols[:, None, :]
+            w_mm, a_m = w_m * cols[:, :, None], a * cols[:, None, :]
+            xt, a_mt = x.transpose(1, 2), a_m.transpose(1, 2)
+            runs = {
+                "masked_head_proj": (lambda: attn.proj_fwd(x, w_p, mask),
+                                     lambda: attn.masked_head_proj_plain(x, w_p, mask),
+                                     lambda: torch.bmm(x, w_pm)),
+                "masked_head_proj_dx": (lambda: attn.proj_dx(gy_p, w_p, mask),
+                                        lambda: attn.masked_head_proj_dx_plain(gy_p, w_p, mask),
+                                        lambda: torch.bmm(gy_p, w_pm.transpose(1, 2))),
+                "masked_head_proj_dw": (lambda: attn.proj_dw(gy_p, x, mask),
+                                        lambda: attn.masked_head_proj_dw_plain(gy_p, x, mask),
+                                        lambda: torch.bmm(xt, gy_pm)),
+                "masked_head_merge": (lambda: attn.merge_fwd(a, w_m, mask),
+                                      lambda: attn.masked_head_merge_plain(a, w_m, mask),
+                                      lambda: torch.bmm(a, w_mm)),
+                "masked_head_merge_da": (lambda: attn.merge_da(gy_m, w_m, mask),
+                                         lambda: attn.masked_head_merge_da_plain(gy_m, w_m, mask),
+                                         lambda: torch.bmm(gy_m, w_mm.transpose(1, 2))),
+                "masked_head_merge_dw": (lambda: attn.merge_dw(gy_m, a, mask),
+                                         lambda: attn.masked_head_merge_dw_plain(gy_m, a, mask),
+                                         lambda: torch.bmm(a_mt, gy_m))}
+            work = attn_work(mask, M, d, hd)
+            dropped = (cols == 0)                                          # (C, N)
+            name = f"C{C}/{kind}"
+            for k, (kern, plain, lib) in runs.items():
+                got, want, libv = kern(), plain(), lib()
+                torch.cuda.synchronize()
+                err = rel_inf(got, want)
+                check(err <= 1e-4, f"{k}[{name}] rel err {err}")
+                lib_err = rel_inf(libv, want)
+                check(lib_err <= 1e-4, f"{k}[{name}] library yardstick disagrees: {lib_err}")
+                slabs = got if k == "masked_head_merge_dw" else got.transpose(1, 2)
+                if k not in ("masked_head_proj_dx", "masked_head_merge"):
+                    check(bool((slabs[dropped] == 0).all()),
+                          f"{k}[{name}] dropped head's slab not exactly 0")
+                b_ms, b_by = bound_ms(*work[k], FP32_FLOPS)
+                per[k].append({
+                    "case": name, "skipped_head_share": float(dropped.float().mean()),
+                    "max_abs_err": float((got - want).abs().max()), "rel_err": err,
+                    "ms": graph_ms(kern, torch), "plain_ms": graph_ms(plain, torch),
+                    "library_ms": graph_ms(lib, torch),
+                    "host_ms": time_loop_ms(kern, torch),
+                    "plain_host_ms": time_loop_ms(plain, torch, n=20),
+                    "bound_ms": b_ms, "bound_by": b_by})
+    src = "src/repro_torch/kernels/csrc/masked_attn.cu"
+    replaces = {"masked_head_proj": 153, "masked_head_proj_dx": 171,
+                "masked_head_proj_dw": 189, "masked_head_merge": 224,
+                "masked_head_merge_da": 242, "masked_head_merge_dw": 260}
+    out = []
+    for k in ATTN_KERNELS:
+        head = per[k][0]                  # C 5, the path's head-mask mix
+        out.append({"name": k, "route": "cuda", "source": src,
+                    "replaces": f"src/repro/kernels/masked_attn.py:{replaces[k]}",
+                    "max_abs_err": max(c["max_abs_err"] for c in per[k]),
+                    "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                    "library_ms": head["library_ms"],
+                    "library_call": "torch.bmm, head mask folded into an operand",
+                    "shape": dict(ATTN_SHAPE, C=5), "mixes": per[k]})
+    return out
+
+
 def plain_train(torch):
     """ops.masked_ffn_train with the plain forward, dx and dW versions."""
     from repro_torch.kernels import masked_ffn as ffn
@@ -382,19 +535,46 @@ def plain_train(torch):
         x, wi, wo, m.float().contiguous(), w_gate, act)
 
 
+def plain_heads(torch):
+    """ops.masked_head_proj and ops.masked_head_merge with the plain
+    forward, d-input and dW versions."""
+    from repro_torch.kernels import masked_attn as attn
+
+    def make(fwd, d_in, d_w):
+        class PlainHeads(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, a, w, m):
+                ctx.save_for_backward(a, w, m)
+                return fwd(a, w, m)
+
+            @staticmethod
+            def backward(ctx, gy):
+                a, w, m = ctx.saved_tensors
+                return d_in(gy, w, m), d_w(gy, a, m), None
+        return lambda a, w, m: PlainHeads.apply(a, w, m.float().contiguous())
+    return (make(attn.masked_head_proj_plain, attn.masked_head_proj_dx_plain,
+                 attn.masked_head_proj_dw_plain),
+            make(attn.masked_head_merge_plain, attn.masked_head_merge_da_plain,
+                 attn.masked_head_merge_dw_plain))
+
+
 def swap_in_plain(ops):
     """Point the models' kernel calls at the plain versions; returns undo."""
     import torch
     from repro_torch.kernels import decode_gqa as gqa
     from repro_torch.kernels import masked_ffn as ffn
-    saved = ops.masked_ffn_batch, ops.decode_gqa, ops.masked_ffn_train
+    names = ("masked_ffn_batch", "decode_gqa", "masked_ffn_train",
+             "masked_head_proj", "masked_head_merge")
+    saved = {n: getattr(ops, n) for n in names}
     ops.masked_ffn_batch = lambda x, wi, wo, m, w_gate=None, act="silu": \
         ffn.masked_ffn_batch_plain(x, wi, wo, m, w_gate, act)
     ops.decode_gqa = gqa.decode_gqa_plain
     ops.masked_ffn_train = plain_train(torch)
+    ops.masked_head_proj, ops.masked_head_merge = plain_heads(torch)
 
     def undo():
-        ops.masked_ffn_batch, ops.decode_gqa, ops.masked_ffn_train = saved
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
     return undo
 
 
@@ -666,21 +846,37 @@ def busy_share(torch, fn):
             "device_busy_share": dev_us / wall_us, "top": top}
 
 
-def phase_train(torch, np, dev="cuda"):
-    """FLuID training through the port's entry point: femnist_kernel on the
+def head_skip_shares(log, H):
+    """Share of (client, head) slabs the head-masked kernels skip, per
+    round: over the whole cohort, and over the stragglers alone."""
+    out = []
+    for r in log:
+        skipped = [H - len(km["heads"]) for km in r["keep_maps"].values()]
+        out.append({"cohort": sum(skipped) / (r["clients"] * H),
+                    "stragglers": (sum(skipped) / (len(skipped) * H)
+                                   if skipped else None)})
+    return out
+
+
+def fl_phase(torch, np, name, workload, per_step, dev="cuda"):
+    """FLuID training through the port's entry point: ``workload`` on the
     fleet backend, the paper's 5 clients with straggler 0, n_data 2000, 6
-    rounds. Each training kernel must launch once per SGD step. The same
-    experiment with the plain versions swapped in must give identical
-    stragglers, rates, keep-maps and round times, and final params within
-    5e-4 (the reference's fleet-vs-sequential tolerance)."""
+    rounds. Each kernel in ``per_step`` must launch that many times per SGD
+    step. The same experiment with the plain versions swapped in must give
+    identical stragglers, rates, keep-maps and round times, and final
+    params within 5e-4 (the reference's fleet-vs-sequential tolerance).
+    Then one more round under the profiler, 3 rounds each under the
+    ordered and random policies for the skip shares, and a 64-client
+    cohort for 2 rounds."""
     from repro_torch.core.tree import tree_leaves
     from repro_torch.fl.simulation import (CohortConfig, SimulationConfig,
                                            run_experiment)
     from repro_torch.kernels import ops
+    F = {"femnist_kernel": TRAIN_SHAPE["F"], "femnist_attn": ATTN_SHAPE["F"]}[workload]
 
     def experiment(n_clients, rounds, policy="invariant"):
         cfg = SimulationConfig(
-            workload="femnist_kernel", backend="fleet", use_kernels=True,
+            workload=workload, backend="fleet", use_kernels=True,
             policy=policy, device=dev,
             cohort=CohortConfig(n_clients=n_clients, straggler_ids=(0,),
                                 n_data=2000))
@@ -697,14 +893,15 @@ def phase_train(torch, np, dev="cuda"):
     sim, hist, log, wall = experiment(5, 6)
     counts = ops.launch_counts()               # main path ends here
     steps = sum(r["steps"] for r in log)
-    for k in TRAIN_KERNELS:
-        check(counts[k] == steps,
-              f"train: {k} launched {counts[k]} times, expected one per SGD step ({steps})")
+    for k, n in per_step.items():
+        check(counts[k] == n * steps,
+              f"{name}: {k} launched {counts[k]} times, expected {n} per SGD "
+              f"step ({n} x {steps})")
     params = tree_leaves(sim.server.params)
-    check(all(bool(torch.isfinite(p).all()) for p in params), "train: non-finite params")
-    check(any(h.stragglers for h in hist), "train: dropout never engaged")
+    check(all(bool(torch.isfinite(p).all()) for p in params), f"{name}: non-finite params")
+    check(any(h.stragglers for h in hist), f"{name}: dropout never engaged")
     acc = hist[-1].accuracy
-    check(acc == acc and acc > 1 / 62, f"train: final accuracy {acc} not above chance")
+    check(acc == acc and acc > 1 / 62, f"{name}: final accuracy {acc} not above chance")
 
     undo = swap_in_plain(ops)
     try:
@@ -713,27 +910,34 @@ def phase_train(torch, np, dev="cuda"):
         undo()
     for a, b, ra, rb in zip(hist, phist, log, plog):
         check(a.stragglers == b.stragglers and a.rates == b.rates,
-              f"train: round {a.round} plan differs from the plain run")
+              f"{name}: round {a.round} plan differs from the plain run")
         check(a.round_time == b.round_time,
-              f"train: round {a.round} time {a.round_time} vs plain {b.round_time}")
+              f"{name}: round {a.round} time {a.round_time} vs plain {b.round_time}")
         check(ra["keep_maps"].keys() == rb["keep_maps"].keys() and all(
-            np.array_equal(ra["keep_maps"][c][g], rb["keep_maps"][c][g])
-            for c in ra["keep_maps"] for g in ra["keep_maps"][c]),
-            f"train: round {a.round} keep-maps differ from the plain run")
+            ra["keep_maps"][c].keys() == rb["keep_maps"][c].keys()
+            and all(np.array_equal(ra["keep_maps"][c][g], rb["keep_maps"][c][g])
+                    for g in ra["keep_maps"][c])
+            for c in ra["keep_maps"]),
+            f"{name}: round {a.round} keep-maps differ from the plain run")
     diff = max(float((p - q).abs().max()) for p, q in
                zip(params, tree_leaves(psim.server.params)))
-    check(diff <= 5e-4, f"train: params differ from the plain run by {diff}")
+    check(diff <= 5e-4, f"{name}: params differ from the plain run by {diff}")
 
     # one more round of the same cohort under the profiler
     prof5 = busy_share(torch, lambda: sim.server.run_round())
-    policies = {"invariant": skip_shares(log, TRAIN_SHAPE["F"])}
+    logs = {"invariant": log}
     for pol in ("ordered", "random"):
-        policies[pol] = skip_shares(experiment(5, 3, pol)[2], TRAIN_SHAPE["F"])
+        logs[pol] = experiment(5, 3, pol)[2]
+    skips = {"skipped_tile_share": {p: skip_shares(lg, F) for p, lg in logs.items()}}
+    if workload == "femnist_attn":
+        skips["skipped_head_share"] = {p: head_skip_shares(lg, ATTN_SHAPE["H"])
+                                       for p, lg in logs.items()}
     s64, h64, log64, wall64 = experiment(64, 2)
     prof64 = busy_share(torch, lambda: s64.server.run_round())
     train_s = [r["train_s"] for r in log]
     return {
-        "cohort": 5, "rounds": 6, "n_data": 2000, "steps_per_round": log[0]["steps"],
+        "workload": workload, "cohort": 5, "rounds": 6, "n_data": 2000,
+        "steps_per_round": log[0]["steps"],
         "wall_s": wall, "plain_wall_s": pwall,
         "round_s": [r["round_s"] for r in log],
         "plain_round_s": [r["round_s"] for r in plog],
@@ -747,13 +951,28 @@ def phase_train(torch, np, dev="cuda"):
         "accuracy": [h.accuracy for h in hist],
         "plain_accuracy": [h.accuracy for h in phist],
         "params_max_abs_diff_vs_plain": diff, "launches": counts,
-        "profile_round": prof5, "skipped_tile_share": policies,
+        "profile_round": prof5, **skips,
         "cohort64": {"rounds": 2, "steps_per_round": log64[0]["steps"],
                      "wall_s": wall64, "round_s": [r["round_s"] for r in log64],
                      "round_train_s": [r["train_s"] for r in log64],
                      "ms_per_sgd_step": 1e3 * log64[-1]["train_s"] / log64[-1]["steps"],
                      "accuracy": [h.accuracy for h in h64],
                      "profile_round": prof64}}, counts
+
+
+def phase_train(torch, np, dev="cuda"):
+    """femnist_kernel (KernelMLP): each masked-FFN training kernel launches
+    once per SGD step."""
+    return fl_phase(torch, np, "train", "femnist_kernel",
+                    {k: 1 for k in TRAIN_KERNELS}, dev)
+
+
+def phase_train_attn(torch, np, dev="cuda"):
+    """femnist_attn (KernelAttnClassifier): each head-masked projection
+    kernel launches 3 times per SGD step (Q, K, V), each merge kernel once
+    (O), each masked-FFN training kernel once."""
+    return fl_phase(torch, np, "train_attn", "femnist_attn",
+                    {**{k: 1 for k in TRAIN_KERNELS}, **ATTN_KERNELS}, dev)
 
 
 def main() -> int:
@@ -783,7 +1002,8 @@ def main() -> int:
                  for n, log in _build.build_log.items()}
         emit("build", seconds=time.perf_counter() - t0, per_source=built,
              ptxas=ptxas)
-        kernels = phase_kernels(torch, np) + phase_train_kernels(torch, np)
+        kernels = (phase_kernels(torch, np) + phase_train_kernels(torch, np)
+                   + phase_attn_kernels(torch, np))
         emit("kernels", kernels=kernels)
         emit("small", **phase_small(torch, np))
         serve, counts, params, cfg = phase_serve(torch, np)
@@ -795,8 +1015,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         train, train_counts = phase_train(torch, np)
         emit("train", **train)
-        # launches: serving's kernels from the serve phase, training's from train
-        launches = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS}}
+        train_attn, attn_counts = phase_train_attn(torch, np)
+        emit("train_attn", **train_attn)
+        # launches: serving's kernels from the serve phase, the FFN training
+        # kernels' from train, the head-masked kernels' from train_attn
+        launches = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS},
+                    **{k: attn_counts[k] for k in ATTN_KERNELS}}
         check(set(launches) == {k["name"] for k in kernels},
               "the kernels phase and the main paths cover different kernels")
     except SmokeFailure as e:

@@ -2,12 +2,14 @@
 (port of ``repro/fl/simulation.py``).
 
 An experiment is a typed ``SimulationConfig`` (workload, backend, policy,
-cohort, speed model, device). The port runs the kernel training path:
-workload ``femnist_kernel`` on the ``fleet`` backend with
-``use_kernels=True``, where every SGD step of the cohort goes through the
-hand-written masked-FFN forward, dx and dW kernels on the card. The other
-workloads and backends raise ``NotImplementedError`` until their slice
-(ROADMAP.md queue A).
+cohort, speed model, device). The port runs the kernel training path, on
+the ``fleet`` backend with ``use_kernels=True``, for the reference's two
+kernel workloads: ``femnist_kernel`` (``KernelMLP``), where every SGD step
+of the cohort goes through the hand-written masked-FFN forward, dx and dW
+kernels on the card, and ``femnist_attn`` (``KernelAttnClassifier``),
+which adds the head-masked Q/K/V projection and O merge kernels, forward
+and backward. The other workloads and backends raise
+``NotImplementedError`` until their slice (ROADMAP.md queue A).
 
 ``device`` defaults to "cuda", and a config that asks for the card raises
 on a machine without one. With ``device="cpu"`` the kernels' plain versions
@@ -41,10 +43,10 @@ BACKENDS = tuple(n for n in BACKEND_NAMES if n != "async")
 WORKLOADS = {
     # dataset, model, paper lr, batch size
     "femnist_kernel": ("femnist", "kernel_mlp", 0.02, 10),
+    "femnist_attn": ("femnist", "kernel_attn", 0.02, 10),
 }
 # the reference's other workloads, waiting for their models' slice
-NOT_PORTED_WORKLOADS = ("femnist", "cifar10", "shakespeare", "femnist_attn",
-                        "synth")
+NOT_PORTED_WORKLOADS = ("femnist", "cifar10", "shakespeare", "synth")
 
 
 @dataclass

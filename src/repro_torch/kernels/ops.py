@@ -1,14 +1,18 @@
 """Public wrappers around the port's kernels (mirror of ``repro/kernels/ops.py``).
 
 Each wrapper launches its hand-written CUDA kernel when given CUDA tensors
-and runs the kernel's plain PyTorch version when given CPU tensors. The
-other Pallas kernels of the reference are listed in ROADMAP.md queue B.
+and runs the kernel's plain PyTorch version when given CPU tensors: the
+masked FFN (serving and training forms), the head-masked attention
+projections and ``decode_gqa``. The reference's two Pallas kernels that no
+main path runs, ``invariant_stats`` and ``rwkv_chunk_scan``, are listed in
+ROADMAP.md queue B.
 Models call the kernels through this module, so a caller can swap a
 wrapper for its plain version (chip_smoke.py does, to compare).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_gqa as _decode_gqa_mod
+from repro_torch.kernels import masked_attn as _masked_attn_mod
 from repro_torch.kernels import masked_ffn as _masked_ffn_mod
 
 BLOCK_NEURONS = 128
@@ -18,7 +22,8 @@ LAUNCHES = {"masked_ffn_batch": _masked_ffn_mod.launches,
             "decode_gqa": _decode_gqa_mod.launches,
             "masked_ffn_train_fwd": _masked_ffn_mod.train_fwd_launches,
             "masked_ffn_dx": _masked_ffn_mod.dx_launches,
-            "masked_ffn_dw": _masked_ffn_mod.dw_launches}
+            "masked_ffn_dw": _masked_ffn_mod.dw_launches,
+            **_masked_attn_mod.LAUNCHES}
 
 
 def reset_launch_counts():
@@ -58,3 +63,35 @@ def decode_gqa(q, k, v, lengths):
     batch row. Returns (B, H, hd). Forward-only (serving path).
     Plain version: decode_gqa.decode_gqa_plain."""
     return _decode_gqa_mod.decode_gqa(q, k, v, lengths)
+
+
+def masked_head_proj(x, w, head_mask):
+    """Client-batched, differentiable head-masked projection y = x·W (Q,
+    K, V): x (C, M, din), w (C, din, H·hd), head_mask (C, H). Dropped
+    heads' columns are exact zeros, and so are their dW slabs. One launch
+    forward, one dx and one dW launch backward. Plain versions:
+    masked_attn.masked_head_proj_plain, masked_head_proj_dx_plain,
+    masked_head_proj_dw_plain."""
+    return _masked_attn_mod.masked_head_proj(x, w, head_mask)
+
+
+def masked_head_merge(a, w, head_mask):
+    """Client-batched, differentiable head-masked merge y = Σ_kept a_h·W_h
+    (O): a (C, M, H·hd), w (C, H·hd, d), head_mask (C, H). One launch
+    forward, one da and one dW launch backward; dropped heads' da slabs
+    and dW rows are exact zeros. Plain versions:
+    masked_attn.masked_head_merge_plain, masked_head_merge_da_plain,
+    masked_head_merge_dw_plain."""
+    return _masked_attn_mod.masked_head_merge(a, w, head_mask)
+
+
+def masked_attention(x, wq, wk, wv, wo, head_mask, n_heads):
+    """Head-masked causal self-attention over a client axis: x (C, B, S,
+    d), wq/wk/wv (C, d, H·hd), wo (C, H·hd, d), head_mask (C, H). Q/K/V
+    and O go through ``masked_head_proj`` and ``masked_head_merge`` (this
+    module's, so that a caller's swap reaches them); the softmax is plain
+    torch. Plain version: the same composition over the plain versions
+    (masked_attn.masked_attention on CPU tensors)."""
+    return _masked_attn_mod.masked_attention(x, wq, wk, wv, wo, head_mask,
+                                             n_heads, proj=masked_head_proj,
+                                             merge=masked_head_merge)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_gqa as gqa
+from repro_torch.kernels import masked_attn as attn
 from repro_torch.kernels import masked_ffn as ffn
 from repro_torch.kernels import ops
 
@@ -189,3 +190,99 @@ def test_masked_ffn_train_autograd_launches_each_kernel_once(dev):
     want_in, want_out, _ = ffn.masked_ffn_dw_plain(gy, *args, None, "gelu")
     assert _rel_err(w_in.grad, want_in) <= 1e-4
     assert _rel_err(w_out.grad, want_out) <= 1e-4
+
+
+def _head_masks(C, H, dev):
+    """Per-client head masks: all kept, one head dropped, half dropped, one
+    kept, all dropped."""
+    rows = [[1] * H, [1] * (H - 1) + [0], [1, 0] * (H // 2) + [1] * (H % 2),
+            [0] * (H - 1) + [1], [0] * H]
+    return torch.tensor([rows[c % 5] for c in range(C)], dtype=torch.float32,
+                        device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,M,width,H,hd", [(5, 490, 64, 4, 16), (7, 37, 24, 4, 6),
+                                            (2, 300, 96, 2, 64), (3, 1, 64, 8, 8)])
+def test_masked_attn_kernels_match_plain(dev, dtype, C, M, width, H, hd):
+    """The six head-masked kernels against their plain versions; a dropped
+    head's output slab, da slab and dW slab exactly 0."""
+    g = torch.Generator(device=dev).manual_seed(C * M + hd)
+    r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev)
+                         / math.sqrt(fan)).to(dtype)
+    N = H * hd
+    x, gy_p = r(C, M, width, fan=1), r(C, M, N, fan=1)       # projection side
+    w_p = r(C, width, N, fan=width)
+    a, gy_m = r(C, M, N, fan=1), r(C, M, width, fan=1)       # merge side
+    w_m = r(C, N, width, fan=N)
+    mask = _head_masks(C, H, dev)
+    runs = {"masked_head_proj": (attn.proj_fwd, attn.masked_head_proj_plain, (x, w_p)),
+            "masked_head_proj_dx": (attn.proj_dx, attn.masked_head_proj_dx_plain, (gy_p, w_p)),
+            "masked_head_proj_dw": (attn.proj_dw, attn.masked_head_proj_dw_plain, (gy_p, x)),
+            "masked_head_merge": (attn.merge_fwd, attn.masked_head_merge_plain, (a, w_m)),
+            "masked_head_merge_da": (attn.merge_da, attn.masked_head_merge_da_plain, (gy_m, w_m)),
+            "masked_head_merge_dw": (attn.merge_dw, attn.masked_head_merge_dw_plain, (gy_m, a))}
+    dropped = (mask == 0).repeat_interleave(hd, dim=1)                 # (C, N)
+    for name, (kern, plain, args) in runs.items():
+        before = ops.LAUNCHES[name].n
+        got = kern(*args, mask)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name].n == before + 1
+        want = plain(*args, mask)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= _tol(dtype), name
+        if name in ("masked_head_proj", "masked_head_merge_da", "masked_head_proj_dw"):
+            assert (got.transpose(1, 2)[dropped] == 0).all(), name
+        elif name == "masked_head_merge_dw":
+            assert (got[dropped] == 0).all(), name
+    dead = mask.sum(1) == 0
+    assert (attn.merge_fwd(a, w_m, mask)[dead] == 0).all()
+    assert (attn.proj_dx(gy_p, w_p, mask)[dead] == 0).all()
+
+
+def test_masked_attention_autograd_launch_counts(dev):
+    """One masked_attention forward and backward launches each projection
+    kernel 3 times (Q, K, V) and each merge kernel once; its gradients
+    match the plain versions' composition."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    C, B, S, d, H = 5, 10, 49, 64, 4
+    x = torch.randn(C, B, S, d, generator=g, device=dev, requires_grad=True)
+    ws = [(torch.randn(C, d, d, generator=g, device=dev) / 8).requires_grad_()
+          for _ in range(4)]
+    mask = _head_masks(C, H, dev)
+    ops.reset_launch_counts()
+    y = ops.masked_attention(x, *ws, mask, H)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("masked_head_proj", "masked_head_proj_dx",
+                                "masked_head_proj_dw", "masked_head_merge",
+                                "masked_head_merge_da", "masked_head_merge_dw")] \
+        == [3, 3, 3, 1, 1, 1]
+    xs = [t.detach().clone().requires_grad_() for t in (x, *ws)]
+    yp = attn.masked_attention(*xs, mask, H, proj=_plain_fn(attn.masked_head_proj_plain,
+                                                            attn.masked_head_proj_dx_plain,
+                                                            attn.masked_head_proj_dw_plain),
+                               merge=_plain_fn(attn.masked_head_merge_plain,
+                                               attn.masked_head_merge_da_plain,
+                                               attn.masked_head_merge_dw_plain))
+    yp.square().sum().backward()
+    assert _rel_err(y.detach(), yp.detach()) <= 1e-4
+    for t, tp in zip((x, *ws), xs):
+        assert _rel_err(t.grad, tp.grad) <= 1e-4
+
+
+def _plain_fn(fwd, d_in, d_w):
+    """An autograd function over three plain versions (forward, d input,
+    d weight), for comparison with the kernels' composition."""
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, w, m):
+            ctx.save_for_backward(a, w, m)
+            return fwd(a, w, m)
+
+        @staticmethod
+        def backward(ctx, gy):
+            a, w, m = ctx.saved_tensors
+            return d_in(gy, w, m), d_w(gy, a, m), None
+    return Plain.apply

@@ -386,8 +386,7 @@ def test_simulation_config_on_cuda_raises_without_a_card():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(workload="femnist"), NotImplementedError),
-    (dict(workload="femnist_attn", backend="fleet", use_kernels=True),
-     NotImplementedError),
+    (dict(workload="femnist_attn", backend="sequential"), NotImplementedError),
     (dict(workload="femnist_kernel", backend="sequential"), NotImplementedError),
     (dict(workload="femnist_kernel", backend="fleet"), NotImplementedError),
     (dict(workload="femnist_kernel", backend="sequential", use_kernels=True),
