@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Prove the PyTorch port runs on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version at its path's shapes, serve
-StableLM-2-12B at full width and run FLuID training on both kernel
-workloads through ``repro_torch``, and check the results.
+StableLM-2-12B and RWKV-6-3B at full width and run FLuID training on both
+kernel workloads through ``repro_torch``, and check the results.
 
     python3 chip_smoke.py
 
@@ -17,11 +17,22 @@ the seconds the phase took (``phase_s``):
              fleet's (C 5 and 64 clients, M 10, d 64, F 1024) and at
              femnist_attn's FFN (C 5, M 490, F 256); the six head-masked
              projection kernels at femnist_attn's (C 5 and 64, M 490,
-             d 64, 4 heads of 16)
+             d 64, 4 heads of 16); the chunked RWKV-6 scan at RWKV-6-3B's
+             prefill shape (B 1, S 512, H 40, N 64, chunk 128), also at
+             logw = -8; invariant_stats at 1024 x 1024 fp32 and bf16 and
+             at a 2560 x 8960 bf16 channel-mix w_in (it is on no main
+             path: its launches are those of its checks here)
   small      a smoke-size fp32 model, card vs CPU
   serve      24 mixed-rate requests at full width (serving's main path)
   step       every launch of a full-width decode step against its plain version
   profile    device time by kernel over a few decode steps
+  serve_rwkv RWKV-6-3B at full width: 16 mixed-rate requests of exactly 512
+             tokens, the chunked scan launched once per layer per prefill;
+             every launch of one prefill, and every layer's time-mix output
+             from the same input, against the plain version; that
+             prefill's logits against the plain version's within a
+             multiple of its 1e-7 noise floor; decode rate against its
+             byte bound, busy share of 3 decode steps
   train      6 FLuID rounds of femnist_kernel on the fleet backend (the
              FFN training path): each masked-FFN kernel launched once per
              SGD step; the same run with the plain versions must reach the
@@ -51,11 +62,22 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS = 989e12                # dense tensor-core peak, bf16
 FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
+# exponentials: 16 a clock on each of 132 SMs, at the 1.98 GHz that the fp32
+# peak implies (132 SMs x 128 lanes x 2 flops x 1.98 GHz = 67 TFLOP/s)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 FFN_SHAPE = dict(M=8, d=5120, F=13824)
 GQA_SHAPE = dict(B=8, H=32, KV=8, hd=128, C=576)
 TRAIN_SHAPE = dict(M=10, d=64, F=1024)     # KernelMLP's FFN, batch 10
 # KernelAttnClassifier at batch 10: 490 rows a client, 4 heads of 16, FFN 256
 ATTN_SHAPE = dict(M=490, d=64, H=4, hd=16, F=256)
+RWKV_SCAN_SHAPE = dict(B=1, S=512, H=40, N=64, chunk=128)   # RWKV-6-3B prefill
+STATS_SHAPES = ((1024, 1024, "float32"), (1024, 1024, "bfloat16"),
+                (2560, 8960, "bfloat16"))                    # last: RWKV-6-3B cmix w_in
+RWKV_QUEUE = dict(batch=8, prompt_len=512, gen_len=64, n_requests=16,
+                  rates=(1.0, 0.5, 0.25))
+# serve_rwkv's end-to-end gate against the plain scan's 1e-7 noise floor
+RWKV_NOISE_SEEDS = (1, 2, 3)
+E2E_GAP_FACTOR, E2E_AGREEMENT_MARGIN = 3.0, 0.2
 SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa")
 TRAIN_KERNELS = ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")
 # the head-masked kernels and their launches per SGD step (Q, K, V or O)
@@ -514,6 +536,120 @@ def phase_attn_kernels(torch, np, dev="cuda"):
     return out
 
 
+def rwkv_work(B, S, H, N, c, elem):
+    """The least work of the WKV function from a zero state, and what the
+    chunked form does on top of it. Bytes: r, k, v read in their type and
+    logw, u in fp32 once, y and the final state written once. Operations:
+    the per-token recurrence, for each token and head S <- diag(w) S + kᵀv
+    (3·N² flops) and y = r·S + (r·(u⊙k)) v (2·N² + 4·N), with N decay
+    exponentials. The chunked form (the diagnostic): per chunk and head the
+    c(c-1)/2 (t, j) pairs below the diagonal each take N exponentials and
+    6·N flops (score and its product with v), the inter term and the state
+    update 4·c·N², the cumsums, decays and bonus ~9·c·N, with 2·c·N + N
+    exponentials. Returns (bytes, flops, exponentials, chunked)."""
+    tok = B * S * H * N
+    nbytes = 3 * tok * elem + tok * 4 + H * N * 4 + tok * 4 + B * H * N * N * 4
+    flops, exps = B * S * H * (5 * N * N + 4 * N), tok
+    pairs, blocks = c * (c - 1) // 2, B * H * (S // c)
+    chunked = {"flops": blocks * (6 * pairs * N + 4 * c * N * N + 9 * c * N + 2 * N * N),
+               "exponentials": blocks * (pairs * N + 2 * c * N + N)}
+    chunked["fp32_flops_ms"] = chunked["flops"] / FP32_FLOPS * 1e3
+    chunked["exp_ms"] = chunked["exponentials"] / SFU_EXP_PER_S * 1e3
+    return nbytes, flops, exps, chunked
+
+
+def phase_rwkv_kernels(torch, np, dev="cuda"):
+    """The chunked RWKV-6 scan at RWKV-6-3B's prefill shape (bf16 r/k/v, logw
+    over the model's decay range, u at the model's scale) and at logw = -8,
+    which must stay finite; y and the state against the plain version at
+    relative ∞-norm <= 1e-4 (both fp32 inside, only the order of the sums
+    differs). invariant_stats at STATS_SHAPES against its plain version at
+    <= 1e-5 (fp32) and <= 5e-2 (bf16), the reference's tolerances. Bounds:
+    bytes at 3.35 TB/s, fp32 flops at 67 TFLOP/s, exponentials at
+    SFU_EXP_PER_S, each of the function's least work (rwkv_work); the
+    largest bounds the kernel. The chunked form's own count is reported
+    beside it. invariant_stats' launches are those of its checks here,
+    counted before any timing."""
+    from repro_torch.kernels import invariant_stats as stats
+    from repro_torch.kernels import rwkv_chunk as rwkv
+    dev = torch.device(dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, S, H, N, c = (RWKV_SCAN_SHAPE[k] for k in ("B", "S", "H", "N", "chunk"))
+    r, k, v = (torch.randn(B, S, H, N, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    u = 0.1 * torch.randn(H, N, generator=g, device=dev)
+    w = (torch.rand(H, N, generator=g, device=dev) * 5 - 6
+         + 0.1 * torch.randn(B, S, H, N, generator=g, device=dev))
+    cases = {"model_decay": -torch.exp(w), "logw=-8": torch.full_like(w, -8.0)}
+    per = []
+    for name, logw in cases.items():
+        run = lambda: rwkv.rwkv_chunk_scan(r, k, v, logw, u, chunk=c)
+        plain = lambda: rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=c)
+        (y, st), (yp, sp) = run(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+              f"rwkv_chunk_scan[{name}] not finite")
+        errs = {"y": rel_inf(y, yp), "state": rel_inf(st, sp)}
+        check(max(errs.values()) <= 1e-4, f"rwkv_chunk_scan[{name}] rel err {errs}")
+        nbytes, flops, exps, chunked = rwkv_work(B, S, H, N, c, 2)
+        terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "fp32_flops_ms": flops / FP32_FLOPS * 1e3,
+                 "exp_ms": exps / SFU_EXP_PER_S * 1e3}
+        per.append({"case": name, "rel_err": errs,
+                    "max_abs_err": max(float((y - yp).abs().max()),
+                                       float((st - sp).abs().max())),
+                    "ms": time_ms(run, torch), "plain_ms": time_ms(plain, torch, n=10),
+                    "bound_ms": max(terms.values()),
+                    "bound_by": "bytes" if terms["bytes_ms"] >= max(terms.values())
+                    else "operations", "bound_terms": terms,
+                    "exponentials": exps, "flops": flops, "bytes": nbytes,
+                    "chunked_form": chunked})
+    head = per[0]
+    out = [{"name": "rwkv_chunk_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv_chunk.cu",
+            "replaces": "src/repro/kernels/rwkv_chunk.py:27",
+            "max_abs_err": max(p["max_abs_err"] for p in per),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "shape": RWKV_SCAN_SHAPE, "mixes": per}]
+    del r, k, v, u, w, cases
+
+    per, stats_launches = [], 0
+    for d_in, n, dt in STATS_SHAPES:
+        dtype = getattr(torch, dt)
+        w0 = torch.randn(d_in, n, generator=g, device=dev)
+        w1 = (w0 + 0.02 * torch.randn(d_in, n, generator=g, device=dev)).to(dtype)
+        w0 = w0.to(dtype)
+        run = lambda: stats.invariant_stats(w0, w1)
+        plain = lambda: stats.invariant_stats_plain(w0, w1)
+        n0 = stats.launches.n
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        stats_launches += stats.launches.n - n0
+        err = rel_inf(got, want)
+        tol = 1e-5 if dtype == torch.float32 else 5e-2
+        check(err <= tol, f"invariant_stats[{d_in}x{n}/{dt}] rel err {err}")
+        elem = w0.element_size()
+        b_ms, b_by = bound_ms(2 * d_in * n * elem + n * 4, 4 * d_in * n, FP32_FLOPS)
+        per.append({"case": f"{d_in}x{n}/{dt}", "rel_err": err,
+                    "max_abs_err": float((got - want).abs().max()),
+                    "ms": graph_ms(run, torch), "plain_ms": graph_ms(plain, torch),
+                    "host_ms": time_loop_ms(run, torch),
+                    "bound_ms": b_ms, "bound_by": b_by})
+    head = per[0]
+    out.append({"name": "invariant_stats", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/invariant_stats.cu",
+                "replaces": "src/repro/kernels/invariant_stats.py:28",
+                "max_abs_err": max(p["max_abs_err"] for p in per),
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": None, "launches": stats_launches,
+                "launches_from": "its checks in the kernels phase, before timing "
+                                 "(on no main path)",
+                "shape": dict(d_in=1024, n=1024, dtype="float32"), "mixes": per})
+    return out
+
+
 def plain_train(torch):
     """ops.masked_ffn_train with the plain forward, dx and dW versions."""
     from repro_torch.kernels import masked_ffn as ffn
@@ -563,12 +699,14 @@ def swap_in_plain(ops):
     import torch
     from repro_torch.kernels import decode_gqa as gqa
     from repro_torch.kernels import masked_ffn as ffn
+    from repro_torch.kernels import rwkv_chunk as rwkv
     names = ("masked_ffn_batch", "decode_gqa", "masked_ffn_train",
-             "masked_head_proj", "masked_head_merge")
+             "masked_head_proj", "masked_head_merge", "rwkv_chunk_scan")
     saved = {n: getattr(ops, n) for n in names}
     ops.masked_ffn_batch = lambda x, wi, wo, m, w_gate=None, act="silu": \
         ffn.masked_ffn_batch_plain(x, wi, wo, m, w_gate, act)
     ops.decode_gqa = gqa.decode_gqa_plain
+    ops.rwkv_chunk_scan = rwkv.rwkv_chunk_scan_plain
     ops.masked_ffn_train = plain_train(torch)
     ops.masked_head_proj, ops.masked_head_merge = plain_heads(torch)
 
@@ -724,7 +862,6 @@ def phase_step(torch, np, params, cfg):
     finally:
         undo()
     torch.cuda.synchronize()
-    rel2 = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
     out = {"per_launch_rel_err": worst,
            "hidden_rel_err_inf": rel_inf(hk, hp), "logits_rel_err_inf": rel_inf(lk, lp),
            "hidden_rel_err_2": rel2(hk, hp), "logits_rel_err_2": rel2(lk, lp),
@@ -762,6 +899,193 @@ def phase_profile(torch, params, cfg, state, steps=3):
     return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
             "device_ms_per_step": dev_us / steps / 1e3,
             "device_busy_share": dev_us / wall_us, "top": top}
+
+
+def rel2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def hold_rwkv_launches(ops, worst):
+    """Wrap ops.rwkv_chunk_scan so that each launch is also computed by its
+    plain version on the same inputs, and rwkv6.tmix_seq so that each
+    layer's time mix is also computed with the plain version from the same
+    input; ``worst`` collects the largest relative ∞-norm errors of y and
+    the state, the largest relative 2-norm error of a layer's time-mix
+    output, and counts the launches. Returns undo."""
+    from repro_torch.kernels import rwkv_chunk as rwkv
+    from repro_torch.models import rwkv6
+    saved, saved_tmix = ops.rwkv_chunk_scan, rwkv6.tmix_seq
+
+    def both(r, k, v, logw, u, chunk=64, state=None):
+        y, st = saved(r, k, v, logw, u, chunk=chunk, state=state)
+        yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, state=state)
+        worst["y"] = max(worst["y"], rel_inf(y, yp))
+        worst["state"] = max(worst["state"], rel_inf(st, sp))
+        worst["launches"] += 1
+        return y, st
+
+    def tmix_both(p, x, cfg, shift_in=None, state_in=None):
+        out = saved_tmix(p, x, cfg, shift_in, state_in)
+        ops.rwkv_chunk_scan = rwkv.rwkv_chunk_scan_plain
+        try:
+            plain = saved_tmix(p, x, cfg, shift_in, state_in)
+        finally:
+            ops.rwkv_chunk_scan = both
+        worst["layer_out"] = max(worst["layer_out"], rel2(out[0], plain[0]))
+        return out
+    ops.rwkv_chunk_scan, rwkv6.tmix_seq = both, tmix_both
+
+    def undo():
+        ops.rwkv_chunk_scan, rwkv6.tmix_seq = saved, saved_tmix
+    return undo
+
+
+def phase_serve_rwkv(torch, np, dev="cuda"):
+    """RWKV-6-3B at full width (32 layers, d 2560, 40 heads of 64, d_ff
+    8960, vocab 65536), bf16 weights from seed 0, through serve_engine:
+    RWKV_QUEUE's 16 requests, prompts of exactly 512 tokens, gens 32-64, 8
+    slots, chunk 8, rates cycling 1.0/0.5/0.25 with ordered masks. The
+    chunked scan must launch once per layer per prefill. Then request 1's
+    prefill (rate 0.5) again with every launch held against the plain
+    version (relative ∞-norm <= 1e-4) and every layer's time-mix output
+    against the same layer's with the plain version from the same input
+    (relative 2-norm <= 2e-2, the step phase's gate, in bf16). The logits
+    of that prefill are held against the prefill with the plain versions
+    swapped in by the noise floor: this random-weight bf16 stack amplifies
+    fp32 rounding to O(0.1) over 32 layers, so the plain scan is also run
+    with 1e-7 relative noise on its y (RWKV_NOISE_SEEDS), and the kernel's
+    logit gap must be at most E2E_GAP_FACTOR x the largest noisy gap, its
+    greedy agreement at least the least noisy agreement less
+    E2E_AGREEMENT_MARGIN. Last, the busy share of 3 decode
+    steps of 8 slots. A decode step reads every weight but the embedding table, and
+    reads and writes every slot's state: that is its byte bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv_chunk as rwkv
+    from repro_torch.launch.serve import serve_engine
+    from repro_torch.launch.serving import rate_masks
+    from repro_torch.models import model
+    cfg = get_config("rwkv6-3b")
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    q = RWKV_QUEUE
+    ops.reset_launch_counts()                  # main path starts here
+    t0 = time.perf_counter()
+    results, summ = serve_engine(cfg, seed=0, device=dev, params=params, **q)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()               # main path ends here
+    counts = {"rwkv_chunk_scan": counts["rwkv_chunk_scan"]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n, L = q["n_requests"], q["prompt_len"]
+    check(len(results) == n, f"serve_rwkv: {len(results)} of {n} requests finished")
+    check(summ["prefills"] == n, f"serve_rwkv: {summ['prefills']} prefills for {n} requests")
+    rng = np.random.RandomState(0)             # serve_engine's draws, replayed
+    prompts = []
+    for rid in range(n):
+        prompts.append(rng.randint(0, 256, (L,), dtype=np.int32))
+        g = int(rng.randint(q["gen_len"] // 2, q["gen_len"] + 1))
+        toks = results[rid]
+        check(len(toks) == g, f"serve_rwkv: request {rid} has {len(toks)} of {g} tokens")
+        check(bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+              f"serve_rwkv: request {rid} has out-of-vocab tokens")
+    check(counts["rwkv_chunk_scan"] == cfg.n_layers * summ["prefills"],
+          f"serve_rwkv: rwkv_chunk_scan launched {counts['rwkv_chunk_scan']} times, "
+          f"expected {cfg.n_layers} x {summ['prefills']} prefills")
+
+    # request 1's prefill: each launch against its plain version, then the
+    # logits against the prefill with the plain versions swapped in
+    toks = torch.from_numpy(prompts[1][None].astype(np.int64)).to(dev)
+    masks = tree_map(lambda m: m[:, None, None].to(dev), rate_masks(cfg, q["rates"][1], seed=0))
+    worst = {"y": 0.0, "state": 0.0, "launches": 0, "layer_out": 0.0}
+    undo = hold_rwkv_launches(ops, worst)
+    try:
+        lk, _, _ = model.forward_seq(params, cfg, {"tokens": toks}, masks=masks)
+    finally:
+        undo()
+    check(bool(torch.isfinite(lk).all()), "serve_rwkv: non-finite prefill logits")
+    check(worst["launches"] == cfg.n_layers,
+          f"serve_rwkv: held {worst['launches']} launches in a prefill of {cfg.n_layers} layers")
+    check(max(worst["y"], worst["state"]) <= 1e-4,
+          f"serve_rwkv: per-launch kernel vs plain {worst}")
+    check(worst["layer_out"] <= 2e-2,
+          f"serve_rwkv: a layer's time-mix output vs plain, relative 2-norm {worst}")
+
+    def noisy_plain(seed):
+        def scan(r, k, v, logw, u, chunk=64, state=None):
+            y, st = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, state=state)
+            gen = torch.Generator(device=y.device).manual_seed(seed)
+            return y * (1 + 1e-7 * torch.randn(y.shape, generator=gen, device=y.device)), st
+        return scan
+    undo = swap_in_plain(ops)
+    noise = []
+    try:
+        lp, _, _ = model.forward_seq(params, cfg, {"tokens": toks}, masks=masks)
+        for seed in RWKV_NOISE_SEEDS:
+            ops.rwkv_chunk_scan = noisy_plain(seed)
+            ln, _, _ = model.forward_seq(params, cfg, {"tokens": toks}, masks=masks)
+            noise.append((rel2(ln, lp), float((ln.argmax(-1) == lp.argmax(-1)).float().mean())))
+            del ln
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    e2e = {"logits_rel_err_2": rel2(lk, lp),
+           "greedy_agreement": float((lk.argmax(-1) == lp.argmax(-1)).float().mean()),
+           "plain_noise_1e-7_logits_rel_err_2": [a for a, _ in noise],
+           "plain_noise_1e-7_greedy_agreement": [b for _, b in noise]}
+    del lk, lp
+    gap_limit = E2E_GAP_FACTOR * max(a for a, _ in noise)
+    agree_limit = min(b for _, b in noise) - E2E_AGREEMENT_MARGIN
+    check(e2e["logits_rel_err_2"] <= gap_limit,
+          f"serve_rwkv: prefill logits vs plain {e2e['logits_rel_err_2']} > "
+          f"{E2E_GAP_FACTOR} x the 1e-7 noise floor ({gap_limit}): {e2e}")
+    check(e2e["greedy_agreement"] >= agree_limit,
+          f"serve_rwkv: greedy agreement with plain {e2e['greedy_agreement']} < "
+          f"the 1e-7 noise runs' least less {E2E_AGREEMENT_MARGIN} ({agree_limit}): {e2e}")
+
+    # 3 decode steps of 8 slots from a batch-8 prefill, under the profiler
+    B = q["batch"]
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (B, L))).to(dev)
+    rows = [rate_masks(cfg, q["rates"][i % 3]) for i in range(B)]
+    dmasks = tree_map(lambda *ms: torch.stack(ms, 1)[:, :, None].to(dev), *rows)
+    logits, caches, _ = model.forward_seq(params, cfg, {"tokens": toks}, masks=dmasks,
+                                          want_cache=True)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    del logits
+    prof = phase_profile(torch, params, cfg, (caches, tok, torch.full((B,), L, device=dev),
+                                              dmasks))
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(caches))
+    embed = params["tok"]["embed"]
+    step_bytes = (sum(t.numel() * t.element_size() for t in leaves)
+                  - embed.numel() * embed.element_size()
+                  + B * cfg.d_model * embed.element_size() + 2 * state_bytes)
+    steps = summ["decode_steps"]
+    out = {"params": n_params, "param_gb": sum(t.numel() * t.element_size() for t in leaves) / 1e9,
+           "init_s": init_s, "wall_s": wall_s,
+           "prefills": summ["prefills"], "prefill_s": summ["prefill_s"],
+           "prefill_ms_per_request": 1e3 * summ["prefill_s"] / summ["prefills"],
+           "decode_s": summ["decode_s"], "decode_steps": steps,
+           "decode_tokens": summ["decode_tokens"], "decode_tok_per_s": summ["tok_per_s"],
+           "decode_ms_per_step": 1e3 * summ["decode_s"] / max(steps, 1),
+           "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "decode_step_gb": step_bytes / 1e9, "state_gb": state_bytes / 1e9,
+           "max_memory_allocated_gb": peak_gb, "allocated_before_serve_gb": base_gb,
+           "launches": counts,
+           "held_prefill": {"request": 1, "rate": q["rates"][1],
+                            "per_launch_rel_err": {k: worst[k] for k in ("y", "state")},
+                            "layer_out_rel_err_2": worst["layer_out"],
+                            "launches": worst["launches"], **e2e},
+           "profile": prof}
+    return out, counts
 
 
 class RoundRecorder:
@@ -988,7 +1312,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
 
     try:
         smi = nvidia_smi()
@@ -1003,7 +1327,8 @@ def main() -> int:
         emit("build", seconds=time.perf_counter() - t0, per_source=built,
              ptxas=ptxas)
         kernels = (phase_kernels(torch, np) + phase_train_kernels(torch, np)
-                   + phase_attn_kernels(torch, np))
+                   + phase_attn_kernels(torch, np) + phase_rwkv_kernels(torch, np))
+        stats_launches = next(k["launches"] for k in kernels if k["name"] == "invariant_stats")
         emit("kernels", kernels=kernels)
         emit("small", **phase_small(torch, np))
         serve, counts, params, cfg = phase_serve(torch, np)
@@ -1013,14 +1338,21 @@ def main() -> int:
         emit("profile", **phase_profile(torch, params, cfg, state))
         del params, state
         torch.cuda.empty_cache()
+        serve_rwkv, rwkv_counts = phase_serve_rwkv(torch, np)
+        emit("serve_rwkv", **serve_rwkv)
+        torch.cuda.empty_cache()
         train, train_counts = phase_train(torch, np)
         emit("train", **train)
         train_attn, attn_counts = phase_train_attn(torch, np)
         emit("train_attn", **train_attn)
-        # launches: serving's kernels from the serve phase, the FFN training
-        # kernels' from train, the head-masked kernels' from train_attn
-        launches = {**counts, **{k: train_counts[k] for k in TRAIN_KERNELS},
-                    **{k: attn_counts[k] for k in ATTN_KERNELS}}
+        # launches: serving's kernels from the serve phase, the chunked scan's
+        # from serve_rwkv, the FFN training kernels' from train, the
+        # head-masked kernels' from train_attn; invariant_stats is on no main
+        # path, so its count is that of its checks in the kernels phase
+        launches = {**counts, **rwkv_counts,
+                    **{k: train_counts[k] for k in TRAIN_KERNELS},
+                    **{k: attn_counts[k] for k in ATTN_KERNELS},
+                    "invariant_stats": stats_launches}
         check(set(launches) == {k["name"] for k in kernels},
               "the kernels phase and the main paths cover different kernels")
     except SmokeFailure as e:

@@ -105,6 +105,10 @@ class ModelConfig:
     def moe_ff(self) -> int:
         return self.moe_d_ff or self.d_ff
 
+    @property
+    def rwkv_heads(self) -> int:
+        return self.d_model // self.rwkv_head_size
+
     def ffn_kind_for_layer(self, i: int) -> str:
         """'dense' or 'moe' FFN for decoder layer i."""
         if self.n_experts and i >= self.first_k_dense:
@@ -149,7 +153,7 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Registry
 
-_ARCH_MODULES = ["stablelm_12b"]
+_ARCH_MODULES = ["stablelm_12b", "rwkv6_3b"]
 
 ARCH_IDS = [m.replace("_", "-") for m in _ARCH_MODULES]
 

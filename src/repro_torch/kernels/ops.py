@@ -3,17 +3,18 @@
 Each wrapper launches its hand-written CUDA kernel when given CUDA tensors
 and runs the kernel's plain PyTorch version when given CPU tensors: the
 masked FFN (serving and training forms), the head-masked attention
-projections and ``decode_gqa``. The reference's two Pallas kernels that no
-main path runs, ``invariant_stats`` and ``rwkv_chunk_scan``, are listed in
-ROADMAP.md queue B.
-Models call the kernels through this module, so a caller can swap a
-wrapper for its plain version (chip_smoke.py does, to compare).
+projections, ``decode_gqa``, the chunked RWKV-6 scan and
+``invariant_stats`` (an entry point that no main path calls, as in the
+reference). Models call the kernels through this module, so a caller can
+swap a wrapper for its plain version (chip_smoke.py does, to compare).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import decode_gqa as _decode_gqa_mod
+from repro_torch.kernels import invariant_stats as _invariant_stats_mod
 from repro_torch.kernels import masked_attn as _masked_attn_mod
 from repro_torch.kernels import masked_ffn as _masked_ffn_mod
+from repro_torch.kernels import rwkv_chunk as _rwkv_chunk_mod
 
 BLOCK_NEURONS = 128
 
@@ -23,7 +24,9 @@ LAUNCHES = {"masked_ffn_batch": _masked_ffn_mod.launches,
             "masked_ffn_train_fwd": _masked_ffn_mod.train_fwd_launches,
             "masked_ffn_dx": _masked_ffn_mod.dx_launches,
             "masked_ffn_dw": _masked_ffn_mod.dw_launches,
-            **_masked_attn_mod.LAUNCHES}
+            **_masked_attn_mod.LAUNCHES,
+            "rwkv_chunk_scan": _rwkv_chunk_mod.launches,
+            "invariant_stats": _invariant_stats_mod.launches}
 
 
 def reset_launch_counts():
@@ -33,6 +36,16 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return {name: c.n for name, c in LAUNCHES.items()}
+
+
+def invariant_stats(w0, w1):
+    """Per-column relative update norm ||dW_col|| / (||W0_col|| + eps).
+
+    w0, w1: (d_in, n), same shape and dtype (fp32 or bf16). Returns (n,)
+    fp32, the per-neuron invariance statistic of core/invariant.py in one
+    reduction. Forward-only. Plain version:
+    invariant_stats.invariant_stats_plain."""
+    return _invariant_stats_mod.invariant_stats(w0, w1)
 
 
 def masked_ffn_batch(x, w_in, w_out, row_mask, w_gate=None, act="silu"):
@@ -95,3 +108,14 @@ def masked_attention(x, wq, wk, wv, wo, head_mask, n_heads):
     return _masked_attn_mod.masked_attention(x, wq, wk, wv, wo, head_mask,
                                              n_heads, proj=masked_head_proj,
                                              merge=masked_head_merge)
+
+
+def rwkv_chunk_scan(r, k, v, logw, u, chunk=64, state=None):
+    """Chunked RWKV-6 linear-attention recurrence.
+
+    r/k/v/logw: (B, S, H, N), logw fp32 (< 0); u: (H, N); state: optional
+    (B, H, N, N) fp32 initial state, zero when None. Returns (y (B,S,H,N)
+    fp32, final state (B,H,N,N) fp32). Forward-only (serving prefill).
+    Plain version: rwkv_chunk.rwkv_chunk_scan_plain."""
+    return _rwkv_chunk_mod.rwkv_chunk_scan(r, k, v, logw, u, chunk=chunk,
+                                           state=state)

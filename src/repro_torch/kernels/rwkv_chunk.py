@@ -1,0 +1,130 @@
+"""Chunked RWKV-6 WKV recurrence (port of ``repro/kernels/rwkv_chunk.py``).
+
+``rwkv_chunk_scan`` dispatches on where its tensors lie: on a CUDA tensor it
+launches the hand-written kernel in ``csrc/rwkv_chunk.cu`` (which replaces
+the Pallas ``_kernel``) and counts the launch; on a CPU tensor it runs
+``rwkv_chunk_scan_plain``. There is no fallback from the card to the plain
+version. Unlike the Pallas kernel, which always starts from a zero state,
+both take an optional initial state (``tmix_seq``'s ``state_in``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_SIZES = (16, 32, 64)      # head dims N the kernel takes
+MAX_CHUNK = 128                # csrc/rwkv_chunk.cu CMAX
+
+launches = _build.LaunchCounter()
+
+
+def _chunk_core(r, k, v, logw, u, S0):
+    """One chunk (``repro/models/rwkv6.py::_chunk_core`` at fp32): r,k,v
+    (B,c,H,N), logw (B,c,H,N) fp32, u (H,N) fp32, S0 (B,H,N,N) fp32.
+    Returns (y (B,c,H,N) fp32, S1). Every exponent is <= 0."""
+    rf, kf, vf = r.float(), k.float(), v.float()
+    L_inc = torch.cumsum(logw, dim=1)                     # inclusive
+    L_exc = L_inc - logw                                  # exclusive
+    L_tot = L_inc[:, -1:]                                 # (B,1,H,N)
+
+    # inter-chunk: y_t += (r_t * exp(L_exc_t)) @ S0
+    y = torch.einsum("bchn,bhnm->bchm", rf * torch.exp(L_exc), S0)
+
+    # intra-chunk strict-lower part: D[t,j,n] = exp(L_exc[t] - L_inc[j]) <= 1
+    c = r.shape[1]
+    Dlog = L_exc[:, :, None] - L_inc[:, None, :]          # (B,c,c,H,N)
+    tri = torch.arange(c, device=r.device)[:, None] > torch.arange(c, device=r.device)[None, :]
+    D = torch.where(tri[None, :, :, None, None], torch.exp(Dlog),
+                    torch.zeros((), device=r.device))
+    scores = torch.einsum("bthn,bjhn,btjhn->bthj", rf, kf, D)
+    y = y + torch.einsum("bthj,bjhm->bthm", scores, vf)
+
+    # diagonal bonus term
+    diag = torch.einsum("bthn,bthn->bth", rf, u[None, None] * kf)
+    y = y + diag[..., None] * vf
+
+    # state update: S1 = exp(L_tot) ⊙ S0 + sum_j exp(L_tot - L_inc_j) k_j v_j^T
+    k_hat = kf * torch.exp(L_tot - L_inc)
+    S1 = torch.exp(L_tot)[:, 0, :, :, None] * S0 + torch.einsum(
+        "bjhn,bjhm->bhnm", k_hat, vf)
+    return y, S1
+
+
+def rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=64, state=None):
+    """Plain version: ``_chunk_core`` over the chunks in order, from
+    ``state`` (B,H,N,N) fp32, or from zero. Returns (y (B,S,H,N) fp32,
+    final state (B,H,N,N) fp32)."""
+    B, S, H, N = r.shape
+    c = min(chunk, S)
+    S0 = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+          if state is None else state.float())
+    uf, lw = u.float(), logw.float()
+    ys = []
+    for i in range(0, S, c):
+        y, S0 = _chunk_core(r[:, i:i + c], k[:, i:i + c], v[:, i:i + c],
+                            lw[:, i:i + c], uf, S0)
+        ys.append(y)
+    return torch.cat(ys, dim=1), S0
+
+
+def _bind(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rwkv_chunk_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.rwkv_chunk_launch.restype = i
+
+
+_build.register_binding("rwkv_chunk", _bind)
+
+
+def _launch(r, k, v, logw, u, chunk, state):
+    B, S, H, N = r.shape
+    dtype, dev = r.dtype, r.device
+    if dtype not in _build.DTYPE_CODE:
+        raise ValueError(f"rwkv_chunk_scan kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
+    if N not in HEAD_SIZES:
+        raise ValueError(f"rwkv_chunk_scan kernel takes head size N in {HEAD_SIZES}, got {N}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"rwkv_chunk_scan kernel takes chunk <= {MAX_CHUNK}, got {chunk}")
+    for name, t in (("r", r), ("k", k), ("v", v)):
+        _build.check_operand(name, t, dtype, dev)
+    _build.check_operand("logw", logw, torch.float32, dev)
+    _build.check_operand("u", u, torch.float32, dev)
+    if state is not None:
+        _build.check_operand("state", state, torch.float32, dev)
+    y = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
+    s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    err = _build.load("rwkv_chunk").rwkv_chunk_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+        None if state is None else state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+        B, S, H, N, chunk, _build.DTYPE_CODE[dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv_chunk_scan kernel launch failed: CUDA error {err}")
+    launches.n += 1
+    return y, s_out
+
+
+def rwkv_chunk_scan(r, k, v, logw, u, chunk=64, state=None):
+    """r,k,v: (B,S,H,N); logw: (B,S,H,N) fp32 log decay (< 0); u: (H,N);
+    state: optional (B,H,N,N) fp32 initial state (zero when None).
+    chunk = min(chunk, S) must divide S. Returns (y (B,S,H,N) fp32, final
+    state (B,H,N,N) fp32). CUDA tensors launch the kernel, CPU tensors run
+    the plain version."""
+    if r.ndim != 4 or k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape:
+        raise ValueError(f"r, k, v, logw must share one (B, S, H, N) shape, got "
+                         f"{[tuple(t.shape) for t in (r, k, v, logw)]}")
+    B, S, H, N = r.shape
+    if tuple(u.shape) != (H, N):
+        raise ValueError(f"u must be (H={H}, N={N}), got {tuple(u.shape)}")
+    if state is not None and tuple(state.shape) != (B, H, N, N):
+        raise ValueError(f"state must be (B={B}, H={H}, N={N}, N={N}), got "
+                         f"{tuple(state.shape)}")
+    chunk = min(chunk, S)
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"sequence length {S} must be a multiple of chunk {chunk}")
+    if r.device.type == "cpu":
+        return rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, state=state)
+    return _launch(r, k, v, logw, u, chunk, state)

@@ -1,10 +1,12 @@
 """Serving driver (port of ``repro/launch/serve.py``): a queue of requests
-with cycling dropout rates and ragged prompt/gen lengths through one
+with cycling dropout rates and ragged prompt/gen lengths (prompts of
+exactly ``--prompt-len`` tokens for a recurrent model) through one
 ``ServeEngine``.
 
     python -m repro_torch.launch.serve                  # smoke config, on the card
     python -m repro_torch.launch.serve --full-config    # StableLM-2-12B, bf16 weights
     python -m repro_torch.launch.serve --device cpu     # smoke config on the CPU
+    python -m repro_torch.launch.serve --arch rwkv6-3b --full-config   # RWKV-6-3B
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ def serve_engine(cfg, batch=4, prompt_len=16, gen_len=16, n_requests=None,
                  rates=(1.0, 0.5), seed=0, device="cuda", params=None):
     """Queue n_requests with cycling dropout rates (ordered masks) and
     ragged prompt/gen lengths drawn from ``np.random.RandomState(seed)``
-    through one ServeEngine; returns (results, summary). ``params``
+    (prompts of exactly prompt_len for a recurrent model) through one
+    ServeEngine; returns (results, summary). ``params``
     defaults to ``init_params(cfg, seed, device, dtype=cfg.dtype)``."""
     if params is None:
         params = model_lib.init_params(cfg, seed, device, dtype=cdtype(cfg))
@@ -34,7 +37,8 @@ def serve_engine(cfg, batch=4, prompt_len=16, gen_len=16, n_requests=None,
                for r in rates}
     n_requests = n_requests or 2 * batch
     for i in range(n_requests):
-        L = int(rng.randint(max(1, prompt_len // 2), prompt_len + 1))
+        L = prompt_len if eng.recurrent else int(
+            rng.randint(max(1, prompt_len // 2), prompt_len + 1))
         toks = rng.randint(0, min(cfg.vocab_size, 256), (L,), dtype=np.int32)
         g = int(rng.randint(max(1, gen_len // 2), gen_len + 1))
         eng.submit(ServeRequest(toks, gen_len=g,

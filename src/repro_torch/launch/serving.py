@@ -9,9 +9,12 @@ Continuous batching at chunk granularity: between chunks the host retires
 finished slots and admits queued requests (batch-1 right-padded prefill +
 cache splice into the slot); a chunk is a Python loop of ``chunk`` greedy
 decode steps over the whole slot batch with one host sync at its end. On
-the card every decode layer runs the masked-FFN kernel (per-slot masks) and
-the GQA flash-decode kernel. Right padding is exact: a padded position's
-K/V slot lies past the row's attended prefix until decode overwrites it.
+the card every attention decode layer runs the masked-FFN kernel (per-slot
+masks) and the GQA flash-decode kernel; every RWKV-6 layer of a prefill
+runs the chunked WKV kernel. Right padding is exact for attention: a padded
+position's K/V slot lies past the row's attended prefix until decode
+overwrites it. A recurrent mixer would fold padding into its state, so a
+recurrent engine takes prompts of exactly ``max_prompt_len`` tokens.
 
 Masking the FFN hidden activation equals serving the extracted sub-model
 (act(0) = 0 for every supported activation): ``apply_masks_to_params`` is
@@ -37,7 +40,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.models import transformer
 
 
-SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa")   # ops.LAUNCHES keys
+SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa", "rwkv_chunk_scan")   # ops.LAUNCHES keys
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +170,9 @@ class ServeEngine:
                                "device; pass device='cpu' to run on the CPU")
         self.cfg = cfg
         self.params = params
+        self.recurrent = any(mixer in ("rglru", "rwkv")
+                             for seg in transformer.build_segments(cfg)
+                             for mixer, _ in seg.unit)
         self.B = batch_size
         self.max_prompt_len = max_prompt_len
         self.max_gen_len = max_gen_len
@@ -199,7 +205,9 @@ class ServeEngine:
         return int(torch.argmax(logits[0, length - 1])), caches
 
     def _insert(self, new, slot: int):
-        """Splice a batch-1 prefill cache (R, 1, C, ...) into ``slot``."""
+        """Splice a batch-1 prefill cache into ``slot``: every leaf has the
+        batch axis second, (R, 1, ...) — K/V (R, 1, C, KV, hd), and the
+        RWKV state S (R, 1, H, N, N) and token shifts (R, 1, d)."""
         tree_map(lambda c, n: c[:, slot].copy_(n[:, 0]), self.caches, new)
 
     def _decode_chunk(self):
@@ -228,6 +236,11 @@ class ServeEngine:
         if L > self.max_prompt_len or L < 1:
             raise ValueError(f"prompt length {L} outside "
                              f"[1, {self.max_prompt_len}]")
+        if self.recurrent and L != self.max_prompt_len:
+            raise ValueError(
+                "recurrent mixers (rwkv/rg-lru) fold right-padding into "
+                f"their state: prompts must be exactly {self.max_prompt_len}"
+                " tokens for this architecture")
         if not 1 <= req.gen_len <= self.max_gen_len:
             raise ValueError(f"gen_len {req.gen_len} outside "
                              f"[1, {self.max_gen_len}]")

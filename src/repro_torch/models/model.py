@@ -26,8 +26,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     """Random params with the reference's keys and stacked layout:
     normal * 1/sqrt(fan_in) per matrix from a torch.Generator on ``device``
     seeded with ``seed``. Matrices are stored in ``dtype`` (default
-    cfg.param_dtype), cast one layer at a time as they are drawn; norm
-    scales stay in cfg.param_dtype. The numbers differ from the reference's
+    cfg.param_dtype), cast one layer at a time as they are drawn; vectors
+    (norm scales, RWKV-6's mixing, decay and bonus vectors) stay in
+    cfg.param_dtype. The numbers differ from the reference's
     jax.random init: to compare the two packages, convert the reference's
     params with ``repro_torch.interop.params_from_numpy``."""
     _check_decoder_only(cfg)

@@ -3,8 +3,9 @@
 A model is a list of *segments*: (unit_pattern, repeats). Params of a
 segment are stacked over repeats with a leading axis R, as in the
 reference, and the reference's ``lax.scan`` over repeats is a Python loop
-over r here. Only the ("attn", "dense") layer kind is ported; the other
-mixers and FFN kinds raise NotImplementedError (see ROADMAP.md queue A).
+over r here. The ("attn", "dense") and ("rwkv", "cmix") layer kinds are
+ported; the other mixers and FFN kinds raise NotImplementedError (see
+ROADMAP.md queue A). Decode updates the caches in place.
 """
 from __future__ import annotations
 
@@ -14,12 +15,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
-from repro_torch.models.layers import apply_ffn, apply_norm, init_ffn, init_norm
+from repro_torch.models import attention, rwkv6
+from repro_torch.models.layers import (TensorSpec, apply_ffn, apply_norm,
+                                       cdtype, init_ffn, init_norm)
 
 LayerSpec = Tuple[str, str]        # (mixer, ffn)
 
-PORTED = ("attn", "dense")
+PORTED = (("attn", "dense"), ("rwkv", "cmix"))
 
 
 @dataclass(frozen=True)
@@ -61,11 +63,11 @@ def build_segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
 
 
 def _check_ported(spec: LayerSpec, cfg: ModelConfig):
-    if spec != PORTED or cfg.use_mla or cfg.parallel_block:
+    if spec not in PORTED or cfg.use_mla or cfg.parallel_block:
         raise NotImplementedError(
             f"layer kind {spec} (use_mla={cfg.use_mla}, parallel_block="
             f"{cfg.parallel_block}) is not ported to repro_torch yet; only "
-            f"{PORTED} is (see ROADMAP.md queue A)")
+            f"{PORTED} are (see ROADMAP.md queue A)")
 
 
 def _at(tree, r):
@@ -83,11 +85,14 @@ def init_segment(gen, seg: Segment, cfg: ModelConfig, device, dtype):
     for i, spec in enumerate(seg.unit):
         _check_ported(spec, cfg)
         R = seg.repeats
-        out[f"l{i}"] = {
-            "norm1": init_norm(cfg, device, repeats=R),
-            "attn": attention.init_attention(gen, cfg, device, dtype, repeats=R),
-            "norm2": init_norm(cfg, device, repeats=R),
-            "ffn": init_ffn(gen, cfg, device, dtype, repeats=R)}
+        if spec[0] == "rwkv":
+            mixer = {"rwkv": rwkv6.init_tmix(gen, cfg, device, dtype, repeats=R)}
+            ffn = {"cmix": rwkv6.init_cmix(gen, cfg, device, dtype, repeats=R)}
+        else:
+            mixer = {"attn": attention.init_attention(gen, cfg, device, dtype, repeats=R)}
+            ffn = {"ffn": init_ffn(gen, cfg, device, dtype, repeats=R)}
+        out[f"l{i}"] = {"norm1": init_norm(cfg, device, repeats=R), **mixer,
+                        "norm2": init_norm(cfg, device, repeats=R), **ffn}
     return out
 
 
@@ -129,6 +134,15 @@ def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
     """Returns (x, cache_entry)."""
     _check_ported(spec, cfg)
     h = apply_norm(p["norm1"], x, cfg)
+    if spec[0] == "rwkv":
+        y, last_tm, state = rwkv6.tmix_seq(p["rwkv"], h, cfg)
+        x = x + y
+        h2 = apply_norm(p["norm2"], x, cfg)
+        y, last_cm = rwkv6.cmix_seq(p["cmix"], h2, cfg,
+                                    neuron_mask=_m(masks, "ffn"))
+        cache = ({"rwkv": {"S": state, "shift_tm": last_tm, "shift_cm": last_cm}}
+                 if want_cache else {})
+        return x + y, cache
     y, (k, v) = attention.attn_seq(p["attn"], h, cfg, positions)
     cache = ({"attn": _ring_from_seq({"k": k, "v": v}, positions, cache_len)}
              if want_cache else {})
@@ -171,6 +185,17 @@ def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
 def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks):
     _check_ported(spec, cfg)
     h = apply_norm(p["norm1"], x, cfg)
+    if spec[0] == "rwkv":
+        c = cache["rwkv"]
+        y, last_tm, S1 = rwkv6.tmix_decode(p["rwkv"], h, cfg, c["shift_tm"], c["S"])
+        c["S"].copy_(S1)
+        c["shift_tm"].copy_(last_tm)
+        x = x + y
+        h2 = apply_norm(p["norm2"], x, cfg)
+        y, last_cm = rwkv6.cmix_decode(p["cmix"], h2, cfg, c["shift_cm"],
+                                       neuron_mask=_m(masks, "ffn"))
+        c["shift_cm"].copy_(last_cm)
+        return x + y
     x = x + attention.attn_decode(p["attn"], h, cfg, cache["attn"], pos)
     h2 = apply_norm(p["norm2"], x, cfg)
     return x + apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn"))
@@ -195,11 +220,18 @@ def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
 
 def _layer_cache_spec(spec, cfg: ModelConfig, batch, seq_len):
     _check_ported(spec, cfg)
+    if spec[0] == "rwkv":
+        H, N = cfg.rwkv_heads, cfg.rwkv_head_size
+        shift = TensorSpec((batch, cfg.d_model), cdtype(cfg))
+        return {"rwkv": {"S": TensorSpec((batch, H, N, N), torch.float32),
+                         "shift_tm": shift, "shift_cm": shift}}
     return {"attn": attention.cache_spec(cfg, batch, seq_len)}
 
 
 def stack_cache_specs(cfg: ModelConfig, batch, seq_len):
-    """Per segment, {'l<i>': {'attn': {'k','v': TensorSpec (R, B, C, KV, hd)}}}."""
+    """Per segment, {'l<i>': {'attn': {'k','v': TensorSpec (R, B, C, KV, hd)}}}
+    or, for an RWKV layer, {'l<i>': {'rwkv': {'S': (R, B, H, N, N) fp32,
+    'shift_tm', 'shift_cm': (R, B, d)}}}."""
     out = []
     for seg in build_segments(cfg):
         unit = {}

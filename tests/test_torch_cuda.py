@@ -17,9 +17,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_gqa as gqa
+from repro_torch.kernels import invariant_stats as stats
 from repro_torch.kernels import masked_attn as attn
 from repro_torch.kernels import masked_ffn as ffn
 from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv_chunk as rwkv
 
 pytestmark = pytest.mark.cuda
 
@@ -286,3 +288,107 @@ def _plain_fn(fwd, d_in, d_w):
             a, w, m = ctx.saved_tensors
             return d_in(gy, w, m), d_w(gy, a, m), None
     return Plain.apply
+
+
+def _rwkv_inputs(B, S, H, N, dtype, dev, seed, logw=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, N, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    if logw is None:           # the model's decay range, -exp(w) for w in [-6, -1] + noise
+        logw = -torch.exp(torch.rand(B, S, H, N, generator=g, device=dev) * 5 - 6
+                          + 0.5 * torch.randn(B, S, H, N, generator=g, device=dev))
+    else:
+        logw = torch.full((B, S, H, N), logw, device=dev)
+    u = 0.3 * torch.randn(H, N, generator=g, device=dev)
+    return r, k, v, logw, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,H,N,chunk", [(2, 32, 3, 16, 8), (1, 24, 2, 32, 12),
+                                           (3, 16, 1, 64, 16), (1, 512, 4, 64, 128),
+                                           (2, 200, 3, 32, 100)])
+def test_rwkv_chunk_kernel_matches_plain(dev, dtype, with_state, B, S, H, N, chunk):
+    """y and the final state against the plain chunked version: both fp32
+    inside, only the order of the sums differs (1e-4 relative ∞-norm)."""
+    r, k, v, logw, u = _rwkv_inputs(B, S, H, N, dtype, dev, S * N + B)
+    state = (0.5 * torch.randn(B, H, N, N, device=dev) if with_state else None)
+    before = rwkv.launches.n
+    y, st = ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=chunk, state=state)
+    torch.cuda.synchronize()
+    assert rwkv.launches.n == before + 1
+    yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, state=state)
+    assert y.dtype == st.dtype == torch.float32
+    assert y.shape == (B, S, H, N) and st.shape == (B, H, N, N)
+    assert _rel_err(y, yp) <= 1e-4 and _rel_err(st, sp) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv_chunk_kernel_strong_decay_finite(dev, dtype):
+    """logw = -8 over 128-token chunks: exponents down to -1016, no overflow."""
+    r, k, v, logw, u = _rwkv_inputs(1, 256, 2, 64, dtype, dev, 8, logw=-8.0)
+    y, st = ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=128)
+    assert _rel_err(y, yp) <= 1e-4 and _rel_err(st, sp) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(64, 128), (300, 200), (1024, 96), (17, 384),
+                                   (1, 1), (33, 129), (2560, 8960)])
+def test_invariant_stats_kernel_matches_plain(dev, dtype, shape):
+    """Ragged d_in and n included; fp32 sums in another order than the
+    plain version's (1e-5)."""
+    g = torch.Generator(device=dev).manual_seed(shape[0] + shape[1])
+    w0 = torch.randn(*shape, generator=g, device=dev)
+    w1 = (w0 + 0.02 * torch.randn(*shape, generator=g, device=dev)).to(dtype)
+    w0 = w0.to(dtype)
+    before = stats.launches.n
+    got = ops.invariant_stats(w0, w1)
+    torch.cuda.synchronize()
+    assert stats.launches.n == before + 1
+    want = stats.invariant_stats_plain(w0, w1)
+    assert got.dtype == torch.float32 and got.shape == (shape[1],)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_rwkv_and_stats_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    r, k, v, logw, u = _rwkv_inputs(1, 16, 2, 32, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.rwkv_chunk_scan(r, k, v, logw, u.cpu(), chunk=8)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=8,
+                            state=torch.zeros(1, 2, 32, 32))
+    with pytest.raises(ValueError, match="dtype"):
+        ops.rwkv_chunk_scan(r, k, v, logw.bfloat16(), u, chunk=8)
+    r48, k48, v48, logw48, u48 = _rwkv_inputs(1, 16, 2, 48, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="head size"):
+        ops.rwkv_chunk_scan(r48, k48, v48, logw48, u48, chunk=8)
+    r, k, v, logw, u = _rwkv_inputs(1, 256, 2, 32, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="chunk <= 128"):
+        ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=256)
+    w = torch.zeros(8, 16, device=dev)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.invariant_stats(w, w.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.invariant_stats(w.T, w.T)
+
+
+def test_rwkv_prefill_launches_the_kernel_once_per_layer(dev):
+    """A smoke RWKV-6 model's prefill on the card: one B12 launch per layer,
+    logits within 1e-4 of the same model on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config("rwkv6-3b").smoke(), dtype="float32")
+    cpu = model.init_params(cfg, seed=0, device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 32)))
+    ops.reset_launch_counts()
+    lg, caches, _ = model.forward_seq(gpu, cfg, {"tokens": toks.to(dev)}, want_cache=True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rwkv_chunk_scan"] == cfg.n_layers
+    lc, _, _ = model.forward_seq(cpu, cfg, {"tokens": toks}, want_cache=True)
+    assert _rel_err(lg.cpu(), lc) <= 1e-4

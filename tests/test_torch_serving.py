@@ -72,7 +72,7 @@ def test_config_schema_matches_reference():
     jcfg, tcfg = _cfgs()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("rwkv6-3b")
+        get_config("recurrentgemma-9b")
 
 
 def test_params_from_numpy_round_trip(setup):
@@ -181,7 +181,8 @@ def test_engine_matches_reference_engine_token_for_token(setup):
             got[rid], _dense_reference(tcfg, ref_params, prompt, g))
     summ = teng.summary()
     assert summ["decode_tokens"] == sum(g - 1 for g in gens)
-    assert summ["kernel_launches"] == {"masked_ffn_batch": 0, "decode_gqa": 0}
+    assert summ["kernel_launches"] == {"masked_ffn_batch": 0, "decode_gqa": 0,
+                                      "rwkv_chunk_scan": 0}
 
 
 def test_mask_bank_dedupe_and_eviction(setup):
