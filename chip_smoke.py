@@ -17,7 +17,9 @@ the seconds the phase took (``phase_s``):
              fleet's (C 5 and 64 clients, M 10, d 64, F 1024) and at
              femnist_attn's FFN (C 5, M 490, F 256); the six head-masked
              projection kernels at femnist_attn's (C 5 and 64, M 490,
-             d 64, 4 heads of 16); the chunked RWKV-6 scan at RWKV-6-3B's
+             d 64, 4 heads of 16; the two dW kernels also at M 1100, 9
+             m-tiles, and twice on the same inputs, bitwise equal); the
+             chunked RWKV-6 scan at RWKV-6-3B's
              prefill shape (B 1, S 512, H 40, N 64, chunk 128), also at
              logw = -8; invariant_stats at 1024 x 1024 fp32 and bf16 and
              at a 2560 x 8960 bf16 channel-mix w_in (it is on no main
@@ -70,6 +72,8 @@ GQA_SHAPE = dict(B=8, H=32, KV=8, hd=128, C=576)
 TRAIN_SHAPE = dict(M=10, d=64, F=1024)     # KernelMLP's FFN, batch 10
 # KernelAttnClassifier at batch 10: 490 rows a client, 4 heads of 16, FFN 256
 ATTN_SHAPE = dict(M=490, d=64, H=4, hd=16, F=256)
+ATTN_LONG_M = 1100             # 9 m-tiles: more than one cluster of 8 for the dW kernels
+HEAD_DW = ("masked_head_proj_dw", "masked_head_merge_dw")
 RWKV_SCAN_SHAPE = dict(B=1, S=512, H=40, N=64, chunk=128)   # RWKV-6-3B prefill
 STATS_SHAPES = ((1024, 1024, "float32"), (1024, 1024, "bfloat16"),
                 (2560, 8960, "bfloat16"))                    # last: RWKV-6-3B cmix w_in
@@ -454,70 +458,82 @@ def attn_work(mask, M, width, hd, elem=4):
 def phase_attn_kernels(torch, np, dev="cuda"):
     """The six head-masked kernels against their plain versions at the
     femnist_attn shapes (C 5 and 64 clients, M 490, d 64, H 4, hd 16,
-    fp32) under two head-mask mixes. Relative ∞-norm <= 1e-4; a dropped
-    head's output slab (y, da, dW columns or rows) is exactly 0. ``ms`` is
-    device time per call from CUDA events around a CUDA graph of 20 calls;
-    ``library_ms`` one ``torch.bmm`` that computes the same function with
-    the head mask folded into an operand beforehand."""
+    fp32) under two head-mask mixes, and the two dW kernels at C 5, M 1100
+    (9 m-tiles) under the "half" mix. Relative ∞-norm <= 1e-4; a dropped
+    head's output slab (y, da, dW columns or rows) is exactly 0; the dW
+    kernels give the same bits on a second call, and report their launch
+    geometry. ``ms`` is device time per call from CUDA events around a
+    CUDA graph of 20 calls; ``library_ms`` one ``torch.bmm`` that computes
+    the same function with the head mask folded into an operand
+    beforehand."""
     from repro_torch.kernels import masked_attn as attn
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    M, d, H, hd = (ATTN_SHAPE[k] for k in ("M", "d", "H", "hd"))
+    M0, d, H, hd = (ATTN_SHAPE[k] for k in ("M", "d", "H", "hd"))
     N = H * hd
     per = {k: [] for k in ATTN_KERNELS}
-    for C in (5, 64):
-        for kind in ("main", "half"):
-            r = lambda *sh, fan: torch.randn(*sh, generator=g, device=dev) / fan ** 0.5
-            x, gy_p, w_p = r(C, M, d, fan=1), r(C, M, N, fan=1), r(C, d, N, fan=d)
-            a, gy_m, w_m = r(C, M, N, fan=1), r(C, M, d, fan=1), r(C, N, d, fan=N)
-            mask = head_masks(torch, C, kind, dev)
-            cols = (mask != 0).float().repeat_interleave(hd, dim=1)      # (C, N)
-            # the library call's operands, head mask folded in ahead of time
-            w_pm, gy_pm = w_p * cols[:, None, :], gy_p * cols[:, None, :]
-            w_mm, a_m = w_m * cols[:, :, None], a * cols[:, None, :]
-            xt, a_mt = x.transpose(1, 2), a_m.transpose(1, 2)
-            runs = {
-                "masked_head_proj": (lambda: attn.proj_fwd(x, w_p, mask),
-                                     lambda: attn.masked_head_proj_plain(x, w_p, mask),
-                                     lambda: torch.bmm(x, w_pm)),
-                "masked_head_proj_dx": (lambda: attn.proj_dx(gy_p, w_p, mask),
-                                        lambda: attn.masked_head_proj_dx_plain(gy_p, w_p, mask),
-                                        lambda: torch.bmm(gy_p, w_pm.transpose(1, 2))),
-                "masked_head_proj_dw": (lambda: attn.proj_dw(gy_p, x, mask),
-                                        lambda: attn.masked_head_proj_dw_plain(gy_p, x, mask),
-                                        lambda: torch.bmm(xt, gy_pm)),
-                "masked_head_merge": (lambda: attn.merge_fwd(a, w_m, mask),
-                                      lambda: attn.masked_head_merge_plain(a, w_m, mask),
-                                      lambda: torch.bmm(a, w_mm)),
-                "masked_head_merge_da": (lambda: attn.merge_da(gy_m, w_m, mask),
-                                         lambda: attn.masked_head_merge_da_plain(gy_m, w_m, mask),
-                                         lambda: torch.bmm(gy_m, w_mm.transpose(1, 2))),
-                "masked_head_merge_dw": (lambda: attn.merge_dw(gy_m, a, mask),
-                                         lambda: attn.masked_head_merge_dw_plain(gy_m, a, mask),
-                                         lambda: torch.bmm(a_mt, gy_m))}
-            work = attn_work(mask, M, d, hd)
-            dropped = (cols == 0)                                          # (C, N)
-            name = f"C{C}/{kind}"
-            for k, (kern, plain, lib) in runs.items():
-                got, want, libv = kern(), plain(), lib()
-                torch.cuda.synchronize()
-                err = rel_inf(got, want)
-                check(err <= 1e-4, f"{k}[{name}] rel err {err}")
-                lib_err = rel_inf(libv, want)
-                check(lib_err <= 1e-4, f"{k}[{name}] library yardstick disagrees: {lib_err}")
-                slabs = got if k == "masked_head_merge_dw" else got.transpose(1, 2)
-                if k not in ("masked_head_proj_dx", "masked_head_merge"):
-                    check(bool((slabs[dropped] == 0).all()),
-                          f"{k}[{name}] dropped head's slab not exactly 0")
-                b_ms, b_by = bound_ms(*work[k], FP32_FLOPS)
-                per[k].append({
-                    "case": name, "skipped_head_share": float(dropped.float().mean()),
-                    "max_abs_err": float((got - want).abs().max()), "rel_err": err,
-                    "ms": graph_ms(kern, torch), "plain_ms": graph_ms(plain, torch),
-                    "library_ms": graph_ms(lib, torch),
-                    "host_ms": time_loop_ms(kern, torch),
-                    "plain_host_ms": time_loop_ms(plain, torch, n=20),
-                    "bound_ms": b_ms, "bound_by": b_by})
+    cases = [(5, M0, "main"), (5, M0, "half"), (64, M0, "main"), (64, M0, "half"),
+             (5, ATTN_LONG_M, "half")]
+    for C, M, kind in cases:
+        r = lambda *sh, fan: torch.randn(*sh, generator=g, device=dev) / fan ** 0.5
+        x, gy_p, w_p = r(C, M, d, fan=1), r(C, M, N, fan=1), r(C, d, N, fan=d)
+        a, gy_m, w_m = r(C, M, N, fan=1), r(C, M, d, fan=1), r(C, N, d, fan=N)
+        mask = head_masks(torch, C, kind, dev)
+        cols = (mask != 0).float().repeat_interleave(hd, dim=1)      # (C, N)
+        # the library call's operands, head mask folded in ahead of time
+        w_pm, gy_pm = w_p * cols[:, None, :], gy_p * cols[:, None, :]
+        w_mm, a_m = w_m * cols[:, :, None], a * cols[:, None, :]
+        xt, a_mt = x.transpose(1, 2), a_m.transpose(1, 2)
+        runs = {
+            "masked_head_proj": (lambda: attn.proj_fwd(x, w_p, mask),
+                                 lambda: attn.masked_head_proj_plain(x, w_p, mask),
+                                 lambda: torch.bmm(x, w_pm)),
+            "masked_head_proj_dx": (lambda: attn.proj_dx(gy_p, w_p, mask),
+                                    lambda: attn.masked_head_proj_dx_plain(gy_p, w_p, mask),
+                                    lambda: torch.bmm(gy_p, w_pm.transpose(1, 2))),
+            "masked_head_proj_dw": (lambda: attn.proj_dw(gy_p, x, mask),
+                                    lambda: attn.masked_head_proj_dw_plain(gy_p, x, mask),
+                                    lambda: torch.bmm(xt, gy_pm)),
+            "masked_head_merge": (lambda: attn.merge_fwd(a, w_m, mask),
+                                  lambda: attn.masked_head_merge_plain(a, w_m, mask),
+                                  lambda: torch.bmm(a, w_mm)),
+            "masked_head_merge_da": (lambda: attn.merge_da(gy_m, w_m, mask),
+                                     lambda: attn.masked_head_merge_da_plain(gy_m, w_m, mask),
+                                     lambda: torch.bmm(gy_m, w_mm.transpose(1, 2))),
+            "masked_head_merge_dw": (lambda: attn.merge_dw(gy_m, a, mask),
+                                     lambda: attn.masked_head_merge_dw_plain(gy_m, a, mask),
+                                     lambda: torch.bmm(a_mt, gy_m))}
+        if M != M0:
+            runs = {k: runs[k] for k in HEAD_DW}
+        slab = {"masked_head_proj_dw": (d, hd), "masked_head_merge_dw": (hd, d)}
+        work = attn_work(mask, M, d, hd)
+        dropped = (cols == 0)                                          # (C, N)
+        name = f"C{C}/{kind}" + (f"/M{M}" if M != M0 else "")
+        for k, (kern, plain, lib) in runs.items():
+            got, want, libv = kern(), plain(), lib()
+            torch.cuda.synchronize()
+            err = rel_inf(got, want)
+            check(err <= 1e-4, f"{k}[{name}] rel err {err}")
+            lib_err = rel_inf(libv, want)
+            check(lib_err <= 1e-4, f"{k}[{name}] library yardstick disagrees: {lib_err}")
+            slabs = got if k == "masked_head_merge_dw" else got.transpose(1, 2)
+            if k not in ("masked_head_proj_dx", "masked_head_merge"):
+                check(bool((slabs[dropped] == 0).all()),
+                      f"{k}[{name}] dropped head's slab not exactly 0")
+            extra = {}
+            if k in HEAD_DW:
+                check(torch.equal(kern(), got), f"{k}[{name}] two calls differ in their bits")
+                extra = attn.dw_launch_geometry(C, M, H, *slab[k])
+            b_ms, b_by = bound_ms(*work[k], FP32_FLOPS)
+            per[k].append({
+                "case": name, "M": M, **extra,
+                "skipped_head_share": float(dropped.float().mean()),
+                "max_abs_err": float((got - want).abs().max()), "rel_err": err,
+                "ms": graph_ms(kern, torch), "plain_ms": graph_ms(plain, torch),
+                "library_ms": graph_ms(lib, torch),
+                "host_ms": time_loop_ms(kern, torch),
+                "plain_host_ms": time_loop_ms(plain, torch, n=20),
+                "bound_ms": b_ms, "bound_by": b_by})
     src = "src/repro_torch/kernels/csrc/masked_attn.cu"
     replaces = {"masked_head_proj": 153, "masked_head_proj_dx": 171,
                 "masked_head_proj_dw": 189, "masked_head_merge": 224,
@@ -525,14 +541,17 @@ def phase_attn_kernels(torch, np, dev="cuda"):
     out = []
     for k in ATTN_KERNELS:
         head = per[k][0]                  # C 5, the path's head-mask mix
-        out.append({"name": k, "route": "cuda", "source": src,
-                    "replaces": f"src/repro/kernels/masked_attn.py:{replaces[k]}",
-                    "max_abs_err": max(c["max_abs_err"] for c in per[k]),
-                    "ms": head["ms"], "plain_ms": head["plain_ms"],
-                    "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                    "library_ms": head["library_ms"],
-                    "library_call": "torch.bmm, head mask folded into an operand",
-                    "shape": dict(ATTN_SHAPE, C=5), "mixes": per[k]})
+        row = {"name": k, "route": "cuda", "source": src,
+               "replaces": f"src/repro/kernels/masked_attn.py:{replaces[k]}",
+               "max_abs_err": max(c["max_abs_err"] for c in per[k]),
+               "ms": head["ms"], "plain_ms": head["plain_ms"],
+               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+               "library_ms": head["library_ms"],
+               "library_call": "torch.bmm, head mask folded into an operand",
+               "shape": dict(ATTN_SHAPE, C=5), "mixes": per[k]}
+        if k in HEAD_DW:
+            row.update(blocks=head["blocks"], cluster=head["cluster"])
+        out.append(row)
     return out
 
 
@@ -1147,8 +1166,10 @@ def skip_shares(log, F):
     return out
 
 
-def busy_share(torch, fn):
-    """Device busy share of one call of fn, and device ms by kernel."""
+def busy_share(torch, fn, watch=()):
+    """Device busy share of one call of fn, and device ms by kernel: the
+    top 8, and every kernel whose name holds a string of ``watch``, with
+    its share of the device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1160,14 +1181,17 @@ def busy_share(torch, fn):
             and str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in kern)
     kern.sort(key=lambda e: -e.self_device_time_total)
-    top = [{"kernel": e.key[:90], "calls": e.count,
-            "us_per_call": e.self_device_time_total / max(e.count, 1)}
-           for e in kern[:8]]
+    row = lambda e: {"kernel": e.key[:90], "calls": e.count,
+                     "us_per_call": e.self_device_time_total / max(e.count, 1)}
+    top = [row(e) for e in kern[:8]]
     if not dev_us:                     # the profiler saw no device activity
         return {"wall_ms": wall_us / 1e3, "device_ms": None,
                 "device_busy_share": None, "top": []}
+    watched = [row(e) | {"device_share": e.self_device_time_total / dev_us}
+               for e in kern if any(w in e.key for w in watch)]
     return {"wall_ms": wall_us / 1e3, "device_ms": dev_us / 1e3,
-            "device_busy_share": dev_us / wall_us, "top": top}
+            "device_busy_share": dev_us / wall_us, "top": top,
+            **({"watched": watched} if watch else {})}
 
 
 def head_skip_shares(log, H):
@@ -1248,7 +1272,8 @@ def fl_phase(torch, np, name, workload, per_step, dev="cuda"):
     check(diff <= 5e-4, f"{name}: params differ from the plain run by {diff}")
 
     # one more round of the same cohort under the profiler
-    prof5 = busy_share(torch, lambda: sim.server.run_round())
+    watch = ("head_dw_kernel",) if workload == "femnist_attn" else ()
+    prof5 = busy_share(torch, lambda: sim.server.run_round(), watch)
     logs = {"invariant": log}
     for pol in ("ordered", "random"):
         logs[pol] = experiment(5, 3, pol)[2]
@@ -1257,7 +1282,7 @@ def fl_phase(torch, np, name, workload, per_step, dev="cuda"):
         skips["skipped_head_share"] = {p: head_skip_shares(lg, ATTN_SHAPE["H"])
                                        for p, lg in logs.items()}
     s64, h64, log64, wall64 = experiment(64, 2)
-    prof64 = busy_share(torch, lambda: s64.server.run_round())
+    prof64 = busy_share(torch, lambda: s64.server.run_round(), watch)
     train_s = [r["train_s"] for r in log]
     return {
         "workload": workload, "cohort": 5, "rounds": 6, "n_data": 2000,

@@ -159,6 +159,8 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.masked_attn_smem_bytes.argtypes = [i, i, i]
     lib.masked_attn_smem_bytes.restype = ctypes.c_longlong
+    lib.masked_attn_dw_geometry.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+    lib.masked_attn_dw_geometry.restype = None
     for name in LAUNCHES:
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = [p] * 4 + [i] * 6 + [p]
@@ -194,6 +196,16 @@ def _launch(name, smem_of, a, b, head_mask, out_shape, M, width, hd):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name].n += 1
     return out
+
+
+def dw_launch_geometry(C, M, H, I, J):
+    """How the dW kernels (``masked_head_proj_dw``, ``masked_head_merge_dw``)
+    launch for C clients of M rows, H heads and an I x J slab (proj: din x
+    hd; merge: hd x d): ``cluster`` blocks share a (client, head) slab's
+    ``m_tiles`` 128-row m-tiles, ``blocks`` in all. Builds the kernels."""
+    out = (ctypes.c_int * 3)()
+    _build.load("masked_attn").masked_attn_dw_geometry(C, M, H, I, J, out)
+    return {"cluster": out[0], "blocks": out[1], "m_tiles": out[2]}
 
 
 def proj_fwd(x, w, head_mask):

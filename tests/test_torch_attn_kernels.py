@@ -33,9 +33,11 @@ C = 2
 MASKS = {"all_kept": [[1, 1, 1, 1], [1, 1, 1, 1]],
          "partial": [[1, 0, 1, 1], [0, 1, 0, 0]],
          "all_dropped": [[0, 0, 0, 0], [0, 0, 0, 0]]}
-# (M, din or d, H, hd): the femnist_attn block at one image and at 130 rows
-# (two 128-row m-tiles, the second ragged), and a narrower odd shape
-SHAPES = [(49, 64, 4, 16), (130, 64, 4, 16), (37, 24, 4, 6)]
+# (M, din or d, H, hd): the femnist_attn block at one image, at 130 rows
+# (two 128-row m-tiles, the second ragged) and at 1100 rows (9 m-tiles, the
+# last ragged: more than the 8 blocks of one dW cluster on the card), and a
+# narrower odd shape
+SHAPES = [(49, 64, 4, 16), (130, 64, 4, 16), (37, 24, 4, 6), (1100, 64, 4, 16)]
 
 
 @pytest.fixture(autouse=True, scope="module")

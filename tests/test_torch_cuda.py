@@ -242,6 +242,44 @@ def test_masked_attn_kernels_match_plain(dev, dtype, C, M, width, H, hd):
     assert (attn.proj_dx(gy_p, w_p, mask)[dead] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [5, 64])
+@pytest.mark.parametrize("M", [1, 127, 128, 129, 490, 1100])
+def test_head_dw_kernels_split_m_tiles_across_a_cluster(dev, dtype, C, M):
+    """The two dW kernels at femnist_attn's widths, at M from one row to 9
+    m-tiles (the last ragged, more than one cluster of 8): each against
+    its plain version, dropped slabs and all-dropped clients exactly 0,
+    two calls bitwise equal, one launch a call; and the launch geometry,
+    a cluster of min(m-tiles, 8) blocks per (client, head)."""
+    g = torch.Generator(device=dev).manual_seed(C + M)
+    d, H, hd = 64, 4, 16
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+    x, gy_p, a, gy_m = r(C, M, d), r(C, M, H * hd), r(C, M, H * hd), r(C, M, d)
+    mask = _head_masks(C, H, dev)
+    dropped = (mask == 0).repeat_interleave(hd, dim=1)                 # (C, N)
+    dead = mask.sum(1) == 0
+    for name, kern, plain, args, slabs in (
+            ("masked_head_proj_dw", attn.proj_dw, attn.masked_head_proj_dw_plain,
+             (gy_p, x), lambda t: t.transpose(1, 2)),
+            ("masked_head_merge_dw", attn.merge_dw, attn.masked_head_merge_dw_plain,
+             (gy_m, a), lambda t: t)):
+        before = ops.LAUNCHES[name].n
+        got = kern(*args, mask)
+        again = kern(*args, mask)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name].n == before + 2
+        want = plain(*args, mask)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= _tol(dtype), name
+        assert (slabs(got)[dropped] == 0).all(), name
+        assert (got[dead] == 0).all(), name
+        assert torch.equal(got, again), name
+    T = -(-M // 128)
+    for I, J in ((d, hd), (hd, d)):
+        assert attn.dw_launch_geometry(C, M, H, I, J) == {
+            "cluster": min(T, 8), "blocks": min(T, 8) * H * C, "m_tiles": T}
+
+
 def test_masked_attention_autograd_launch_counts(dev):
     """One masked_attention forward and backward launches each projection
     kernel 3 times (Q, K, V) and each merge kernel once; its gradients
