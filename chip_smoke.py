@@ -17,8 +17,9 @@ the seconds the phase took (``phase_s``):
              fleet's (C 5 and 64 clients, M 10, d 64, F 1024) and at
              femnist_attn's FFN (C 5, M 490, F 256); the six head-masked
              projection kernels at femnist_attn's (C 5 and 64, M 490,
-             d 64, 4 heads of 16; the two dW kernels also at M 1100, 9
-             m-tiles, and twice on the same inputs, bitwise equal); the
+             d 64, 4 heads of 16; also at M 1100, 9 m-tiles, and at width
+             256, C 2, M 300, 4 heads of 64; each twice on the same
+             inputs, bitwise equal); the
              chunked RWKV-6 scan at RWKV-6-3B's
              prefill shape (B 1, S 512, H 40, N 64, chunk 128), also at
              logw = -8; invariant_stats at 1024 x 1024 fp32 and bf16 and
@@ -73,6 +74,7 @@ TRAIN_SHAPE = dict(M=10, d=64, F=1024)     # KernelMLP's FFN, batch 10
 # KernelAttnClassifier at batch 10: 490 rows a client, 4 heads of 16, FFN 256
 ATTN_SHAPE = dict(M=490, d=64, H=4, hd=16, F=256)
 ATTN_LONG_M = 1100             # 9 m-tiles: more than one cluster of 8 for the dW kernels
+ATTN_WIDE = dict(C=2, M=300, d=256, hd=64)   # a width the slab and sum kernels once refused
 HEAD_DW = ("masked_head_proj_dw", "masked_head_merge_dw")
 RWKV_SCAN_SHAPE = dict(B=1, S=512, H=40, N=64, chunk=128)   # RWKV-6-3B prefill
 STATS_SHAPES = ((1024, 1024, "float32"), (1024, 1024, "bfloat16"),
@@ -458,23 +460,26 @@ def attn_work(mask, M, width, hd, elem=4):
 def phase_attn_kernels(torch, np, dev="cuda"):
     """The six head-masked kernels against their plain versions at the
     femnist_attn shapes (C 5 and 64 clients, M 490, d 64, H 4, hd 16,
-    fp32) under two head-mask mixes, and the two dW kernels at C 5, M 1100
-    (9 m-tiles) under the "half" mix. Relative ∞-norm <= 1e-4; a dropped
-    head's output slab (y, da, dW columns or rows) is exactly 0; the dW
-    kernels give the same bits on a second call, and report their launch
-    geometry. ``ms`` is device time per call from CUDA events around a
-    CUDA graph of 20 calls; ``library_ms`` one ``torch.bmm`` that computes
-    the same function with the head mask folded into an operand
-    beforehand."""
+    fp32) under two head-mask mixes, at C 5, M 1100 (9 m-tiles) under the
+    "half" mix, and at width 256 (C 2, M 300, 4 heads of 64), a width at
+    which the slab and sum kernels once staged the whole weight and refused
+    to launch. Relative ∞-norm <= 1e-4; a dropped head's output slab (y,
+    da, dW columns or rows) is exactly 0; every kernel gives the same bits
+    on a second call and reports its launch geometry. ``ms`` is device
+    time per call from CUDA events around a CUDA graph of 20 calls;
+    ``library_ms`` one ``torch.bmm`` that computes the same function with
+    the head mask folded into an operand beforehand."""
     from repro_torch.kernels import masked_attn as attn
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(2)
-    M0, d, H, hd = (ATTN_SHAPE[k] for k in ("M", "d", "H", "hd"))
-    N = H * hd
+    M0, d0, H, hd0 = (ATTN_SHAPE[k] for k in ("M", "d", "H", "hd"))
     per = {k: [] for k in ATTN_KERNELS}
-    cases = [(5, M0, "main"), (5, M0, "half"), (64, M0, "main"), (64, M0, "half"),
-             (5, ATTN_LONG_M, "half")]
-    for C, M, kind in cases:
+    wide = ATTN_WIDE
+    cases = [(5, M0, "main", d0, hd0), (5, M0, "half", d0, hd0), (64, M0, "main", d0, hd0),
+             (64, M0, "half", d0, hd0), (5, ATTN_LONG_M, "half", d0, hd0),
+             (wide["C"], wide["M"], "half", wide["d"], wide["hd"])]
+    for C, M, kind, d, hd in cases:
+        N = H * hd
         r = lambda *sh, fan: torch.randn(*sh, generator=g, device=dev) / fan ** 0.5
         x, gy_p, w_p = r(C, M, d, fan=1), r(C, M, N, fan=1), r(C, d, N, fan=d)
         a, gy_m, w_m = r(C, M, N, fan=1), r(C, M, d, fan=1), r(C, N, d, fan=N)
@@ -503,12 +508,11 @@ def phase_attn_kernels(torch, np, dev="cuda"):
             "masked_head_merge_dw": (lambda: attn.merge_dw(gy_m, a, mask),
                                      lambda: attn.masked_head_merge_dw_plain(gy_m, a, mask),
                                      lambda: torch.bmm(a_mt, gy_m))}
-        if M != M0:
-            runs = {k: runs[k] for k in HEAD_DW}
         slab = {"masked_head_proj_dw": (d, hd), "masked_head_merge_dw": (hd, d)}
         work = attn_work(mask, M, d, hd)
         dropped = (cols == 0)                                          # (C, N)
-        name = f"C{C}/{kind}" + (f"/M{M}" if M != M0 else "")
+        name = (f"C{C}/{kind}" + (f"/M{M}" if M != M0 else "")
+                + (f"/d{d}/hd{hd}" if d != d0 else ""))
         for k, (kern, plain, lib) in runs.items():
             got, want, libv = kern(), plain(), lib()
             torch.cuda.synchronize()
@@ -520,13 +524,12 @@ def phase_attn_kernels(torch, np, dev="cuda"):
             if k not in ("masked_head_proj_dx", "masked_head_merge"):
                 check(bool((slabs[dropped] == 0).all()),
                       f"{k}[{name}] dropped head's slab not exactly 0")
-            extra = {}
-            if k in HEAD_DW:
-                check(torch.equal(kern(), got), f"{k}[{name}] two calls differ in their bits")
-                extra = attn.dw_launch_geometry(C, M, H, *slab[k])
+            check(torch.equal(kern(), got), f"{k}[{name}] two calls differ in their bits")
+            extra = (attn.dw_launch_geometry(C, M, H, *slab[k]) if k in HEAD_DW
+                     else attn.mm_launch_geometry(k, C, M, d, H, hd))
             b_ms, b_by = bound_ms(*work[k], FP32_FLOPS)
             per[k].append({
-                "case": name, "M": M, **extra,
+                "case": name, "M": M, "d": d, "hd": hd, **extra,
                 "skipped_head_share": float(dropped.float().mean()),
                 "max_abs_err": float((got - want).abs().max()), "rel_err": err,
                 "ms": graph_ms(kern, torch), "plain_ms": graph_ms(plain, torch),
@@ -549,8 +552,8 @@ def phase_attn_kernels(torch, np, dev="cuda"):
                "library_ms": head["library_ms"],
                "library_call": "torch.bmm, head mask folded into an operand",
                "shape": dict(ATTN_SHAPE, C=5), "mixes": per[k]}
-        if k in HEAD_DW:
-            row.update(blocks=head["blocks"], cluster=head["cluster"])
+        row.update(blocks=head["blocks"])
+        row.update({x: head[x] for x in ("cluster", "threads", "large") if x in head})
         out.append(row)
     return out
 
@@ -1181,7 +1184,7 @@ def busy_share(torch, fn, watch=()):
             and str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in kern)
     kern.sort(key=lambda e: -e.self_device_time_total)
-    row = lambda e: {"kernel": e.key[:90], "calls": e.count,
+    row = lambda e: {"kernel": e.key[:120], "calls": e.count,
                      "us_per_call": e.self_device_time_total / max(e.count, 1)}
     top = [row(e) for e in kern[:8]]
     if not dev_us:                     # the profiler saw no device activity
@@ -1272,7 +1275,8 @@ def fl_phase(torch, np, name, workload, per_step, dev="cuda"):
     check(diff <= 5e-4, f"{name}: params differ from the plain run by {diff}")
 
     # one more round of the same cohort under the profiler
-    watch = ("head_dw_kernel",) if workload == "femnist_attn" else ()
+    watch = (("head_slab_kernel", "head_sum_kernel", "head_dw_kernel")
+             if workload == "femnist_attn" else ())
     prof5 = busy_share(torch, lambda: sim.server.run_round(), watch)
     logs = {"invariant": log}
     for pol in ("ordered", "random"):

@@ -20,24 +20,35 @@
 //
 // What bounds it on an H100: at the femnist_attn widths (M 490 rows a
 // client, d 64, H 4 heads of hd 16, fp32) a client's call moves about
-// 0.27 MB for 4 MFLOP, 15 FLOP per byte, and a whole call at C 5 is a
-// fraction of a microsecond of memory time: launch latency, the number of
-// SMs in use and the serial dot products bound it. The slab and sum
-// kernels stage a row tile's operands and the client's whole weight (16 KB)
-// in shared memory once, with padded rows so the reads are bank-conflict
-// free, and loop over the kept heads inside the block (several heads per
-// program: hd 16 is far below a tile). fp32 FFMA throughout, so the sums
-// are the plain version's up to order. The dW kernel splits each slab's
-// m-tiles over several blocks, 80 blocks at C 5 where one block a slab gave
-// 20; at C 64 its 1024 blocks are bound by a fixed latency chain each
-// (mask, first stage, warp sums, push, barrier) and by staging the operand
-// that all heads share once per head.
+// 0.27 MB for 4 MFLOP, 15 FLOP per byte. A whole call at C 5 is a fraction
+// of a microsecond of memory time and is bound by one block's chain of
+// latencies (launch, mask read, a staging round trip, ~1000 FMAs a thread,
+// stores); at C 64 by the FMAs and the bytes, each ~4-5 us of work.
+//
+// The slab and sum kernels stage, through a cp.async ring, only what a
+// block uses, as the Pallas BlockSpecs cut it ((bm, din) x (din, hs) and
+// (bm, hs) x (hs, d)): a row tile of the inputs and the kept heads' weight
+// slabs, in chunks of the reduction, so their shared memory does not grow
+// with the widths. A thread holds a 4 x 4 register tile (8 x 4 or 8 x 8 in
+// the large tiles) fed by 16-byte shared loads, 0.125 loads a FMA or fewer,
+// with the next step's loads in flight. Each body has two tiles, picked at
+// launch from the grid: a small one that gives a C 5 call 160 blocks (one
+// head of a 64-row tile, or a 32 x 32 tile of the summed output), and a
+// large one for grids of 264 blocks or more, where a slab block takes
+// several heads and stages their shared inputs once. fp32 FFMA throughout,
+// so the sums are the plain version's up to order within a dot product.
+// The dW kernel splits each slab's m-tiles over several blocks, 80 blocks
+// at C 5 where one block a slab gave 20; at C 64 its 1024 blocks are bound
+// by a fixed latency chain each (mask, first stage, warp sums, push,
+// barrier) and by staging the operand that all heads share once per head.
 //
 // Hopper has no sequential grid, so the Pallas accumulators revisited
 // across the grid become loops inside one block or a fixed-order sum
-// across the blocks of a cluster. The sum kernel adds each kept head's dot
-// product to its fp32 total in head order. The dW kernel splits a (client,
-// head) slab's 128-row m-tiles across a thread-block cluster of
+// across the blocks of a cluster. The sum kernel walks its client's kept
+// heads in order and adds each head's fp32 partial (a register tile) to
+// its running total when the head is done (acc = 0 + p_h0, + p_h1, ...),
+// as the Pallas accumulator and the plain version do. The dW kernel splits
+// a (client, head) slab's 128-row m-tiles across a thread-block cluster of
 // min(m-tiles, 8) blocks: block b computes the fp32 partials of tiles b,
 // b + cs, ..., staging rows with cp.async, one row group a warp and an
 // 8x4 register tile a lane; each block pushes its partial into the shared
@@ -54,8 +65,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TM = 32;          // rows of a tile in the slab and sum kernels
+constexpr int THREADS = 256;    // dW blocks; the most threads of a slab or sum block
 constexpr int MT = 128;         // rows of an m-tile of the dW sums (Pallas block_m)
 constexpr int RS = 64;          // dW: rows of one cp.async stage
 constexpr int NST = 3;          // dW: stages in the ring
@@ -70,7 +80,28 @@ constexpr int MAX_CLUSTER = 8;        // portable cluster size
 constexpr size_t STATIC_SMEM = 48 * 1024;
 constexpr size_t MAX_SMEM = 227 * 1024;
 
-enum Body : int { kSlab = 0, kSum = 1, kDw = 2 };
+// slab and sum: a block's tile of TM rows, a thread's register tile of
+// RM x RN, the longest reduction chunk a stage holds (RC), the most
+// columns of a head chunk (slab) or of a tile (sum) (BN), the stages of the
+// cp.async ring (NS). Each body has a small tile, for launches with few
+// row tiles (femnist_attn's 5 clients), and a large one that takes fewer,
+// fuller blocks where the grid is large (64 clients); TM / RM * BN / RN
+// <= THREADS.
+struct Tile { int TM, RM, RN, RC, BN, NS; };
+constexpr int SLAB_RC = 64, SLAB_NS = 2, SUM_RC = 64, SUM_NS = 3;
+constexpr Tile SLAB_SMALL{64, 4, 4, SLAB_RC, 64, SLAB_NS};
+constexpr Tile SLAB_LARGE{64, 8, 4, SLAB_RC, 64, SLAB_NS};
+constexpr Tile SUM_SMALL{32, 4, 4, SUM_RC, 32, SUM_NS};
+constexpr Tile SUM_LARGE{64, 8, 8, SUM_RC, 64, SUM_NS};
+// A slab launch takes the large tile and gives a block G > 1 heads where
+// that still leaves MIN_BLOCKS blocks (G the most that does); a sum launch
+// takes the large tile where that gives MIN_BLOCKS blocks.
+constexpr int MIN_BLOCKS = 264;
+
+enum Body : int { kSlab = 0, kSum = 1 };
+
+int imin(int a, int b) { return a < b ? a : b; }
+int imax(int a, int b) { return a > b ? a : b; }
 
 // How the dW kernel cuts a (client, head) slab of I x J outputs. A chunk
 // is CI x CJ register tiles of MI x MJ, one per lane: CJ the least power
@@ -119,12 +150,92 @@ int copy_bytes(int elem, int a, int b, int c, int d) {
   return v;
 }
 
-// Shared memory of each body, in bytes. kSlab: (K in width, N out width);
-// kSum: (N in width, K out width); kDw: (I, J) of the output slab, fp32
-// (bf16 stages take less).
-size_t smem_bytes(int body, int w1, int w2) {
-  if (body == kDw) return (size_t)dw_geom(1, w1, w2, sizeof(float)).smem;
-  return sizeof(float) * ((size_t)TM * (w1 + 1) + (size_t)w1 * (w2 + 1));
+// How a slab or sum launch cuts its work. A block computes TM rows of
+// outputs with G groups of tph threads, each thread an RM x RN register
+// tile, reducing over chunks of at most RC staged in a ring of NS stages:
+//   slab: group p owns whole head h0 + p, or, where hd > BN, G = 1 and the
+//         block owns a column chunk of one head (nch chunks a head); the
+//         reduction runs over K in nrc chunks. A stage holds the row
+//         tile's inputs once for the block's heads and each kept head's
+//         weight chunk.
+//   sum:  G = 1; the block owns a chunk of the K outputs (nch chunks) and
+//         walks the kept heads, P = RC / hd of them a job where hd <= RC,
+//         else one head in nrc chunks. A stage holds those heads' columns
+//         of the row tile side by side and their weight rows.
+// Inputs are staged [TM][lda] (reduction fastest), a weight chunk (bstage
+// elements) [rc][ldb] (columns fastest) or, transposed (bt), [bn][ldb]
+// (reduction fastest). A row stride is an odd number of 16-byte units, so
+// the consecutive rows that a quarter-warp reads lie in different banks.
+// Shared memory does not grow with K or N: a stage holds at most G x (TM
+// + BN) rows of RC and a pad.
+struct MmGeom {
+  int bn, ncg, nch;   // columns of a head chunk or tile; its groups of RN; chunks
+  int G, tph;         // thread groups (heads) a block; threads a group
+  int nrc;            // reduction chunks (slab: of K; sum: of one head's hd)
+  int P, seg;         // sum: kept heads a job stages side by side, columns apart
+  int lda, ldb;       // stage row strides, elements
+  int bstage, stage;  // elements of one weight chunk and of one stage
+  int va, vb;         // bytes per cp.async of A rows and of B rows
+  int threads, smem;  // threads a block; dynamic shared memory, bytes
+};
+
+// Stage row stride, in elements, for rows of w elements: an odd number of
+// 16-byte units.
+int pad_ld(int w, int elem) {
+  const int ve = 16 / elem;
+  const int ld = (w + ve - 1) / ve * ve;
+  return (ld / ve) % 2 ? ld : ld + ve;
+}
+
+// C clients of M rows; width: the non-head width (K: din or d); stages of
+// `elem`-byte elements; G > 1 heads a block (slab) only if `groups`: the
+// most that leave MIN_BLOCKS blocks. Returns the launch's blocks.
+long long mm_geom(MmGeom& g, const Tile& tl, bool slab, bool bt, bool groups, int C, int M,
+                  int width, int H, int hd, int elem) {
+  g = MmGeom{};
+  const int cols = slab ? hd : width, red = slab ? width : hd;
+  g.bn = imin((cols + tl.RN - 1) / tl.RN * tl.RN, tl.BN);
+  g.ncg = g.bn / tl.RN;
+  g.nch = (cols + g.bn - 1) / g.bn;
+  g.nrc = (red + tl.RC - 1) / tl.RC;
+  g.tph = tl.TM / tl.RM * g.ncg;
+  const long long tiles = (long long)((M + tl.TM - 1) / tl.TM) * C;
+  g.G = 1;
+  if (groups && g.nch == 1)
+    for (int q = imin(H, THREADS / g.tph); q > 1; --q)
+      if (tiles * ((H + q - 1) / q) >= MIN_BLOCKS) {
+        g.G = q;
+        break;
+      }
+  // a stage's reduction width: a chunk of K (slab); P segments of seg
+  // columns, each a head (hd rounded up to 4, so vector loads stay
+  // aligned) or a chunk of one (sum)
+  g.seg = imin((red + 3) / 4 * 4, tl.RC);
+  g.P = slab || hd > tl.RC ? 1 : imax(1, imin(H, tl.RC / g.seg));
+  const int rc = slab ? imin(red, tl.RC) : (g.P > 1 ? g.P * g.seg : imin(red, tl.RC));
+  g.lda = pad_ld(rc, elem);
+  g.ldb = pad_ld(bt ? rc : g.bn, elem);
+  g.bstage = (bt ? g.bn : rc) * g.ldb;
+  g.stage = tl.TM * g.lda + g.G * g.bstage;
+  // job j < jobs takes ring slot j % NS: a block with fewer jobs than NS
+  // uses only the first `jobs` slots
+  const int jobs = slab ? g.nrc : (H + g.P - 1) / g.P * g.nrc;
+  g.threads = g.G * g.tph;
+  g.smem = imin(tl.NS, jobs) * g.stage * elem;
+  return tiles * (slab ? (H + g.G - 1) / g.G * g.nch : g.nch);
+}
+
+// The tile a launch takes (large: 1, small: 0) and its geometry; returns
+// its blocks.
+long long mm_pick(MmGeom& g, int& large, bool slab, bool bt, int C, int M, int width, int H,
+                  int hd, int elem) {
+  long long blocks =
+      mm_geom(g, slab ? SLAB_LARGE : SUM_LARGE, slab, bt, slab, C, M, width, H, hd, elem);
+  large = slab ? g.G > 1 : blocks >= MIN_BLOCKS;
+  if (!large)
+    blocks = mm_geom(g, slab ? SLAB_SMALL : SUM_SMALL, slab, bt, false, C, M, width, H, hd,
+                     elem);
+  return blocks;
 }
 
 template <typename Kern>
@@ -133,96 +244,6 @@ cudaError_t allow_smem(Kern* kern, size_t bytes) {
   if (bytes <= STATIC_SMEM) return cudaSuccess;
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
-}
-
-// out[c][m][j] = Σ_k in[c][m][k]·B(k, j) for the columns j of kept heads,
-// 0 for the columns of dropped heads; j < N = H·hd.
-//   TRANS = false: B(k, j) = w[c][k][j], w (C, K, N)    (proj)
-//   TRANS = true:  B(k, j) = w[c][j][k], w (C, N, K)    (merge da)
-// grid (row tiles of TM, C). Shared: the row tile [TM][K+1] and the kept
-// heads' columns of B [K][N+1].
-template <typename T, bool TRANS>
-__global__ void __launch_bounds__(THREADS)
-head_slab_kernel(const T* __restrict__ in, const T* __restrict__ w,
-                 const float* __restrict__ mask, T* __restrict__ out, int M,
-                 int K, int H, int hd) {
-  extern __shared__ float sm[];
-  const int N = H * hd, c = blockIdx.y, m0 = blockIdx.x * TM;
-  const int rows = min(TM, M - m0), ldi = K + 1, ldw = N + 1, tid = threadIdx.x;
-  float* is = sm;
-  float* ws = sm + TM * ldi;
-  const float* mk = mask + (size_t)c * H;
-  const T* in_c = in + ((size_t)c * M + m0) * K;
-  const T* w_c = w + (size_t)c * K * N;
-  T* out_c = out + ((size_t)c * M + m0) * N;
-
-  for (int e = tid; e < rows * K; e += THREADS)
-    is[(e / K) * ldi + e % K] = rt::to_f(in_c[e]);
-  for (int e = tid; e < K * N; e += THREADS) {      // coalesced along w's rows
-    const int k = TRANS ? e % K : e / N, j = TRANS ? e / K : e % N;
-    if (mk[j / hd] != 0.f) ws[k * ldw + j] = rt::to_f(w_c[e]);
-  }
-  __syncthreads();
-
-  for (int h = 0; h < H; ++h) {
-    const bool kept = mk[h] != 0.f;                  // block-uniform
-    for (int o = tid; o < rows * hd; o += THREADS) {
-      const int r = o / hd, j = h * hd + o % hd;
-      float acc = 0.f;
-      if (kept) {
-        const float* ir = is + r * ldi;
-#pragma unroll 8
-        for (int k = 0; k < K; ++k) acc = fmaf(ir[k], ws[k * ldw + j], acc);
-      }
-      out_c[(size_t)r * N + j] = rt::from_f<T>(acc);
-    }
-  }
-}
-
-// out[c][m][k] = Σ over kept heads h, in order, of
-//                Σ_e in[c][m][h·hd + e]·B(h·hd + e, k);   k < K.
-//   TRANS = false: B(j, k) = w[c][j][k], w (C, N, K)    (merge)
-//   TRANS = true:  B(j, k) = w[c][k][j], w (C, K, N)    (proj dx)
-// grid (row tiles of TM, C). Shared: the row tile [TM][N+1] and the kept
-// heads' rows of B [N][K+1].
-template <typename T, bool TRANS>
-__global__ void __launch_bounds__(THREADS)
-head_sum_kernel(const T* __restrict__ in, const T* __restrict__ w,
-                const float* __restrict__ mask, T* __restrict__ out, int M,
-                int K, int H, int hd) {
-  extern __shared__ float sm[];
-  const int N = H * hd, c = blockIdx.y, m0 = blockIdx.x * TM;
-  const int rows = min(TM, M - m0), ldi = N + 1, ldw = K + 1, tid = threadIdx.x;
-  float* is = sm;
-  float* ws = sm + TM * ldi;
-  const float* mk = mask + (size_t)c * H;
-  const T* in_c = in + ((size_t)c * M + m0) * N;
-  const T* w_c = w + (size_t)c * K * N;
-  T* out_c = out + ((size_t)c * M + m0) * K;
-
-  for (int e = tid; e < rows * N; e += THREADS) {
-    const int j = e % N;
-    if (mk[j / hd] != 0.f) is[(e / N) * ldi + j] = rt::to_f(in_c[e]);
-  }
-  for (int e = tid; e < K * N; e += THREADS) {      // coalesced along w's rows
-    const int j = TRANS ? e % N : e / K, k = TRANS ? e / N : e % K;
-    if (mk[j / hd] != 0.f) ws[j * ldw + k] = rt::to_f(w_c[e]);
-  }
-  __syncthreads();
-
-  for (int o = tid; o < rows * K; o += THREADS) {
-    const int r = o / K, k = o % K;
-    const float* ir = is + r * ldi;
-    float acc = 0.f;
-    for (int h = 0; h < H; ++h) {
-      if (mk[h] == 0.f) continue;                    // block-uniform
-      float part = 0.f;
-      for (int e = h * hd; e < (h + 1) * hd; ++e)
-        part = fmaf(ir[e], ws[e * ldw + k], part);
-      acc += part;
-    }
-    out_c[(size_t)r * K + k] = rt::from_f<T>(acc);
-  }
 }
 
 // One (client, head) dW slab: out[i][j] = Σ over 128-row m-tiles, in
@@ -262,20 +283,21 @@ __device__ __forceinline__ void copy_async(char* dst, const char* src) {
 }
 
 // Copies rows of vpr vectors of vb bytes (global row stride ld bytes,
-// shared sld). Thread tid starts at vector (r0, c0) of the flat order and
-// steps by THREADS vectors as (dr, dc), so no index is divided in the loop.
+// shared sld) with the nt threads of a block. Thread tid starts at vector
+// (r0, c0) of the flat order and steps by nt vectors as (dr, dc), so no
+// index is divided in the loop.
 struct RowCopy {
   int vb, vpr, r0, c0, dr, dc, sld;
   long long ld;
-  __device__ RowCopy(int width_bytes, int vb_, long long ld_, int sld_)
+  __device__ RowCopy(int width_bytes, int vb_, long long ld_, int sld_, int nt = THREADS)
       : vb(vb_), vpr(width_bytes / vb_), sld(sld_), ld(ld_) {
     r0 = threadIdx.x / vpr;
     c0 = threadIdx.x % vpr;
-    dr = THREADS / vpr;
-    dc = THREADS % vpr;
+    dr = nt / vpr;
+    dc = nt % vpr;
   }
   template <int B>
-  __device__ void rows(char* dst, const char* src, int n) const {
+  __device__ __forceinline__ void rows(char* dst, const char* src, int n) const {
     for (int r = r0, c = c0; r < n;) {
       copy_async<B>(dst + r * sld + c * B, src + r * ld + c * B);
       c += dc;
@@ -283,7 +305,7 @@ struct RowCopy {
       if (c >= vpr) { c -= vpr; ++r; }
     }
   }
-  __device__ void operator()(char* dst, const char* src, int n) const {
+  __device__ __forceinline__ void operator()(char* dst, const char* src, int n) const {
     switch (vb) {
       case 16: rows<16>(dst, src, n); break;
       case 8: rows<8>(dst, src, n); break;
@@ -312,6 +334,325 @@ __device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
   load4(p + 4, hi);
 #pragma unroll
   for (int k = 0; k < 4; ++k) { v[k] = lo[k]; v[k + 4] = hi[k]; }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float a, float b, float c, float d);
+
+template <>
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+template <>
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 t;
+  t.x = *reinterpret_cast<const unsigned*>(&lo);
+  t.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// One step of four along the reduction: A[i][r..r+3] into a, B[r..r+3][j]
+// into b. as, bs, astep, ldb, bstep as mm_chunk has them.
+template <typename T, bool BT, int RM, int RN>
+__device__ __forceinline__ void mm_load(const T* __restrict__ as, int astep,
+                                        const T* __restrict__ bs, int ldb, int bstep, int r,
+                                        float (&a)[RM][4], float (&b)[4][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) load4(as + i * astep + r, a[i]);
+#pragma unroll
+  for (int v = 0; v < RN / 4; ++v)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float t[4];
+      load4(BT ? bs + (v * 4 + q) * bstep + r : bs + (r + q) * ldb + v * bstep, t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (BT) b[e][v * 4 + q] = t[e];
+        else b[q][v * 4 + e] = t[e];
+      }
+    }
+}
+
+template <int RM, int RN>
+__device__ __forceinline__ void mm_fma(const float (&a)[RM][4], const float (&b)[4][RN],
+                                       float (&acc)[RM][RN]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i][q], b[q][j], acc[i][j]);
+}
+
+// acc[i][j] += Σ_{r < rc} A[i][r]·B[r][j] over one staged reduction chunk,
+// r ascending, one fmaf chain an output. as: the thread's first A row, its
+// rows astep apart. bs, BT = false (B staged [r][n]): the thread's first
+// column in chunk row 0 (rows ldb apart), its columns in groups of four
+// contiguous ones, bstep apart; BT = true (B staged [n][r]): the row of the
+// thread's first column, each next column's row bstep further. Steps of
+// four along r: RM + RN loads of four elements (16 bytes fp32, 8 bf16)
+// feed RM x RN x 4 FMAs. A 4 x 4 tile keeps the next step's loads in
+// flight while one step's FMAs run (two register buffers); a larger one
+// has no registers to spare for that.
+template <typename T, bool BT, int RM, int RN>
+__device__ __forceinline__ void mm_chunk(const T* __restrict__ as, int astep,
+                                         const T* __restrict__ bs, int ldb, int bstep,
+                                         int rc, float (&acc)[RM][RN]) {
+  const int steps = rc / 4;
+  if (RM * RN > 16) {                                // large tiles: no registers to spare
+    float a[RM][4], b[4][RN];
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      mm_load<T, BT>(as, astep, bs, ldb, bstep, 4 * s, a, b);
+      mm_fma(a, b, acc);
+    }
+  } else if (steps > 0) {
+    float a0[RM][4], b0[4][RN], a1[RM][4], b1[4][RN];
+    mm_load<T, BT>(as, astep, bs, ldb, bstep, 0, a0, b0);
+    int s = 0;
+    for (; s + 2 <= steps; s += 2) {
+      mm_load<T, BT>(as, astep, bs, ldb, bstep, 4 * s + 4, a1, b1);
+      mm_fma(a0, b0, acc);
+      if (s + 2 < steps) mm_load<T, BT>(as, astep, bs, ldb, bstep, 4 * s + 8, a0, b0);
+      mm_fma(a1, b1, acc);
+    }
+    if (s < steps) mm_fma(a0, b0, acc);              // an odd step count
+  }
+  for (int r = steps * 4; r < rc; ++r) {             // a chunk that is not a multiple of 4
+    float b[RN];
+#pragma unroll
+    for (int j = 0; j < RN; ++j)
+      b[j] = rt::to_f(BT ? bs[j * bstep + r] : bs[r * ldb + j / 4 * bstep + j % 4]);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float a = rt::to_f(as[i * astep + r]);
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
+    }
+  }
+}
+
+// Writes a thread's register tile into the block's tile o (row stride
+// ldo): rows r0 + i·rstep below `rows`, columns (BT: cg + j·ncg; else
+// groups of four, cg·4 + e + v·ncg·4) below bn. vec: o and ldo are
+// multiples of four elements, so four contiguous columns go as one store
+// (16 bytes fp32, 8 bf16).
+template <typename T, bool BT, int RM, int RN>
+__device__ __forceinline__ void store_tile(T* o, int ldo, int rows, int bn, int r0,
+                                           int rstep, int cg, int ncg, bool vec,
+                                           const float (&v)[RM][RN]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = r0 + i * rstep;
+    if (r >= rows) break;
+    T* orow = o + (size_t)r * ldo;
+#pragma unroll
+    for (int u = 0; u < RN / 4; ++u) {
+      const int c0 = u * ncg * 4 + cg * 4;
+      if (!BT && vec && c0 + 4 <= bn) {
+        store4(orow + c0, v[i][u * 4], v[i][u * 4 + 1], v[i][u * 4 + 2], v[i][u * 4 + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = u * 4 + e, col = BT ? cg + j * ncg : c0 + e;
+          if (col < bn) orow[col] = rt::from_f<T>(v[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// out[c][m][j] = Σ_k in[c][m][k]·B(k, j) for the columns j of kept heads,
+// exact zeros for those of dropped heads; j < N = H·hd.
+//   TRANS = false: B(k, j) = w[c][k][j], w (C, K, N)    (proj)
+//   TRANS = true:  B(k, j) = w[c][j][k], w (C, N, K)    (merge da)
+// grid (row tiles of TM, head groups (or H x g.nch chunks), C): a
+// block owns a row tile of g.G heads (or of one column chunk of one head),
+// g.tph threads a head. It reads the heads' mask first: a block whose
+// heads are all dropped writes its zeros and returns before it stages
+// anything. Otherwise it stages K in chunks of SLAB_RC through a ring of
+// SLAB_NS stages: the row tile's inputs, once for its heads, and each kept
+// head's weight chunk. A head's threads each compute an RM x RN
+// register tile of its slab; a dropped head's threads compute nothing and
+// write zeros.
+template <typename T, bool TRANS, int TM, int RM, int RN>
+__global__ void __launch_bounds__(THREADS)
+head_slab_kernel(const T* __restrict__ in, const T* __restrict__ w,
+                 const float* __restrict__ mask, T* __restrict__ out, int M,
+                 int K, int H, int hd, MmGeom g) {
+  extern __shared__ __align__(16) unsigned char mm_sm[];
+  constexpr int RG = TM / RM;                        // row groups of a head's threads
+  T* stage = reinterpret_cast<T*>(mm_sm);
+  const int tid = threadIdx.x, nt = blockDim.x, c = blockIdx.z, E = sizeof(T);
+  const int h0 = g.nch > 1 ? blockIdx.y / g.nch : blockIdx.y * g.G;
+  const int n0 = g.nch > 1 ? (blockIdx.y - h0 * g.nch) * g.bn : 0;
+  const int nh = min(g.G, H - h0), bn = min(g.bn, hd - n0);
+  const int q = tid / g.tph, t = tid - q * g.tph;    // this thread's head: h0 + q
+  const int cg = t % g.ncg, rg = t / g.ncg;
+  const int m0 = blockIdx.x * TM, rows = min(TM, M - m0), N = H * hd;
+  const T* A = in + ((size_t)c * M + m0) * K;
+  const T* B = TRANS ? w + ((size_t)c * N + h0 * hd + n0) * K
+                     : w + (size_t)c * K * N + h0 * hd + n0;
+  // the copies of a chunk of rc0 (every chunk but a ragged last one),
+  // built while the mask is read: a copy's constructor divides
+  const int rc0 = min(SLAB_RC, K);
+  const RowCopy ca(rc0 * E, g.va, (long long)K * E, g.lda * E, nt);
+  const RowCopy cb = TRANS ? RowCopy(rc0 * E, g.vb, (long long)K * E, g.ldb * E, nt)
+                           : RowCopy(bn * E, g.vb, (long long)N * E, g.ldb * E, nt);
+  const float* mk = mask + (size_t)c * H + h0;
+  unsigned kept = 0;                                 // bit p: head h0 + p is kept
+#pragma unroll 4
+  for (int p = 0; p < nh; ++p) kept |= (mk[p] != 0.f ? 1u : 0u) << p;
+  const bool mine = q < nh && (kept >> q & 1u);
+  float acc[RM][RN] = {};
+  if (kept) {                                        // block-uniform
+    auto fetch = [&](int j) {
+      if (j < g.nrc) {
+        const int k0 = j * SLAB_RC, rc = min(SLAB_RC, K - k0);
+        T* as = stage + (j % SLAB_NS) * g.stage;
+        (rc == rc0 ? ca : RowCopy(rc * E, g.va, (long long)K * E, g.lda * E, nt))(
+            reinterpret_cast<char*>(as), reinterpret_cast<const char*>(A + k0), rows);
+        for (int p = 0; p < nh; ++p) {
+          if (!(kept >> p & 1u)) continue;
+          char* bs = reinterpret_cast<char*>(as + TM * g.lda + p * g.bstage);
+          if (TRANS)                                 // bn weight rows of rc
+            (rc == rc0 ? cb : RowCopy(rc * E, g.vb, (long long)K * E, g.ldb * E, nt))(
+                bs, reinterpret_cast<const char*>(B + (size_t)p * hd * K + k0), bn);
+          else                                       // rc weight rows of bn
+            cb(bs, reinterpret_cast<const char*>(B + p * hd + (size_t)k0 * N), rc);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");   // empty groups too
+    };
+    for (int j = 0; j < SLAB_NS - 1; ++j) fetch(j);
+    for (int j = 0; j < g.nrc; ++j) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(SLAB_NS - 2) : "memory");
+      __syncthreads();                               // chunk j landed, j - 1 consumed
+      fetch(j + SLAB_NS - 1);
+      if (mine) {
+        const T* as = stage + (j % SLAB_NS) * g.stage;
+        const T* bs = as + TM * g.lda + q * g.bstage;
+        mm_chunk<T, TRANS, RM, RN>(
+            as + rg * g.lda, RG * g.lda, bs + (TRANS ? cg * g.ldb : cg * 4), g.ldb,
+            TRANS ? g.ncg * g.ldb : g.ncg * 4, min(SLAB_RC, K - j * SLAB_RC), acc);
+      }
+    }
+  }
+  if (q < nh) {
+    const int col0 = (h0 + q) * hd + n0;
+    store_tile<T, TRANS, RM, RN>(out + ((size_t)c * M + m0) * N + col0, N, rows, bn, rg, RG,
+                                 cg, g.ncg, N % 4 == 0 && col0 % 4 == 0, acc);
+  }
+}
+
+// out[c][m][k] = Σ over kept heads h, in order, of the fp32 dot product
+//                Σ_e in[c][m][h·hd + e]·B(h·hd + e, k);   k < K.
+//   TRANS = false: B(j, k) = w[c][j][k], w (C, N, K)    (merge)
+//   TRANS = true:  B(j, k) = w[c][k][j], w (C, K, N)    (proj dx)
+// grid (row tiles of TM, column tiles of g.bn, C). A block counts its
+// client's kept heads and walks them in order. One job stages g.P kept
+// heads side by side (the row tile's columns of each, and each one's
+// weight rows for the block's columns), or, where hd > SUM_RC, a chunk of
+// one head, through a ring of SUM_NS stages, so the next job's slabs are in
+// flight while one is computed. A head's partial is an RM x RN register
+// tile a thread; when the head is done it is added to the running fp32
+// total (acc = 0 + p_h0, + p_h1, ...). A client with no kept head gets
+// exact zeros.
+template <typename T, bool TRANS, int TM, int RM, int RN>
+__global__ void __launch_bounds__(THREADS)
+head_sum_kernel(const T* __restrict__ in, const T* __restrict__ w,
+                const float* __restrict__ mask, T* __restrict__ out, int M,
+                int K, int H, int hd, MmGeom g) {
+  extern __shared__ __align__(16) unsigned char mm_sm[];
+  constexpr int RG = TM / RM;                        // row groups
+  T* stage = reinterpret_cast<T*>(mm_sm);
+  const int tid = threadIdx.x, nt = blockDim.x, c = blockIdx.z, E = sizeof(T);
+  const int n0 = blockIdx.y * g.bn, bn = min(g.bn, K - n0);
+  const int m0 = blockIdx.x * TM, rows = min(TM, M - m0), N = H * hd;
+  const int cg = tid % g.ncg, rg = tid / g.ncg;
+  const T* A = in + ((size_t)c * M + m0) * N;
+  const T* B = TRANS ? w + ((size_t)c * K + n0) * N : w + (size_t)c * N * K + n0;
+  const float* mk = mask + (size_t)c * H;
+  int kept = 0;
+#pragma unroll 4
+  for (int h = 0; h < H; ++h) kept += mk[h] != 0.f;
+  // the copies of a job's usual piece, built while the mask is read (a
+  // copy's constructor divides): g.P kept heads in a row, or a chunk of rc0
+  // of one head
+  const int rc0 = min(SUM_RC, hd), w0 = g.P > 1 ? g.P * hd : rc0;
+  const RowCopy ca(w0 * E, g.va, (long long)N * E, g.lda * E, nt);
+  const RowCopy cb = TRANS ? RowCopy(w0 * E, g.vb, (long long)N * E, g.ldb * E, nt)
+                           : RowCopy(bn * E, g.vb, (long long)K * E, g.ldb * E, nt);
+  const int jobs = (kept + g.P - 1) / g.P * g.nrc;
+  int fh = -1, fe = g.nrc - 1, left = kept;          // last head and chunk fetched
+  // stages columns col, col + 1, ... (wd of them) of the row tile and the
+  // weight's matching rows at segment offset s0 of a stage
+  auto piece = [&](T* as, T* bs, int s0, int col, int wd) {
+    (wd == w0 ? ca : RowCopy(wd * E, g.va, (long long)N * E, g.lda * E, nt))(
+        reinterpret_cast<char*>(as + s0), reinterpret_cast<const char*>(A + col), rows);
+    if (TRANS)                                       // bn weight rows of wd
+      (wd == w0 ? cb : RowCopy(wd * E, g.vb, (long long)N * E, g.ldb * E, nt))(
+          reinterpret_cast<char*>(bs + s0), reinterpret_cast<const char*>(B + col), bn);
+    else                                             // wd weight rows of bn
+      cb(reinterpret_cast<char*>(bs + (size_t)s0 * g.ldb),
+         reinterpret_cast<const char*>(B + (size_t)col * K), wd);
+  };
+  auto fetch = [&](int j) {
+    if (j < jobs) {
+      T* as = stage + (j % SUM_NS) * g.stage;
+      T* bs = as + TM * g.lda;
+      if (g.nrc > 1) {                               // a chunk of one head
+        if (++fe == g.nrc) {
+          fe = 0;
+          do ++fh; while (mk[fh] == 0.f);
+        }
+        const int e0 = fe * SUM_RC;
+        piece(as, bs, 0, fh * hd + e0, min(SUM_RC, hd - e0));
+      } else {                                       // up to P heads, a run of
+        for (int p = 0; p < g.P && left > 0;) {      // consecutive ones a piece
+          do ++fh; while (mk[fh] == 0.f);
+          const int f = fh, most = min(g.P - p, left);
+          if (g.seg == hd)                           // segments hd apart: hd % 4 == 0
+            while (fh - f + 1 < most && mk[fh + 1] != 0.f) ++fh;
+          const int run = fh - f + 1;
+          piece(as, bs, p * g.seg, f * hd, run * hd);
+          p += run;
+          left -= run;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");     // empty groups too
+  };
+  float acc[RM][RN] = {}, part[RM][RN] = {};
+  for (int j = 0; j < SUM_NS - 1; ++j) fetch(j);
+  for (int j = 0, ce = 0, done = 0; j < jobs; ++j) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(SUM_NS - 2) : "memory");
+    __syncthreads();                                 // job j landed, j - 1 consumed
+    fetch(j + SUM_NS - 1);
+    const T* as = stage + (j % SUM_NS) * g.stage + rg * g.lda;
+    const T* bs = stage + (j % SUM_NS) * g.stage + TM * g.lda + (TRANS ? cg * g.ldb : cg * 4);
+    const int np = min(g.P, kept - done);
+    for (int p = 0, s0 = 0; p < np; ++p, s0 += g.seg) {
+      mm_chunk<T, TRANS, RM, RN>(as + s0, RG * g.lda, bs + (TRANS ? s0 : s0 * g.ldb), g.ldb,
+                                 TRANS ? g.ncg * g.ldb : g.ncg * 4,
+                                 min(SUM_RC, hd - ce * SUM_RC), part);
+      if (++ce < g.nrc) break;                       // more chunks of this head
+      ce = 0;                                        // the head is done: head order
+      ++done;
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int k = 0; k < RN; ++k) {
+          acc[i][k] += part[i][k];
+          part[i][k] = 0.f;
+        }
+    }
+  }
+  store_tile<T, TRANS, RM, RN>(out + ((size_t)c * M + m0) * K + n0, K, rows, bn, rg, RG, cg,
+                               g.ncg, K % 4 == 0 && n0 % 4 == 0, acc);
 }
 
 // grid (cs, chunks x H, C), clusters (cs, 1, 1): a cluster per (client,
@@ -457,17 +798,47 @@ head_dw_kernel(DwArgs a, DwGeom g, const float* __restrict__ mask, int M, int H)
   }
 }
 
+template <typename T, bool TRANS, int TM, int RM, int RN>
+cudaError_t run_slab(const void* in, const void* w, const float* mask, void* out, int C,
+                     int M, int K, int H, int hd, MmGeom& g, cudaStream_t s) {
+  const int elem = sizeof(T), N = H * hd;
+  g.va = copy_bytes(elem, K, SLAB_RC, K, K);
+  g.vb = TRANS ? g.va : copy_bytes(elem, N, hd, g.bn, hd);
+  cudaError_t err = allow_smem(head_slab_kernel<T, TRANS, TM, RM, RN>, g.smem);
+  if (err != cudaSuccess) return err;
+  const int ny = g.nch > 1 ? H * g.nch : (H + g.G - 1) / g.G;
+  head_slab_kernel<T, TRANS, TM, RM, RN>
+      <<<dim3((M + TM - 1) / TM, ny, C), g.threads, g.smem, s>>>(
+          static_cast<const T*>(in), static_cast<const T*>(w), mask,
+          static_cast<T*>(out), M, K, H, hd, g);
+  return cudaGetLastError();
+}
+
 template <typename T, bool TRANS>
 cudaError_t launch_slab(const void* in, const void* w, const float* mask,
                         void* out, int C, int M, int K, int H, int hd,
                         cudaStream_t s) {
   if (C == 0 || M == 0) return cudaSuccess;
-  const size_t smem = smem_bytes(kSlab, K, H * hd);
-  cudaError_t err = allow_smem(head_slab_kernel<T, TRANS>, smem);
+  MmGeom g;
+  int large;
+  mm_pick(g, large, true, TRANS, C, M, K, H, hd, sizeof(T));
+  constexpr Tile L = SLAB_LARGE, S = SLAB_SMALL;
+  return large ? run_slab<T, TRANS, L.TM, L.RM, L.RN>(in, w, mask, out, C, M, K, H, hd, g, s)
+               : run_slab<T, TRANS, S.TM, S.RM, S.RN>(in, w, mask, out, C, M, K, H, hd, g, s);
+}
+
+template <typename T, bool TRANS, int TM, int RM, int RN>
+cudaError_t run_sum(const void* in, const void* w, const float* mask, void* out, int C,
+                    int M, int K, int H, int hd, MmGeom& g, cudaStream_t s) {
+  const int elem = sizeof(T), N = H * hd;
+  g.va = copy_bytes(elem, N, hd, SUM_RC, hd);
+  g.vb = TRANS ? g.va : copy_bytes(elem, K, g.bn, K, K);
+  cudaError_t err = allow_smem(head_sum_kernel<T, TRANS, TM, RM, RN>, g.smem);
   if (err != cudaSuccess) return err;
-  head_slab_kernel<T, TRANS><<<dim3((M + TM - 1) / TM, C), THREADS, smem, s>>>(
-      static_cast<const T*>(in), static_cast<const T*>(w), mask,
-      static_cast<T*>(out), M, K, H, hd);
+  head_sum_kernel<T, TRANS, TM, RM, RN>
+      <<<dim3((M + TM - 1) / TM, g.nch, C), g.threads, g.smem, s>>>(
+          static_cast<const T*>(in), static_cast<const T*>(w), mask,
+          static_cast<T*>(out), M, K, H, hd, g);
   return cudaGetLastError();
 }
 
@@ -476,13 +847,12 @@ cudaError_t launch_sum(const void* in, const void* w, const float* mask,
                        void* out, int C, int M, int K, int H, int hd,
                        cudaStream_t s) {
   if (C == 0 || M == 0) return cudaSuccess;
-  const size_t smem = smem_bytes(kSum, H * hd, K);
-  cudaError_t err = allow_smem(head_sum_kernel<T, TRANS>, smem);
-  if (err != cudaSuccess) return err;
-  head_sum_kernel<T, TRANS><<<dim3((M + TM - 1) / TM, C), THREADS, smem, s>>>(
-      static_cast<const T*>(in), static_cast<const T*>(w), mask,
-      static_cast<T*>(out), M, K, H, hd);
-  return cudaGetLastError();
+  MmGeom g;
+  int large;
+  mm_pick(g, large, false, TRANS, C, M, K, H, hd, sizeof(T));
+  constexpr Tile L = SUM_LARGE, S = SUM_SMALL;
+  return large ? run_sum<T, TRANS, L.TM, L.RM, L.RN>(in, w, mask, out, C, M, K, H, hd, g, s)
+               : run_sum<T, TRANS, S.TM, S.RM, S.RN>(in, w, mask, out, C, M, K, H, hd, g, s);
 }
 
 template <typename T>
@@ -516,9 +886,22 @@ cudaError_t launch_dw(const DwArgs& a, const float* mask, int C, int M, int H,
 // All pointers are device pointers of row-major arrays of type `dtype`
 // (mask: (C, H) fp32). M rows per client; `width` is the non-head width
 // (din for the projection, d for the merge); N = H·hd. Each returns
-// cudaGetLastError() after its one launch; none allocates or synchronises.
-extern "C" long long masked_attn_smem_bytes(int body, int w1, int w2) {
-  return (long long)smem_bytes(body, w1, w2);
+// cudaGetLastError() after its one launch (an error also where the
+// launch needs more shared memory than a block may have); none allocates
+// or synchronises.
+// The slab (body 0) and sum (body 1) kernels' launch for C clients of M
+// rows, `width` (din or d), H heads of hd, fp32; trans picks merge da
+// (slab) or proj dx (sum). out[0] all blocks, out[1] threads a block,
+// out[2] dynamic shared memory in bytes, out[3] heads a block (slab),
+// out[4] 1 where the launch takes the large tile.
+extern "C" void masked_attn_mm_geometry(int body, int trans, int C, int M,
+                                        int width, int H, int hd, int* out) {
+  MmGeom g;
+  out[0] = (int)mm_pick(g, out[4], body == kSlab, trans != 0, C, M, width, H, hd,
+                        sizeof(float));
+  out[1] = g.threads;
+  out[2] = g.smem;
+  out[3] = g.G;
 }
 
 // The dW kernels' launch for C clients of M rows, H heads and an I x J

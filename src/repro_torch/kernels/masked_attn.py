@@ -41,7 +41,6 @@ import torch
 from repro_torch.kernels import _build
 
 BLOCK_M = 128                 # rows of an m-tile of the dW sums (Pallas block_m)
-MAX_SMEM_BYTES = 227 * 1024   # shared memory one block may use on Hopper
 
 LAUNCHES = {name: _build.LaunchCounter() for name in (
     "masked_head_proj", "masked_head_proj_dx", "masked_head_proj_dw",
@@ -151,14 +150,16 @@ def masked_head_merge_dw_plain(gy, a, head_mask):
 # ---------------------------------------------------------------------------
 # the kernels of csrc/masked_attn.cu
 
-# which kernel body each launch runs, for masked_attn_smem_bytes
-_SLAB, _SUM, _DW = 0, 1, 2
+# the slab and sum kernels: (body, transposed weight) of each
+_SLAB, _SUM = 0, 1
+_MM = {"masked_head_proj": (_SLAB, 0), "masked_head_merge_da": (_SLAB, 1),
+       "masked_head_proj_dx": (_SUM, 1), "masked_head_merge": (_SUM, 0)}
 
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.masked_attn_smem_bytes.argtypes = [i, i, i]
-    lib.masked_attn_smem_bytes.restype = ctypes.c_longlong
+    lib.masked_attn_mm_geometry.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+    lib.masked_attn_mm_geometry.restype = None
     lib.masked_attn_dw_geometry.argtypes = [i] * 5 + [ctypes.POINTER(i)]
     lib.masked_attn_dw_geometry.restype = None
     for name in LAUNCHES:
@@ -170,10 +171,10 @@ def _bind(lib):
 _build.register_binding("masked_attn", _bind)
 
 
-def _launch(name, smem_of, a, b, head_mask, out_shape, M, width, hd):
+def _launch(name, a, b, head_mask, out_shape, M, width, hd):
     """Launch ``name``'s kernel on (a, b, head_mask) into a new tensor of
     ``out_shape``, type of ``a``; ``width`` is the non-head width (din or
-    d), ``smem_of`` (body, width1, width2) sizes its shared memory."""
+    d)."""
     dtype, dev = a.dtype, a.device
     if dtype not in _build.DTYPE_CODE:
         raise ValueError(f"{name} kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
@@ -181,11 +182,6 @@ def _launch(name, smem_of, a, b, head_mask, out_shape, M, width, hd):
     _build.check_operand("b", b, dtype, dev)
     _build.check_operand("head_mask", head_mask, torch.float32, dev)
     lib = _build.load("masked_attn")
-    smem = lib.masked_attn_smem_bytes(*smem_of)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{name} kernel needs {smem} bytes of shared memory "
-                         f"at these widths, over the {MAX_SMEM_BYTES} a block "
-                         f"may use")
     C, H = head_mask.shape
     out = torch.empty(out_shape, dtype=dtype, device=dev)
     err = getattr(lib, f"{name}_launch")(
@@ -208,6 +204,22 @@ def dw_launch_geometry(C, M, H, I, J):
     return {"cluster": out[0], "blocks": out[1], "m_tiles": out[2]}
 
 
+def mm_launch_geometry(name, C, M, width, H, hd):
+    """How the slab and sum kernels (``masked_head_proj``,
+    ``masked_head_merge_da``, ``masked_head_proj_dx``,
+    ``masked_head_merge``) launch for C clients of M rows, the non-head
+    ``width`` (din or d) and H heads of hd: ``blocks`` in all,
+    ``threads`` a block, ``smem`` bytes of shared memory a block (fp32),
+    ``heads`` a block (the slab kernels), and whether it takes the
+    ``large`` tile (fewer, fuller blocks where the grid is large). Builds
+    the kernels."""
+    out = (ctypes.c_int * 5)()
+    _build.load("masked_attn").masked_attn_mm_geometry(*_MM[name], C, M, width,
+                                                      H, hd, out)
+    return {"blocks": out[0], "threads": out[1], "smem": out[2],
+            "heads": out[3], "large": bool(out[4])}
+
+
 def proj_fwd(x, w, head_mask):
     """Projection forward (no autograd): CUDA tensors launch the
     ``masked_head_proj`` kernel, CPU tensors run its plain version."""
@@ -215,8 +227,8 @@ def proj_fwd(x, w, head_mask):
         return masked_head_proj_plain(x, w, head_mask)
     C, M, din = x.shape
     N = w.shape[-1]
-    return _launch("masked_head_proj", (_SLAB, din, N), x, w, head_mask,
-                   (C, M, N), M, din, N // head_mask.shape[-1])
+    return _launch("masked_head_proj", x, w, head_mask, (C, M, N), M,
+                   din, N // head_mask.shape[-1])
 
 
 def proj_dx(gy, w, head_mask):
@@ -226,8 +238,8 @@ def proj_dx(gy, w, head_mask):
         return masked_head_proj_dx_plain(gy, w, head_mask)
     C, M, N = gy.shape
     din = w.shape[-2]
-    return _launch("masked_head_proj_dx", (_SUM, N, din), gy, w, head_mask,
-                   (C, M, din), M, din, N // head_mask.shape[-1])
+    return _launch("masked_head_proj_dx", gy, w, head_mask, (C, M, din), M,
+                   din, N // head_mask.shape[-1])
 
 
 def proj_dw(gy, x, head_mask):
@@ -237,8 +249,8 @@ def proj_dw(gy, x, head_mask):
         return masked_head_proj_dw_plain(gy, x, head_mask)
     C, M, N = gy.shape
     din, hd = x.shape[-1], N // head_mask.shape[-1]
-    return _launch("masked_head_proj_dw", (_DW, din, hd), gy, x, head_mask,
-                   (C, din, N), M, din, hd)
+    return _launch("masked_head_proj_dw", gy, x, head_mask, (C, din, N), M,
+                   din, hd)
 
 
 def merge_fwd(a, w, head_mask):
@@ -248,8 +260,8 @@ def merge_fwd(a, w, head_mask):
         return masked_head_merge_plain(a, w, head_mask)
     C, M, N = a.shape
     d = w.shape[-1]
-    return _launch("masked_head_merge", (_SUM, N, d), a, w, head_mask,
-                   (C, M, d), M, d, N // head_mask.shape[-1])
+    return _launch("masked_head_merge", a, w, head_mask, (C, M, d), M,
+                   d, N // head_mask.shape[-1])
 
 
 def merge_da(gy, w, head_mask):
@@ -259,8 +271,8 @@ def merge_da(gy, w, head_mask):
         return masked_head_merge_da_plain(gy, w, head_mask)
     C, M, d = gy.shape
     N = w.shape[-2]
-    return _launch("masked_head_merge_da", (_SLAB, d, N), gy, w, head_mask,
-                   (C, M, N), M, d, N // head_mask.shape[-1])
+    return _launch("masked_head_merge_da", gy, w, head_mask, (C, M, N), M,
+                   d, N // head_mask.shape[-1])
 
 
 def merge_dw(gy, a, head_mask):
@@ -270,9 +282,8 @@ def merge_dw(gy, a, head_mask):
         return masked_head_merge_dw_plain(gy, a, head_mask)
     C, M, d = gy.shape
     N = a.shape[-1]
-    hd = N // head_mask.shape[-1]
-    return _launch("masked_head_merge_dw", (_DW, hd, d), gy, a, head_mask,
-                   (C, N, d), M, d, hd)
+    return _launch("masked_head_merge_dw", gy, a, head_mask, (C, N, d), M,
+                   d, N // head_mask.shape[-1])
 
 
 class MaskedHeadProj(torch.autograd.Function):

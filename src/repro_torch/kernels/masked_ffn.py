@@ -19,8 +19,11 @@ the plain version:
   ``jax.vmap``). The backward recomputes the pre-activations from the
   saved (x, weights, mask) — the reference's recompute policy — and the
   mask gets no gradient.
-
-The block-mask ``masked_ffn`` entry point is not ported (ROADMAP.md).
+* ``masked_ffn`` — the reference's block-masked entry: x (M, d), one
+  (F/128,) 0/1 mask for every row, differentiable. It is the training
+  form at C = 1 with the block mask expanded to a row mask, so it runs the
+  same three kernels (the Pallas ones it replaces are the same three
+  functions, with the mask prefetched per block).
 """
 from __future__ import annotations
 
@@ -64,8 +67,8 @@ dx_launches = _build.LaunchCounter()
 dw_launches = _build.LaunchCounter()
 
 
-def _validate(x, w_in, w_out, w_gate, mask):
-    """The reference's ValueErrors (per-row form), word for word."""
+def _validate(x, w_in, w_out, w_gate, mask, per_row=True):
+    """The reference's ValueErrors, word for word."""
     if x.ndim != 2:
         raise ValueError(f"x must be (M, d), got shape {tuple(x.shape)}")
     M, d = x.shape
@@ -82,10 +85,16 @@ def _validate(x, w_in, w_out, w_gate, mask):
         raise ValueError(f"w_out must be (F={Fh}, d={d}), got {tuple(w_out.shape)}")
     if w_gate is not None and tuple(w_gate.shape) != (d, Fh):
         raise ValueError(f"w_gate must be (d={d}, F={Fh}), got {tuple(w_gate.shape)}")
-    if tuple(mask.shape) != (M, Fh):
+    if per_row and tuple(mask.shape) != (M, Fh):
         raise ValueError(
             f"row_mask must be (M={M}, F={Fh}) — one 0/1 neuron mask per "
             f"row of x — got {tuple(mask.shape)}")
+    if not per_row and tuple(mask.shape) != (Fh // BLOCK_NEURONS,):
+        raise ValueError(
+            f"block_mask must be (F//{BLOCK_NEURONS},) = "
+            f"({Fh // BLOCK_NEURONS},) — one 0/1 entry per 128-neuron "
+            f"block — got {tuple(mask.shape)}. For neuron-granular masks use "
+            f"masked_ffn_batch (per-row masks) instead")
 
 
 def _ct(t):
@@ -404,3 +413,25 @@ def masked_ffn_train(x, w_in, w_out, row_mask, w_gate=None, *,
     return MaskedFFNTrain.apply(x, w_in, w_out,
                                 row_mask.to(torch.float32).contiguous(),
                                 w_gate, act)
+
+
+def masked_ffn(x, w_in, w_out, block_mask, w_gate=None, *, act: str = "silu"):
+    """Block-masked FFN, differentiable: y = (act(x·W_in) [⊙ act(x·W_gate)]
+    ⊙ expand(block_mask))·W_out.
+
+    Shapes: ``x`` (M, d); ``w_in`` [, ``w_gate``] (d, F); ``w_out`` (F, d);
+    ``block_mask`` (F // 128,), one entry per 128-neuron block, kept where
+    > 0. Returns (M, d) in ``x.dtype``. F must be a multiple of 128
+    (ValueError otherwise, as the reference). It runs ``MaskedFFNTrain`` at
+    C = 1 with every row carrying the expanded block mask: CUDA tensors
+    launch the forward, dx and dW kernels once each, CPU tensors run their
+    plain versions. Dropped blocks are skipped, and their dW is exactly 0."""
+    _validate(x, w_in, w_out, w_gate, block_mask, per_row=False)
+    if act not in _ACTS:
+        raise ValueError(f"act must be one of {sorted(_ACTS)}, got {act!r}")
+    keep = (torch.as_tensor(block_mask, device=x.device) > 0).to(torch.float32)
+    row_mask = keep.repeat_interleave(BLOCK_NEURONS).expand(x.shape[0], -1)
+    one = lambda t: None if t is None else t.contiguous()[None]
+    y = MaskedFFNTrain.apply(one(x), one(w_in), one(w_out),
+                             row_mask.contiguous()[None], one(w_gate), act)
+    return y[0]

@@ -2,13 +2,15 @@
 
 Each wrapper launches its hand-written CUDA kernel when given CUDA tensors
 and runs the kernel's plain PyTorch version when given CPU tensors: the
-masked FFN (serving and training forms), the head-masked attention
+masked FFN (serving, training and block-masked forms), the head-masked attention
 projections, ``decode_gqa``, the chunked RWKV-6 scan and
 ``invariant_stats`` (an entry point that no main path calls, as in the
 reference). Models call the kernels through this module, so a caller can
 swap a wrapper for its plain version (chip_smoke.py does, to compare).
 """
 from __future__ import annotations
+
+import numpy as np
 
 from repro_torch.kernels import decode_gqa as _decode_gqa_mod
 from repro_torch.kernels import invariant_stats as _invariant_stats_mod
@@ -46,6 +48,26 @@ def invariant_stats(w0, w1):
     reduction. Forward-only. Plain version:
     invariant_stats.invariant_stats_plain."""
     return _invariant_stats_mod.invariant_stats(w0, w1)
+
+
+def masked_ffn(x, w_in, w_out, block_mask, w_gate=None, act="silu"):
+    """Block-masked FFN, differentiable: y = act-FFN(x) with 128-neuron
+    hidden blocks dropped per ``block_mask`` ((F//128,) 0/1). x: (M, d);
+    w_in/(w_gate): (d, F); w_out: (F, d); F a multiple of 128. Dropped
+    blocks are skipped forward and backward, and their dW is exactly 0.
+    The training kernels at C = 1 (one launch each of forward, dx, dW).
+    Plain versions: those of masked_ffn_train."""
+    return _masked_ffn_mod.masked_ffn(x, w_in, w_out, block_mask,
+                                      w_gate=w_gate, act=act)
+
+
+def neuron_mask_to_block_mask(mask: np.ndarray) -> np.ndarray:
+    """Per-neuron 0/1 mask (F,) -> per-128-block mask (F//128,).
+    A block survives if ANY of its neurons survives (conservative)."""
+    F = mask.shape[0]
+    assert F % BLOCK_NEURONS == 0
+    return (mask.reshape(F // BLOCK_NEURONS, BLOCK_NEURONS).max(axis=1) > 0
+            ).astype(np.int32)
 
 
 def masked_ffn_batch(x, w_in, w_out, row_mask, w_gate=None, act="silu"):

@@ -205,10 +205,13 @@ def _head_masks(C, H, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,M,width,H,hd", [(5, 490, 64, 4, 16), (7, 37, 24, 4, 6),
-                                            (2, 300, 96, 2, 64), (3, 1, 64, 8, 8)])
+                                            (2, 300, 96, 2, 64), (3, 1, 64, 8, 8),
+                                            (2, 300, 256, 4, 64), (1, 130, 512, 8, 64)])
 def test_masked_attn_kernels_match_plain(dev, dtype, C, M, width, H, hd):
     """The six head-masked kernels against their plain versions; a dropped
-    head's output slab, da slab and dW slab exactly 0."""
+    head's output slab, da slab and dW slab exactly 0. Widths 256 and 512
+    are those where the slab and sum kernels once staged the whole weight
+    and refused to launch."""
     g = torch.Generator(device=dev).manual_seed(C * M + hd)
     r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev)
                          / math.sqrt(fan)).to(dtype)
@@ -278,6 +281,93 @@ def test_head_dw_kernels_split_m_tiles_across_a_cluster(dev, dtype, C, M):
     for I, J in ((d, hd), (hd, d)):
         assert attn.dw_launch_geometry(C, M, H, I, J) == {
             "cluster": min(T, 8), "blocks": min(T, 8) * H * C, "m_tiles": T}
+
+
+SLAB_SUM = ("masked_head_proj", "masked_head_proj_dx", "masked_head_merge",
+            "masked_head_merge_da")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [5, 64])
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 490, 1100])
+def test_head_slab_and_sum_kernels_at_femnist_attn_widths(dev, dtype, C, M):
+    """The slab kernels (projection, merge da) and sum kernels (projection
+    dx, merge) at femnist_attn's widths, at M from one row across the row
+    tiles' edges to 1100: each against its plain version, dropped heads'
+    slabs and all-dropped clients' sums exactly 0, two calls bitwise equal,
+    one launch a call. At C 5, M 490 the launch has at least one block for
+    each of the card's 132 SMs."""
+    g = torch.Generator(device=dev).manual_seed(3 * C + M)
+    d, H, hd = 64, 4, 16
+    N = H * hd
+    r = lambda *s, fan=1: (torch.randn(*s, generator=g, device=dev)
+                           / math.sqrt(fan)).to(dtype)
+    x, gy_p, w_p = r(C, M, d), r(C, M, N), r(C, d, N, fan=d)
+    a, gy_m, w_m = r(C, M, N), r(C, M, d), r(C, N, d, fan=N)
+    mask = _head_masks(C, H, dev)
+    dropped = (mask == 0).repeat_interleave(hd, dim=1)                 # (C, N)
+    dead = mask.sum(1) == 0
+    runs = {"masked_head_proj": (attn.proj_fwd, attn.masked_head_proj_plain, (x, w_p)),
+            "masked_head_proj_dx": (attn.proj_dx, attn.masked_head_proj_dx_plain, (gy_p, w_p)),
+            "masked_head_merge": (attn.merge_fwd, attn.masked_head_merge_plain, (a, w_m)),
+            "masked_head_merge_da": (attn.merge_da, attn.masked_head_merge_da_plain, (gy_m, w_m))}
+    for name, (kern, plain, args) in runs.items():
+        before = ops.LAUNCHES[name].n
+        got = kern(*args, mask)
+        again = kern(*args, mask)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name].n == before + 2
+        want = plain(*args, mask)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel_err(got, want) <= _tol(dtype), name
+        assert torch.equal(got, again), name
+        if name in ("masked_head_proj", "masked_head_merge_da"):
+            assert (got.transpose(1, 2)[dropped] == 0).all(), name
+        else:
+            assert (got[dead] == 0).all(), name
+    if C == 5 and M == 490:
+        for name in SLAB_SUM:
+            assert attn.mm_launch_geometry(name, C, M, d, H, hd)["blocks"] >= 132, name
+
+
+@pytest.mark.parametrize("name", SLAB_SUM)
+def test_head_slab_and_sum_shared_memory_does_not_grow_with_width(dev, name):
+    """A slab or sum block stages a row tile of one head and one head's
+    weight slab, in chunks of the reduction: its shared memory is the same
+    at widths 128, 256 and 512, and far under the 227 KB a block may use."""
+    smem = {w: attn.mm_launch_geometry(name, 2, 300, w, 4, 64)["smem"]
+            for w in (128, 256, 512)}
+    assert len(set(smem.values())) == 1, smem
+    assert smem[512] <= 96 * 1024, smem
+
+
+def test_masked_ffn_block_mask_entry_matches_plain(dev):
+    """The block-masked ``masked_ffn`` on the card (the training kernels at
+    C = 1, each launched once) against the same entry on CPU tensors (the
+    plain versions): forward and gradients; dropped blocks' dW exactly 0."""
+    g = torch.Generator().manual_seed(11)
+    M, d, F = 200, 64, 512
+    x = torch.randn(M, d, generator=g)
+    w_in, w_gate = (torch.randn(d, F, generator=g) / 8 for _ in range(2))
+    w_out = torch.randn(F, d, generator=g) / 16
+    block_mask = torch.tensor([1, 0, 1, 1])
+    cpu = [t.clone().requires_grad_() for t in (x, w_in, w_out, w_gate)]
+    gpu = [t.to(dev).requires_grad_() for t in (x, w_in, w_out, w_gate)]
+    y_cpu = ops.masked_ffn(cpu[0], cpu[1], cpu[2], block_mask, w_gate=cpu[3], act="silu")
+    ops.reset_launch_counts()
+    y_gpu = ops.masked_ffn(gpu[0], gpu[1], gpu[2], block_mask.to(dev), w_gate=gpu[3],
+                           act="silu")
+    y_cpu.square().sum().backward()
+    y_gpu.square().sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("masked_ffn_train_fwd", "masked_ffn_dx",
+                                "masked_ffn_dw")] == [1, 1, 1]
+    assert _rel_err(y_gpu.cpu(), y_cpu) <= 1e-4
+    for tg, tc in zip(gpu, cpu):
+        assert _rel_err(tg.grad.cpu(), tc.grad) <= 1e-4
+    assert (gpu[1].grad[:, 128:256] == 0).all() and (gpu[2].grad[128:256] == 0).all()
+    assert (gpu[3].grad[:, 128:256] == 0).all()
 
 
 def test_masked_attention_autograd_launch_counts(dev):

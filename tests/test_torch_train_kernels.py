@@ -95,7 +95,7 @@ def _t(a):
                                   "zero_row"])
 @pytest.mark.parametrize("M", [10, 13])
 @pytest.mark.parametrize("F", [256, 1024])
-@pytest.mark.parametrize("act", ["relu", "gelu", "silu"])
+@pytest.mark.parametrize("act", ["relu", "relu2", "gelu", "silu"])
 @pytest.mark.parametrize("gated", [False, True])
 def test_plain_dx_dw_match_jax_grad(gated, act, F, M, kind):
     x, gy, w_in, w_out, w_gate, mask = _inputs(M, F, gated, kind, seed=F + M)
