@@ -13,9 +13,13 @@ the seconds the phase took (``phase_s``):
   build      one nvcc per kernel source, all at once
   kernels    each kernel against its plain version, timed beside its bound
              and, where one exists, a library call: the serving forms at
-             the decode shapes; the masked-FFN training forms at the
+             the decode shapes (two calls bitwise equal; ``ms`` device time
+             from a CUDA graph, decode_gqa and SDPA on caches rotated out of
+             the L2, at three sets of lengths; ``call_ms`` one call between
+             two CUDA events); the masked-FFN training forms at the
              fleet's (C 5 and 64 clients, M 10, d 64, F 1024) and at
-             femnist_attn's FFN (C 5, M 490, F 256); the six head-masked
+             femnist_attn's FFN (C 5, M 490, F 256), and the block-masked
+             entry ops.masked_ffn forward and backward; the six head-masked
              projection kernels at femnist_attn's (C 5 and 64, M 490,
              d 64, 4 heads of 16; also at M 1100, 9 m-tiles, and at width
              256, C 2, M 300, 4 heads of 64; each twice on the same
@@ -53,6 +57,7 @@ beside this script, it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -70,6 +75,7 @@ FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
 FFN_SHAPE = dict(M=8, d=5120, F=13824)
 GQA_SHAPE = dict(B=8, H=32, KV=8, hd=128, C=576)
+GQA_ROTATIONS = 24         # distinct K/V caches a timing graph cycles over: 453 MB
 TRAIN_SHAPE = dict(M=10, d=64, F=1024)     # KernelMLP's FFN, batch 10
 # KernelAttnClassifier at batch 10: 490 rows a client, 4 heads of 16, FFN 256
 ATTN_SHAPE = dict(M=490, d=64, H=4, hd=16, F=256)
@@ -186,8 +192,49 @@ def bound_ms(nbytes, flops, peak=BF16_FLOPS):
 
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, np):
+def rotating(calls):
+    """One function that runs ``calls`` in turn, a call each time: captured
+    len(calls) times in a graph, every call reads its own inputs."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def ffn_mixes(torch, M, F, dev):
+    """The serving tile's masks: ordered keep-maps at rate 1.0, at 0.5, the
+    serve's 1.0/0.5/0.25 cycle, and the cycle with its last row dropped."""
     from repro_torch.core.dropout import keep_count
+
+    def ordered(rates):
+        m = torch.zeros(M, F, device=dev)
+        for i, r in enumerate(rates):
+            m[i, :keep_count(F, r)] = 1.0 if r > 0 else 0.0
+        return m
+    cyc = [(1.0, 0.5, 0.25)[i % 3] for i in range(M)]
+    return {"rate1.0": ordered([1.0] * M), "rate0.5": ordered([0.5] * M),
+            "mixed1.0/0.5/0.25": ordered(cyc),
+            "mixed+dropped_row": ordered(cyc[:-1] + [0.0])}
+
+
+def gqa_length_sets(np, B, C):
+    """The lengths decode_gqa is timed at: the kernels phase's ragged draw
+    (first 1, last C), the step phase's 256 − 16i, and every row full."""
+    lens = np.random.RandomState(1).randint(1, C + 1, B)
+    lens[0], lens[-1] = 1, C
+    return {"kernels": lens, "step": np.array([256 - 16 * i for i in range(B)]),
+            "full": np.full(B, C)}
+
+
+def phase_kernels(torch, np):
+    """masked_ffn_batch and decode_gqa at the serve's decode shapes, each
+    against its plain version (relative ∞-norm <= 1e-2, dropped rows
+    exactly 0) and against itself (two calls, the same bits). ``ms`` is
+    device time a call on a cold cache: calls captured in a CUDA graph,
+    timed by CUDA events around replays. decode_gqa's calls rotate over
+    GQA_ROTATIONS distinct caches (over the 50 MB L2 many times), as the
+    decode step reads each layer's cache after its weights have streamed
+    through; masked_ffn_batch's 425 MB of weights exceed the L2 already.
+    ``call_ms`` is the median single-call time between two CUDA events,
+    host path included (how these two kernels' rows were timed before)."""
     from repro_torch.kernels import decode_gqa as gqa
     from repro_torch.kernels import masked_ffn as ffn
     dev, bf = torch.device("cuda"), torch.bfloat16
@@ -200,28 +247,19 @@ def phase_kernels(torch, np):
                            / fan ** 0.5).to(bf)
     x = rnd(M, d, fan=1)
     w_in, w_gate, w_out = rnd(d, F, fan=d), rnd(d, F, fan=d), rnd(F, d, fan=F)
-
-    def ordered(rates):
-        m = torch.zeros(M, F, device=dev)
-        for i, r in enumerate(rates):
-            m[i, :keep_count(F, r)] = 1.0 if r > 0 else 0.0
-        return m
-    cyc = [(1.0, 0.5, 0.25)[i % 3] for i in range(M)]
-    mixes = {"rate1.0": ordered([1.0] * M), "rate0.5": ordered([0.5] * M),
-             "mixed1.0/0.5/0.25": ordered(cyc),
-             "mixed+dropped_row": ordered(cyc[:-1] + [0.0])}
     per_mix = {}
-    for name, mask in mixes.items():
+    for name, mask in ffn_mixes(torch, M, F, dev).items():
         run = lambda: ffn.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate,
                                            act="silu")
-        got = run()
-        want = ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, "silu")
+        plain = lambda: ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, "silu")
+        got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
         err = rel_inf(got, want)
         dropped = mask.sum(1) == 0
         check(err <= 1e-2, f"masked_ffn_batch[{name}] rel err {err}")
         check(bool((got[dropped] == 0).all()),
               f"masked_ffn_batch[{name}] dropped row not exactly 0")
+        check(torch.equal(got, again), f"masked_ffn_batch[{name}] two calls differ")
         kept_blocks = int((mask.view(M, F // 128, 128).amax((0, 2)) > 0).sum())
         fk = kept_blocks * 128
         nbytes = 3 * d * fk * 2 + M * d * 2 * 2 + M * F * 4
@@ -229,56 +267,72 @@ def phase_kernels(torch, np):
         per_mix[name] = {
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "rel_err": err, "kept_blocks": kept_blocks,
-            "ms": time_ms(run, torch),
-            "plain_ms": time_ms(lambda: ffn.masked_ffn_batch_plain(
-                x, w_in, w_out, mask, w_gate, "silu"), torch, n=20),
+            "ms": graph_ms(run, torch), "call_ms": time_ms(run, torch),
+            "plain_ms": graph_ms(plain, torch, n=4),
             "bound_ms": b_ms, "bound_by": b_by}
     head = per_mix["mixed1.0/0.5/0.25"]
     out.append({"name": "masked_ffn_batch", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/masked_ffn.cu",
                 "replaces": "src/repro/kernels/masked_ffn.py:107",
                 "max_abs_err": max(v["max_abs_err"] for v in per_mix.values()),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "ms": head["ms"], "call_ms": head["call_ms"],
+                "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": None, "shape": FFN_SHAPE, "mixes": per_mix})
-    del x, w_in, w_gate, w_out, mixes
+    del x, w_in, w_gate, w_out
 
-    # decode_gqa at the decode shape, ragged lengths
+    # decode_gqa at the decode shape, cold caches, three sets of lengths
     B, H, KV, hd, C = (GQA_SHAPE[k] for k in ("B", "H", "KV", "hd", "C"))
     q = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
-    k = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
-    v = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
-    lens_np = np.random.RandomState(1).randint(1, C + 1, B)
-    lens_np[0], lens_np[-1] = 1, C
-    lengths = torch.tensor(lens_np, dtype=torch.int32, device=dev)
-    run = lambda: gqa.decode_gqa(q, k, v, lengths)
-    got = run()
-    want = gqa.decode_gqa_plain(q, k, v, lengths)
-    torch.cuda.synchronize()
-    err = rel_inf(got, want)
-    check(err <= 1e-2, f"decode_gqa rel err {err}")
-    # library yardstick: one SDPA call over the same cache, never used by the port
-    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    q4 = q[:, :, None]
-    amask = (torch.arange(C, device=dev)[None, :] < lengths[:, None])[:, None, None]
+    caches = [(torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf),
+               torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf))
+              for _ in range(GQA_ROTATIONS)]
+    # library yardstick: SDPA over the same caches, never used by the port
+    caches_t = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+                for k, v in caches]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = lambda: sdpa(q4, kt, vt, attn_mask=amask, enable_gqa=True)
-    lib_err = rel_inf(lib()[:, :, 0], want)
-    check(lib_err <= 1e-2, f"decode_gqa library yardstick disagrees: {lib_err}")
-    n_valid = int(lens_np.sum())
-    nbytes = 2 * n_valid * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4
-    b_ms, b_by = bound_ms(nbytes, 4 * n_valid * H * hd)
+    q4 = q[:, :, None]
+    k, v = caches[0]
+    per_len = {}
+    for name, lens_np in gqa_length_sets(np, B, C).items():
+        lengths = torch.tensor(lens_np, dtype=torch.int32, device=dev)
+        amask = (torch.arange(C, device=dev)[None, :] < lengths[:, None])[:, None, None]
+        got, again = gqa.decode_gqa(q, k, v, lengths), gqa.decode_gqa(q, k, v, lengths)
+        want = gqa.decode_gqa_plain(q, k, v, lengths)
+        lib_out = sdpa(q4, *caches_t[0], attn_mask=amask, enable_gqa=True)[:, :, 0]
+        torch.cuda.synchronize()
+        err, lib_err = rel_inf(got, want), rel_inf(lib_out, want)
+        check(err <= 1e-2, f"decode_gqa[{name}] rel err {err}")
+        check(torch.equal(got, again), f"decode_gqa[{name}] two calls differ")
+        check(lib_err <= 1e-2, f"decode_gqa library yardstick disagrees: {lib_err}")
+        kern = rotating([lambda kv=kv: gqa.decode_gqa(q, *kv, lengths) for kv in caches])
+        plain = rotating([lambda kv=kv: gqa.decode_gqa_plain(q, *kv, lengths)
+                          for kv in caches])
+        lib = rotating([lambda kv=kv: sdpa(q4, *kv, attn_mask=amask, enable_gqa=True)
+                        for kv in caches_t])
+        n_valid = int(lens_np.sum())
+        nbytes = 2 * n_valid * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4
+        b_ms, b_by = bound_ms(nbytes, 4 * n_valid * H * hd)
+        per_len[name] = {
+            "lengths": lens_np.tolist(), "rel_err": err,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "ms": graph_ms(kern, torch, n=GQA_ROTATIONS),
+            "call_ms": time_ms(lambda: gqa.decode_gqa(q, k, v, lengths), torch),
+            "plain_ms": graph_ms(plain, torch, n=GQA_ROTATIONS),
+            "library_ms": graph_ms(lib, torch, n=GQA_ROTATIONS),
+            "library_call_ms": time_ms(lambda: sdpa(q4, *caches_t[0], attn_mask=amask,
+                                                    enable_gqa=True), torch),
+            "bound_ms": b_ms, "bound_by": b_by}
+    head = per_len["kernels"]
     out.append({"name": "decode_gqa", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_gqa.cu",
                 "replaces": "src/repro/kernels/decode_gqa.py:21",
-                "max_abs_err": float((got.float() - want.float()).abs().max()),
-                "rel_err": err, "ms": time_ms(run, torch),
-                "plain_ms": time_ms(lambda: gqa.decode_gqa_plain(q, k, v, lengths),
-                                    torch),
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": time_ms(lib, torch),
+                "max_abs_err": max(v["max_abs_err"] for v in per_len.values()),
+                "ms": head["ms"], "call_ms": head["call_ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
                 "library_call": "scaled_dot_product_attention(enable_gqa=True)",
-                "shape": GQA_SHAPE, "lengths": lens_np.tolist()})
+                "shape": GQA_SHAPE, "lengths": per_len})
     return out
 
 
@@ -399,6 +453,7 @@ def phase_train_kernels(torch, np, dev="cuda"):
                 "host_ms": time_loop_ms(kern, torch),
                 "plain_host_ms": time_loop_ms(plain, torch, n=20),
                 "bound_ms": b_ms, "bound_by": b_by})
+    block_entry = block_mask_entry(torch, dev, g)
     src = "src/repro_torch/kernels/csrc/masked_ffn_train.cu"
     replaces = {"masked_ffn_train_fwd": "src/repro/kernels/masked_ffn.py:107",
                 "masked_ffn_dx": "src/repro/kernels/masked_ffn.py:165",
@@ -413,7 +468,58 @@ def phase_train_kernels(torch, np, dev="cuda"):
                     "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                     "library_ms": None, "shape": dict(TRAIN_SHAPE, C=5),
                     "mixes": per[k]})
+    out[0]["block_mask_entry"] = block_entry
     return out
+
+
+def block_mask_entry(torch, dev, g):
+    """The reference's block-masked entry, ``ops.masked_ffn`` (the three
+    training kernels at C = 1), at KernelMLP's FFN (M 10, d 64, F 1024,
+    fp32 gelu) with the first half of the 128-neuron blocks kept (rate
+    0.5): forward alone, and forward with backward (dx and the dW of both
+    weights), each as device time from a CUDA graph, beside its bound and
+    the plain route's time. Against the plain route <= 1e-4; the dropped
+    blocks' dW exactly 0."""
+    from repro_torch.kernels import masked_ffn as ffn
+    from repro_torch.kernels import ops
+    M, d, F = TRAIN_SHAPE["M"], TRAIN_SHAPE["d"], TRAIN_SHAPE["F"]
+    r = lambda *sh, fan: (torch.randn(*sh, generator=g, device=dev)
+                          / fan ** 0.5).requires_grad_()
+    x, w_in, w_out = r(M, d, fan=1), r(d, F, fan=d), r(F, d, fan=F)
+    gy = torch.randn(M, d, generator=g, device=dev)
+    block = torch.tensor([1.0] * (F // 256) + [0.0] * (F // 256), device=dev)
+    leaves = (x, w_in, w_out)
+
+    def fwd(entry):
+        with torch.no_grad():
+            return entry(x, w_in, w_out, block, act="gelu")
+
+    def fwd_bwd(entry):
+        return torch.autograd.grad(entry(x, w_in, w_out, block, act="gelu"), leaves, gy)
+
+    def plain_entry(x, w_in, w_out, block, act):
+        row = block.repeat_interleave(128).expand(M, F)
+        return ffn.masked_ffn_batch_plain(x, w_in, w_out, row, None, act)
+    got, want = fwd_bwd(ops.masked_ffn), fwd_bwd(plain_entry)
+    torch.cuda.synchronize()
+    errs = [rel_inf(a, b) for a, b in zip(got, want)]
+    check(max(errs) <= 1e-4, f"masked_ffn (block mask) fwd+bwd rel err {errs}")
+    check(bool((got[1][:, F // 2:] == 0).all() and (got[2][F // 2:] == 0).all()),
+          "masked_ffn (block mask): dropped blocks' dW not exactly 0")
+    row = block.repeat_interleave(128).expand(M, F)[None].contiguous()
+    work, _ = train_work(torch, row, d, False, 4)
+    fb, ff = work["masked_ffn_train_fwd"]
+    tb, tf = (sum(w[i] for w in work.values()) for i in (0, 1))
+    b_fwd, b_fwd_by = bound_ms(fb, ff, FP32_FLOPS)
+    b_all, b_all_by = bound_ms(tb, tf, FP32_FLOPS)
+    return {"shape": dict(TRAIN_SHAPE, block_rate=0.5, act="gelu"),
+            "rel_err": max(errs),
+            "fwd_ms": graph_ms(lambda: fwd(ops.masked_ffn), torch),
+            "fwd_plain_ms": graph_ms(lambda: fwd(plain_entry), torch),
+            "fwd_bound_ms": b_fwd, "fwd_bound_by": b_fwd_by,
+            "fwd_bwd_ms": graph_ms(lambda: fwd_bwd(ops.masked_ffn), torch),
+            "fwd_bwd_plain_ms": graph_ms(lambda: fwd_bwd(plain_entry), torch),
+            "fwd_bwd_bound_ms": b_all, "fwd_bwd_bound_by": b_all_by}
 
 
 PAIRS = ((0, 1), (2, 3), (0, 2), (1, 3), (0, 3), (1, 2))   # heads a "half" client drops
@@ -849,16 +955,13 @@ def hold_each_launch(ops, worst):
     return undo
 
 
-def phase_step(torch, np, params, cfg):
-    """One full-width decode step from a real prefill. Every kernel launch
-    in it is held against its plain version on the same inputs (relative
-    ∞-norm <= 1e-2); then the whole step is rerun with the plain versions
-    swapped in. End to end the two differ by bf16 rounding compounded over
-    40 layers: relative 2-norm <= 2e-2 is required, the ∞-norm is reported."""
+def step_state(torch, np, params, cfg):
+    """A full-width decode step's inputs from a real prefill: 8 rows of a
+    576-slot cache filled to 256 − 16i, rates cycling 1.0/0.5/0.25 and the
+    last row dropped. Returns (caches, tok, pos, masks, rates)."""
     from repro_torch.core.tree import tree_map
-    from repro_torch.kernels import ops
     from repro_torch.launch.serving import rate_masks
-    from repro_torch.models import layers, model
+    from repro_torch.models import model
     B, S, C = 8, 256, 576
     toks = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (B, S))).cuda()
     _, caches, _ = model.forward_seq(params, cfg, {"tokens": toks},
@@ -870,6 +973,18 @@ def phase_step(torch, np, params, cfg):
     masks = tree_map(lambda *ms: torch.stack(ms, 1)[:, :, None].cuda(), *rows)
     pos = torch.tensor([S - 16 * i for i in range(B)], device="cuda")
     tok = toks[torch.arange(B, device="cuda"), pos - 1][:, None]
+    return caches, tok, pos, masks, rates
+
+
+def phase_step(torch, np, params, cfg):
+    """One full-width decode step from a real prefill. Every kernel launch
+    in it is held against its plain version on the same inputs (relative
+    ∞-norm <= 1e-2); then the whole step is rerun with the plain versions
+    swapped in. End to end the two differ by bf16 rounding compounded over
+    40 layers: relative 2-norm <= 2e-2 is required, the ∞-norm is reported."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, model
+    caches, tok, pos, masks, rates = step_state(torch, np, params, cfg)
     worst = {"masked_ffn_batch": 0.0, "decode_gqa": 0.0}
     undo = hold_each_launch(ops, worst)
     try:
@@ -1388,7 +1503,8 @@ def main() -> int:
         emit("failed", error=str(e))
         return 1
     summary = [{k: v for k, v in kern.items()
-                if k not in ("mixes", "shape", "lengths", "rel_err", "library_call")}
+                if k not in ("mixes", "shape", "lengths", "rel_err", "library_call",
+                             "block_mask_entry")}
                | {"launches": launches[kern["name"]]} for kern in kernels]
     print(json.dumps({"kernels": summary}))
     print(smi)

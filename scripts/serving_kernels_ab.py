@@ -1,0 +1,204 @@
+#!/usr/bin/env python3
+"""Time the serving kernels of two checkouts on one card, in turns.
+
+    python3 scripts/serving_kernels_ab.py --a PARENT_CHECKOUT [--b CHECKOUT]
+        [--variants JSON] [--profile] [--out FILE]
+
+Each turn is a fresh process that puts one checkout's ``src/`` first on
+``sys.path``, builds that checkout's ``masked_ffn`` and ``decode_gqa``
+sources, and runs this checkout's ``chip_smoke.phase_kernels`` on them:
+masked_ffn_batch and decode_gqa at the serve's decode shapes, each held to
+its plain version, ``ms`` as device time on a cold cache, ``call_ms`` as
+one call between two CUDA events, and SDPA's device time beside
+decode_gqa. The turns run A, B, B, A, so that drift of the card shows.
+``--profile`` adds, in each of those turns, the device time by kernel of
+three full-width StableLM-2-12B decode steps (``chip_smoke.phase_profile``
+on the ``step`` phase's state) and, in the B turns, masked_ffn_batch's
+device time with calls rotating over two weight sets beside one set.
+Every turn also gives each CUDA kernel's device time a call, from
+torch.profiler over eager calls, and decode_gqa's and SDPA's device time
+at the step lengths as the number of caches the calls rotate over grows.
+``--variants`` is a JSON list of launch shapes for B alone, run after the
+turns, e.g. ``[{"ts": 32}, {"ks": 8, "fs": 4}]``: ``ts`` the cache
+positions a decode_gqa split takes, ``ks``/``fs`` the bf16
+masked_ffn_batch's cluster sizes. One JSON line per turn,
+then a summary line; ``--out`` also writes them all to a file. Needs one
+CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def summarise(rows):
+    """Per kernel and case, the device and call times of the turn."""
+    out = {}
+    for r in rows:
+        cases = r.get("mixes") or r.get("lengths")
+        for case, v in cases.items():
+            out[f"{r['name']}/{case}"] = {k: v.get(k) for k in (
+                "ms", "call_ms", "library_ms", "library_call_ms", "plain_ms",
+                "bound_ms", "rel_err")}
+    return out
+
+
+def child(src: str, tune: dict, profile: bool, rotate_ffn: bool) -> dict:
+    sys.path.insert(0, str(Path(src).resolve() / "src"))
+    sys.path.insert(1, str(ROOT))
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_gqa as gqa
+    from repro_torch.kernels import masked_ffn as ffn
+    if not torch.cuda.is_available():
+        raise SystemExit("serving_kernels_ab: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if "ts" in tune:
+        gqa.split_len = lambda *a: tune["ts"]
+    if {"ks", "fs"} & set(tune):
+        base = ffn.ffn_geometry
+
+        def geometry(M, d, F, n_sm):
+            ks, fs = base(M, d, F, n_sm)
+            return tune.get("ks", ks), tune.get("fs", fs)
+        ffn.ffn_geometry = geometry
+    t0 = time.perf_counter()
+    _build.build_all(["masked_ffn", "decode_gqa"])
+    res = {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
+           "kernels": summarise(cs.phase_kernels(torch, np))}
+    res["kernel_times"] = kernel_times(torch, np, cs, gqa, ffn)
+    res["gqa_rotation"] = gqa_rotation(torch, np, cs, gqa)
+    if rotate_ffn:
+        res["ffn_rotation"] = ffn_rotation(torch, cs, ffn)
+    if profile:
+        from repro_torch.configs import get_config
+        from repro_torch.models import model
+        cfg = get_config("stablelm-12b")
+        params = model.init_params(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+        caches, tok, pos, masks, _ = cs.step_state(torch, np, params, cfg)
+        res["profile"] = cs.phase_profile(torch, params, cfg, (caches, tok, pos, masks))
+    return res
+
+
+def kernel_times(torch, np, cs, gqa, ffn):
+    """Device µs a call of each CUDA kernel under decode_gqa (the step
+    lengths, rotating caches) and masked_ffn_batch (the mixed tile), from
+    torch.profiler over eager calls."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    B, H, KV, hd, C = (cs.GQA_SHAPE[k] for k in ("B", "H", "KV", "hd", "C"))
+    q = torch.randn(B, H, hd, device=dev).to(bf)
+    caches = [(torch.randn(B, C, KV, hd, device=dev).to(bf),
+               torch.randn(B, C, KV, hd, device=dev).to(bf)) for _ in range(cs.GQA_ROTATIONS)]
+    lengths = torch.tensor(cs.gqa_length_sets(np, B, C)["step"], dtype=torch.int32, device=dev)
+    M, d, F = (cs.FFN_SHAPE[k] for k in ("M", "d", "F"))
+    x, w_in = torch.randn(M, d, device=dev).to(bf), torch.randn(d, F, device=dev).to(bf)
+    w_gate, w_out = torch.randn(d, F, device=dev).to(bf), torch.randn(F, d, device=dev).to(bf)
+    mask = cs.ffn_mixes(torch, M, F, dev)["mixed1.0/0.5/0.25"]
+
+    def calls():
+        for kv in caches:
+            gqa.decode_gqa(q, *kv, lengths)
+        for _ in range(5):
+            ffn.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate)
+    calls()
+    torch.cuda.synchronize()
+    return cs.busy_share(torch, calls, watch=("gqa", "ffn"))["watched"]
+
+
+def gqa_rotation(torch, np, cs, gqa):
+    """decode_gqa's and SDPA's device time a call at the step lengths, with
+    calls rotating over 1, 2, 4, 8 and GQA_ROTATIONS distinct caches of
+    18.9 MB: how the time grows as the cache goes cold."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    B, H, KV, hd, C = (cs.GQA_SHAPE[k] for k in ("B", "H", "KV", "hd", "C"))
+    q = torch.randn(B, H, hd, device=dev).to(bf)
+    caches = [(torch.randn(B, C, KV, hd, device=dev).to(bf),
+               torch.randn(B, C, KV, hd, device=dev).to(bf)) for _ in range(cs.GQA_ROTATIONS)]
+    caches_t = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+                for k, v in caches]
+    lengths = torch.tensor(cs.gqa_length_sets(np, B, C)["step"], dtype=torch.int32, device=dev)
+    amask = (torch.arange(C, device=dev)[None, :] < lengths[:, None])[:, None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for r in (1, 2, 4, 8, cs.GQA_ROTATIONS):
+        kern = cs.rotating([lambda kv=kv: gqa.decode_gqa(q, *kv, lengths) for kv in caches[:r]])
+        lib = cs.rotating([lambda kv=kv: sdpa(q[:, :, None], *kv, attn_mask=amask,
+                                              enable_gqa=True) for kv in caches_t[:r]])
+        n = cs.GQA_ROTATIONS
+        out[r] = {"ms": cs.graph_ms(kern, torch, n=n), "library_ms": cs.graph_ms(lib, torch, n=n)}
+    return out
+
+
+def ffn_rotation(torch, cs, ffn):
+    """masked_ffn_batch's device time on the mixed tile with one weight set,
+    and with calls alternating between two sets (850 MB)."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(3)
+    M, d, F = (cs.FFN_SHAPE[k] for k in ("M", "d", "F"))
+    rnd = lambda *s, fan: (torch.randn(*s, generator=g, device=dev) / fan ** 0.5).to(bf)
+    x = rnd(M, d, fan=1)
+    sets = [(rnd(d, F, fan=d), rnd(F, d, fan=F), rnd(d, F, fan=d)) for _ in range(2)]
+    mask = cs.ffn_mixes(torch, M, F, dev)["mixed1.0/0.5/0.25"]
+    calls = [lambda w=w: ffn.masked_ffn_batch(x, w[0], w[1], mask, w_gate=w[2], act="silu")
+             for w in sets]
+    return {"one_set_ms": cs.graph_ms(calls[0], torch),
+            "two_sets_ms": cs.graph_ms(cs.rotating(calls), torch)}
+
+
+def run_turn(src, tune=None, profile=False, rotate_ffn=False, timeout=900):
+    cmd = [sys.executable, __file__, "--child", str(src), "--tune", json.dumps(tune or {})]
+    cmd += ["--profile"] * profile + ["--rotate-ffn"] * rotate_ffn
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise SystemExit(f"turn {src} {tune} failed ({proc.returncode}):\n"
+                         f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--a", help="checkout A (the parent)")
+    ap.add_argument("--b", default=str(ROOT), help="checkout B (default: this one)")
+    ap.add_argument("--variants", default="[]", help="JSON list of B's launch shapes")
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--out")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--tune", default="{}", help=argparse.SUPPRESS)
+    ap.add_argument("--rotate-ffn", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args.child, json.loads(args.tune), args.profile,
+                               args.rotate_ffn)))
+        return 0
+    turns = []
+    order = [("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)] if args.a else []
+    for label, src in order:
+        turns.append({"turn": label, **run_turn(src, profile=args.profile,
+                                                rotate_ffn=args.profile and label == "B")})
+        print(json.dumps(turns[-1]), flush=True)
+    for tune in json.loads(args.variants):
+        turns.append({"turn": "B", **run_turn(args.b, tune)})
+        print(json.dumps(turns[-1]), flush=True)
+    summary = {}
+    for t in turns:
+        key = f"{t['turn']}{'' if not t['tune'] else json.dumps(t['tune'])}"
+        for case, v in t["kernels"].items():
+            summary.setdefault(key, {}).setdefault(case, []).append(v["ms"])
+    line = {"summary_device_ms": summary}
+    print(json.dumps(line))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(json.dumps(t) for t in turns + [line]) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -112,6 +112,18 @@ def load(name: str) -> ctypes.CDLL:
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh
 
 
+_sm_counts: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
 class LaunchCounter:
     """Number of kernel launches a wrapper made on the card."""
 

@@ -5,6 +5,10 @@ launches the hand-written kernel in ``csrc/decode_gqa.cu`` (which replaces
 the Pallas ``_kernel``) and counts the launch; on a CPU tensor it runs
 ``decode_gqa_plain``. There is no fallback from the card to the plain
 version.
+
+The kernel splits the cache axis into splits of ``split_len(...)``
+positions, one block each, and merges the splits' softmax partials in
+split order (a launch of two kernels, counted once).
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ from repro_torch.kernels import _build
 
 NEG = -1e30
 GROUPS = (1, 2, 4, 8)          # query heads per K/V head the kernel takes
+SPLITS = (128, 64, 32)         # cache positions a split block may take
+COVER = 4                      # split blocks wanted per SM, at full lengths
 
 launches = _build.LaunchCounter()
 
@@ -38,9 +44,22 @@ def decode_gqa_plain(q, k, v, lengths):
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def split_len(B, KV, C, n_sm):
+    """Cache positions a split block takes: the longest of ``SPLITS`` whose
+    grid of B·KV·⌈C/TS⌉ blocks still covers the ``n_sm`` SMs ``COVER``
+    times over, else the shortest. Decided from C, not from the lengths,
+    which lie on the card."""
+    for ts in SPLITS:
+        if B * KV * -(-C // ts) >= COVER * n_sm:
+            return ts
+    return SPLITS[-1]
+
+
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_gqa_launch.argtypes = ([p] * 5 + [i] * 5
+    lib.decode_gqa_scratch_floats.argtypes = [i] * 6
+    lib.decode_gqa_scratch_floats.restype = ctypes.c_longlong
+    lib.decode_gqa_launch.argtypes = ([p] * 6 + [i] * 6
                                       + [ctypes.c_float, i, p])
     lib.decode_gqa_launch.restype = i
 
@@ -63,10 +82,15 @@ def _launch(q, k, v, lengths):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_operand(name, t, dtype, dev)
     _build.check_operand("lengths", lengths, torch.int32, dev)
+    lib = _build.load("decode_gqa")
+    ts = split_len(B, KV, C, _build.sm_count(dev))
     out = torch.empty_like(q)
-    err = _build.load("decode_gqa").decode_gqa_launch(
+    scratch = torch.empty((lib.decode_gqa_scratch_floats(B, H, KV, C, hd, ts),),
+                          dtype=torch.float32, device=dev)
+    err = lib.decode_gqa_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, KV, C, hd, 1.0 / math.sqrt(hd), _build.DTYPE_CODE[dtype],
+        out.data_ptr(), scratch.data_ptr(), B, H, KV, C, hd, ts,
+        1.0 / math.sqrt(hd), _build.DTYPE_CODE[dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_gqa kernel launch failed: CUDA error {err}")

@@ -9,7 +9,9 @@ the plain version:
 
 * ``masked_ffn_batch`` — the serving form: x (M, d), one weight set,
   forward only. Kernel ``csrc/masked_ffn.cu`` (replaces the Pallas
-  ``_fwd_kernel``).
+  ``_fwd_kernel``): bf16 on the tensor cores in two cluster launches
+  shaped by ``ffn_geometry``, fp32 on FFMA in three; a call is counted as
+  one launch.
 * ``masked_ffn_train`` — the fleet's training form: a client axis C in
   front of everything (x (C, M, d), weights (C, ...), row_mask (C, M, F)),
   differentiable through ``MaskedFFNTrain`` (a ``torch.autograd.Function``
@@ -35,6 +37,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 BLOCK_NEURONS = 128
+# the bf16 serving kernel's launch shape (ffn_geometry)
+CLUSTERS = (1, 2, 4, 8)        # blocks a cluster may have (portable sizes)
+COVER = 1                      # blocks wanted per SM in each pass
 
 _ACTS = {"relu": torch.relu,
          "relu2": lambda h: torch.square(torch.relu(h)),
@@ -119,6 +124,19 @@ def masked_ffn_batch_plain(x, w_in, w_out, row_mask, w_gate=None, act="silu"):
     return (_ct(h) @ _ct(w_out)).to(x.dtype)
 
 
+def ffn_geometry(M, d, F, n_sm):
+    """The bf16 kernel's launch shape (ks, fs): ks blocks split d in the up
+    pass's cluster per (f-block, m-tile), fs blocks split the kept
+    f-blocks in the down pass's cluster per (128 columns, m-tile); each the
+    smallest of ``CLUSTERS`` whose grid covers the ``n_sm`` SMs ``COVER``
+    times (ks at most d's 64-row stages)."""
+    nmt, nfb = -(-M // 8), F // BLOCK_NEURONS
+    ks = next((c for c in CLUSTERS if nfb * nmt * c >= COVER * n_sm), CLUSTERS[-1])
+    fs = next((c for c in CLUSTERS if -(-d // BLOCK_NEURONS) * nmt * c >= COVER * n_sm),
+              CLUSTERS[-1])
+    return min(ks, -(-d // 64)), fs
+
+
 def _launch(x, w_in, w_out, row_mask, w_gate, act):
     dtype, dev = x.dtype, x.device
     if dtype not in _build.DTYPE_CODE:
@@ -135,16 +153,18 @@ def _launch(x, w_in, w_out, row_mask, w_gate, act):
             _build.check_operand(name, t, dtype, dev)
     _build.check_operand("row_mask", row_mask, torch.float32, dev)
     lib = _build.load("masked_ffn")
+    code = _build.DTYPE_CODE[dtype]
+    ks, fs = ffn_geometry(M, d, Fh, _build.sm_count(dev))
     keep = torch.empty((-(-M // 8), Fh // BLOCK_NEURONS), dtype=torch.int32,
                        device=dev)
-    scratch = torch.empty((lib.masked_ffn_scratch_floats(M, d, Fh),),
+    scratch = torch.empty((lib.masked_ffn_scratch_floats(M, d, Fh, code),),
                           dtype=torch.float32, device=dev)
     y = torch.empty((M, d), dtype=dtype, device=dev)
     err = lib.masked_ffn_batch_launch(
         x.data_ptr(), w_in.data_ptr(),
         None if w_gate is None else w_gate.data_ptr(), w_out.data_ptr(),
         row_mask.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
-        y.data_ptr(), M, d, Fh, _ACT_CODE[act], _build.DTYPE_CODE[dtype],
+        y.data_ptr(), M, d, Fh, _ACT_CODE[act], code, ks, fs,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_ffn_batch kernel launch failed: CUDA error {err}")
@@ -154,9 +174,9 @@ def _launch(x, w_in, w_out, row_mask, w_gate, act):
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.masked_ffn_scratch_floats.argtypes = [i, i, i]
+    lib.masked_ffn_scratch_floats.argtypes = [i] * 4
     lib.masked_ffn_scratch_floats.restype = ctypes.c_longlong
-    lib.masked_ffn_batch_launch.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.masked_ffn_batch_launch.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.masked_ffn_batch_launch.restype = i
 
 

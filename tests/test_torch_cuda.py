@@ -90,6 +90,126 @@ def test_decode_gqa_kernel_matches_plain(dev, dtype, G, hd, C):
     assert _rel_err(got, want) <= _tol(dtype)
 
 
+@pytest.mark.parametrize("C", [300, 4096])
+@pytest.mark.parametrize("ts", gqa.SPLITS)
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_gqa_split_boundaries(dev, monkeypatch, dtype, G, hd, ts, C):
+    """Rows of 1, TS − 1, TS, TS + 1 and C valid positions, at each split
+    length the launch can pick (forced here), against the plain version;
+    a second call gives the same bits."""
+    monkeypatch.setattr(gqa, "split_len", lambda *a: ts)
+    KV = 2
+    lens = [1, ts - 1, ts, ts + 1, C]
+    B = len(lens)
+    rng = np.random.RandomState(ts + C + G)
+    mk = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev, dtype)
+    q, k, v = mk(B, KV * G, hd), mk(B, C, KV, hd), mk(B, C, KV, hd)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = gqa.launches.n
+    got = ops.decode_gqa(q, k, v, lengths)
+    again = ops.decode_gqa(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert gqa.launches.n == before + 2
+    want = gqa.decode_gqa_plain(q, k, v, lengths)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel_err(got, want) <= _tol(dtype)
+    assert torch.equal(got, again)
+
+
+def _ffn_masks(kind, M, F, dev):
+    """rate-0.5 ordered keep-maps for every row, or m-tiles keeping
+    disjoint blocks (the first m-tile blocks 0-2, the second 3-4, ...;
+    rows inside a tile at rates 1.0, 0.5, 0.25); the last quarter of the
+    blocks is kept by no row."""
+    m = torch.zeros(M, F, device=dev)
+    if kind == "ordered0.5":
+        m[:, :F // 2] = 1.0
+        return m
+    nfb = F // 128
+    for r in range(M):
+        t = r // 8
+        lo, hi = (0, 3) if t == 0 else (3, 5) if t == 1 else (5, 6)
+        keep = int((hi - lo) * 128 * (1.0, 0.5, 0.25)[r % 3])
+        m[r, lo * 128:lo * 128 + keep] = 1.0
+    assert hi <= nfb * 3 // 4
+    return m
+
+
+@pytest.mark.parametrize("kind", ["ordered0.5", "disjoint"])
+@pytest.mark.parametrize("M", [8, 13, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_ffn_batch_kept_blocks_and_repeat(dev, dtype, M, kind):
+    """The serving kernel under whole-block dropping: against the plain
+    version, dropped rows exactly 0, a second call the same bits."""
+    d, F = 512, 1024
+    rng = np.random.RandomState(M)
+    mk = lambda *s, fan: torch.from_numpy(
+        (rng.randn(*s) / math.sqrt(fan)).astype(np.float32)).to(dev, dtype)
+    x = mk(M, d, fan=1)
+    w_in, w_gate, w_out = mk(d, F, fan=d), mk(d, F, fan=d), mk(F, d, fan=F)
+    mask = _ffn_masks(kind, M, F, dev)
+    got = ops.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate)
+    again = ops.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate)
+    torch.cuda.synchronize()
+    want = ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, "silu")
+    assert _rel_err(got, want) <= _tol(dtype)
+    assert (got[mask.sum(1) == 0] == 0).all()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("M", [8, 13, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_ffn_batch_reads_no_skipped_block(dev, dtype, M):
+    """Every weight of the blocks no row keeps (W_in and W_gate columns,
+    W_out rows) is NaN: the output stays finite and equals the plain
+    version on the clean weights, so no skipped byte is read."""
+    d, F = 512, 1024
+    rng = np.random.RandomState(100 + M)
+    mk = lambda *s, fan: torch.from_numpy(
+        (rng.randn(*s) / math.sqrt(fan)).astype(np.float32)).to(dev, dtype)
+    x = mk(M, d, fan=1)
+    w_in, w_gate, w_out = mk(d, F, fan=d), mk(d, F, fan=d), mk(F, d, fan=F)
+    mask = _ffn_masks("disjoint", M, F, dev)
+    want = ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, "silu")
+    cols = (mask.view(M, F // 128, 128).amax((0, 2)) == 0).repeat_interleave(128)
+    assert cols.any()
+    w_in[:, cols], w_gate[:, cols], w_out[cols] = math.nan, math.nan, math.nan
+    got = ops.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel_err(got, want) <= _tol(dtype)
+
+
+@pytest.mark.parametrize("kernel", ["masked_ffn_batch", "decode_gqa"])
+def test_serving_kernels_repeat_bitwise_at_decode_shapes(dev, kernel):
+    """Two calls on the serve's decode shapes give the same bits (the
+    kernels sum in a fixed order, with no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    if kernel == "masked_ffn_batch":
+        M, d, F = 8, 5120, 13824
+        r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev) / math.sqrt(fan)).to(bf)
+        x, w_in, w_gate, w_out = r(M, d, fan=1), r(d, F, fan=d), r(d, F, fan=d), r(F, d, fan=F)
+        mask = torch.zeros(M, F, device=dev)
+        for i in range(M):
+            mask[i, :int(F * (1.0, 0.5, 0.25)[i % 3])] = 1.0
+        call = lambda: ops.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate)
+    else:
+        B, H, KV, hd, C = 8, 32, 8, 128, 576
+        q = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
+        k = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
+        v = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
+        lengths = torch.tensor([256 - 16 * i for i in range(B)], dtype=torch.int32,
+                               device=dev)
+        call = lambda: ops.decode_gqa(q, k, v, lengths)
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.float()).all()
+    assert torch.equal(a, b)
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     x = torch.zeros(4, 64, device=dev)
     w = torch.zeros(64, 128, device=dev)
