@@ -18,17 +18,19 @@ the seconds the phase took (``phase_s``):
              the L2, at three sets of lengths; ``call_ms`` one call between
              two CUDA events); the masked-FFN training forms at the
              fleet's (C 5 and 64 clients, M 10, d 64, F 1024) and at
-             femnist_attn's FFN (C 5, M 490, F 256), and the block-masked
+             femnist_attn's FFN (C 5 and 64, M 490, F 256; the dW twice,
+             bitwise equal), and the block-masked
              entry ops.masked_ffn forward and backward; the six head-masked
              projection kernels at femnist_attn's (C 5 and 64, M 490,
              d 64, 4 heads of 16; also at M 1100, 9 m-tiles, and at width
              256, C 2, M 300, 4 heads of 64; each twice on the same
-             inputs, bitwise equal); the
-             chunked RWKV-6 scan at RWKV-6-3B's
-             prefill shape (B 1, S 512, H 40, N 64, chunk 128), also at
-             logw = -8; invariant_stats at 1024 x 1024 fp32 and bf16 and
-             at a 2560 x 8960 bf16 channel-mix w_in (it is on no main
-             path: its launches are those of its checks here)
+             inputs, bitwise equal); the chunked RWKV-6 scan at
+             RWKV-6-3B's prefill shape (B 1, S 512, H 40, N 64, chunk
+             128), also at logw = -8 and chunk 256 (each twice, bitwise
+             equal; ``ms`` device time from a CUDA graph); invariant_stats
+             at 1024 x 1024 fp32 and bf16 and at a 2560 x 8960 bf16
+             channel-mix w_in (it is on no main path: its launches are
+             those of its checks here)
   small      a smoke-size fp32 model, card vs CPU
   serve      24 mixed-rate requests at full width (serving's main path)
   step       every launch of a full-width decode step against its plain version
@@ -387,11 +389,14 @@ def train_work(torch, mask, d, gated, elem):
 def phase_train_kernels(torch, np, dev="cuda"):
     """The three training kernels against their plain versions at the
     fleet's shapes: C 5 and 64, fp32 gelu under four masks, and one gated
-    bf16 case; and at femnist_attn's FFN shape (C 5, M 490, F 256). Relative ∞-norm <= 1e-4 in fp32 (1e-2 in bf16); the dW of a
+    bf16 case; and at femnist_attn's FFN shape (C 5 and 64, M 490, F 256).
+    Relative ∞-norm <= 1e-4 in fp32 (1e-2 in bf16); the dW of a
     tile no row keeps is exactly 0. ``ms`` is device time per call, from
     CUDA events around a CUDA graph of calls (the kernels are a few
     microseconds, below the host's launch time, which ``host_ms`` gives:
-    one call in a back-to-back loop)."""
+    one call in a back-to-back loop). The dW kernel also runs twice on the
+    same inputs (the same bits), beside the launch shape it takes."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import masked_ffn as ffn
     dev = torch.device(dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -400,10 +405,11 @@ def phase_train_kernels(torch, np, dev="cuda"):
     cases = [(C, mlp, kind, torch.float32, "gelu", False) for C in (5, 64)
              for kind in ("main", "all_kept", "ordered0.5", "invariant0.75")]
     cases.append((5, mlp, "ordered0.5", torch.bfloat16, "gelu", True))
-    # femnist_attn's FFN: 490 rows a client, F 256
+    # femnist_attn's FFN: 490 rows a client, F 256; and its 64-client cohort
     attn = (ATTN_SHAPE["M"], ATTN_SHAPE["F"])
     cases += [(5, attn, kind, torch.float32, "gelu", False)
               for kind in ("main", "all_kept")]
+    cases.append((64, attn, "main", torch.float32, "gelu", False))
     per = {k: [] for k in TRAIN_KERNELS}
     for C, (M, F), kind, dtype, act, gated in cases:
         r = lambda *sh, fan: (torch.randn(*sh, generator=g, device=dev)
@@ -435,12 +441,17 @@ def phase_train_kernels(torch, np, dev="cuda"):
             want = want if isinstance(want, tuple) else (want,)
             errs = [rel_inf(a, b) for a, b in zip(got, want) if b is not None]
             check(max(errs) <= tol, f"{k}[{name}] rel err {errs}")
+            extra = {}
             if k == "masked_ffn_dw":
                 for t, cols_first in zip(got, (False, True, False)):
                     if t is not None:
                         z = t if cols_first else t.transpose(1, 2)
                         check(bool((z[dropped] == 0).all()),
                               f"{k}[{name}] dropped dW tile not exactly 0")
+                again = kern()
+                check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
+                      f"{k}[{name}]: two calls differ")
+                extra["geometry"] = ffn.dw_launch_geometry(C, M, d, F, _build.sm_count(dev))
             nbytes, flops = work[k]
             b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOPS
                                   if dtype == torch.float32 else BF16_FLOPS)
@@ -452,7 +463,7 @@ def phase_train_kernels(torch, np, dev="cuda"):
                 "plain_ms": graph_ms(plain, torch),
                 "host_ms": time_loop_ms(kern, torch),
                 "plain_host_ms": time_loop_ms(plain, torch, n=20),
-                "bound_ms": b_ms, "bound_by": b_by})
+                "bound_ms": b_ms, "bound_by": b_by, **extra})
     block_entry = block_mask_entry(torch, dev, g)
     src = "src/repro_torch/kernels/csrc/masked_ffn_train.cu"
     replaces = {"masked_ffn_train_fwd": "src/repro/kernels/masked_ffn.py:107",
@@ -664,23 +675,47 @@ def phase_attn_kernels(torch, np, dev="cuda"):
     return out
 
 
+def rwkv_design_work(N, c, nc):
+    """What csrc/rwkv_chunk.cu does for one head over nc chunks of c: fp32
+    flops (2 a FMA, as executed, padded rows included) and exponentials.
+    State pass, a chunk: boundaries and runs (2·c·N), k rescaled (c·N
+    exponentials, 3·c·N flops), ΔS (2·c·N²). Output pass, a 16-row
+    sub-block T at t0 (nt rows): its boundaries (t0·N), run (2·nt·N), r
+    rescaled twice (2·nt·N exponentials, 3·nt·N flops), the diagonal
+    sub-block (nt(nt-1)/2·N exponentials and 4 flops each, the bonus 3·nt·N,
+    its product with v 2·16·16·N), the keys before t0 (t0·N exponentials,
+    3·t0·N flops; scores and their product with v 4·16·t0·N), the inter term
+    (2·16·N²). The carry: N² exponentials and 2·N² flops a chunk."""
+    sb, nb = 16, -(-c // 16)
+    flops = nc * (2 * c * N + 3 * c * N + 2 * c * N * N)
+    exps = nc * c * N
+    for T in range(nb):
+        t0, nt = 16 * T, min(16, c - 16 * T)
+        flops += nc * (t0 * N + 2 * nt * N + 3 * nt * N + 4 * nt * (nt - 1) // 2 * N
+                       + 3 * nt * N + 2 * sb * sb * N + 3 * t0 * N + 4 * sb * t0 * N
+                       + 2 * sb * N * N)
+        exps += nc * (2 * nt * N + nt * (nt - 1) // 2 * N + t0 * N)
+    return flops + 2 * nc * N * N, exps + nc * N * N
+
+
 def rwkv_work(B, S, H, N, c, elem):
     """The least work of the WKV function from a zero state, and what the
-    chunked form does on top of it. Bytes: r, k, v read in their type and
-    logw, u in fp32 once, y and the final state written once. Operations:
-    the per-token recurrence, for each token and head S <- diag(w) S + kᵀv
-    (3·N² flops) and y = r·S + (r·(u⊙k)) v (2·N² + 4·N), with N decay
-    exponentials. The chunked form (the diagnostic): per chunk and head the
-    c(c-1)/2 (t, j) pairs below the diagonal each take N exponentials and
-    6·N flops (score and its product with v), the inter term and the state
-    update 4·c·N², the cumsums, decays and bonus ~9·c·N, with 2·c·N + N
-    exponentials. Returns (bytes, flops, exponentials, chunked)."""
+    kernel's chunked form does on top of it. Bytes: r, k, v read in their
+    type and logw, u in fp32 once, y and the final state written once.
+    Operations: the per-token recurrence, for each token and head S <-
+    diag(w) S + kᵀv (3·N² flops) and y = r·S + (r·(u⊙k)) v (2·N² + 4·N),
+    with N decay exponentials. The chunked form (the diagnostic): the
+    kernel's own count (rwkv_design_work), and the literal form's c(c-1)/2
+    (t, j) pairs a chunk below the diagonal with N exponentials each, which
+    the sub-block factoring avoids. Returns (bytes, flops, exponentials,
+    chunked)."""
     tok = B * S * H * N
     nbytes = 3 * tok * elem + tok * 4 + H * N * 4 + tok * 4 + B * H * N * N * 4
     flops, exps = B * S * H * (5 * N * N + 4 * N), tok
-    pairs, blocks = c * (c - 1) // 2, B * H * (S // c)
-    chunked = {"flops": blocks * (6 * pairs * N + 4 * c * N * N + 9 * c * N + 2 * N * N),
-               "exponentials": blocks * (pairs * N + 2 * c * N + N)}
+    dflops, dexps = rwkv_design_work(N, c, S // c)
+    chunked = {"flops": B * H * dflops, "exponentials": B * H * dexps,
+               "literal_form_exponentials": B * H * (S // c) * (c * (c - 1) // 2 * N
+                                                                + 2 * c * N + N)}
     chunked["fp32_flops_ms"] = chunked["flops"] / FP32_FLOPS * 1e3
     chunked["exp_ms"] = chunked["exponentials"] / SFU_EXP_PER_S * 1e3
     return nbytes, flops, exps, chunked
@@ -688,10 +723,12 @@ def rwkv_work(B, S, H, N, c, elem):
 
 def phase_rwkv_kernels(torch, np, dev="cuda"):
     """The chunked RWKV-6 scan at RWKV-6-3B's prefill shape (bf16 r/k/v, logw
-    over the model's decay range, u at the model's scale) and at logw = -8,
-    which must stay finite; y and the state against the plain version at
-    relative ∞-norm <= 1e-4 (both fp32 inside, only the order of the sums
-    differs). invariant_stats at STATS_SHAPES against its plain version at
+    over the model's decay range, u at the model's scale), at logw = -8,
+    which must stay finite, and at chunk 256; y and the state against the
+    plain version at relative ∞-norm <= 1e-4 (both fp32 inside, only the
+    order of the sums differs), and two calls the same bits. ``ms`` is
+    device time from a CUDA graph of calls, ``call_ms`` one call between
+    two CUDA events (how B12 was timed up to PR 17). invariant_stats at STATS_SHAPES against its plain version at
     <= 1e-5 (fp32) and <= 5e-2 (bf16), the reference's tolerances. Bounds:
     bytes at 3.35 TB/s, fp32 flops at 67 TFLOP/s, exponentials at
     SFU_EXP_PER_S, each of the function's least work (rwkv_work); the
@@ -708,25 +745,29 @@ def phase_rwkv_kernels(torch, np, dev="cuda"):
     u = 0.1 * torch.randn(H, N, generator=g, device=dev)
     w = (torch.rand(H, N, generator=g, device=dev) * 5 - 6
          + 0.1 * torch.randn(B, S, H, N, generator=g, device=dev))
-    cases = {"model_decay": -torch.exp(w), "logw=-8": torch.full_like(w, -8.0)}
+    cases = {"model_decay": (-torch.exp(w), c), "logw=-8": (torch.full_like(w, -8.0), c),
+             "chunk256": (-torch.exp(w), 256)}
     per = []
-    for name, logw in cases.items():
-        run = lambda: rwkv.rwkv_chunk_scan(r, k, v, logw, u, chunk=c)
-        plain = lambda: rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=c)
-        (y, st), (yp, sp) = run(), plain()
+    for name, (logw, cc) in cases.items():
+        run = lambda: rwkv.rwkv_chunk_scan(r, k, v, logw, u, chunk=cc)
+        plain = lambda: rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=cc)
+        (y, st), (y2, st2), (yp, sp) = run(), run(), plain()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
               f"rwkv_chunk_scan[{name}] not finite")
+        check(torch.equal(y, y2) and torch.equal(st, st2),
+              f"rwkv_chunk_scan[{name}]: two calls differ")
         errs = {"y": rel_inf(y, yp), "state": rel_inf(st, sp)}
         check(max(errs.values()) <= 1e-4, f"rwkv_chunk_scan[{name}] rel err {errs}")
-        nbytes, flops, exps, chunked = rwkv_work(B, S, H, N, c, 2)
+        nbytes, flops, exps, chunked = rwkv_work(B, S, H, N, cc, 2)
         terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                  "fp32_flops_ms": flops / FP32_FLOPS * 1e3,
                  "exp_ms": exps / SFU_EXP_PER_S * 1e3}
-        per.append({"case": name, "rel_err": errs,
+        per.append({"case": name, "chunk": cc, "rel_err": errs,
                     "max_abs_err": max(float((y - yp).abs().max()),
                                        float((st - sp).abs().max())),
-                    "ms": time_ms(run, torch), "plain_ms": time_ms(plain, torch, n=10),
+                    "ms": graph_ms(run, torch), "call_ms": time_ms(run, torch),
+                    "plain_ms": time_ms(plain, torch, n=10),
                     "bound_ms": max(terms.values()),
                     "bound_by": "bytes" if terms["bytes_ms"] >= max(terms.values())
                     else "operations", "bound_terms": terms,
@@ -737,7 +778,7 @@ def phase_rwkv_kernels(torch, np, dev="cuda"):
             "source": "src/repro_torch/kernels/csrc/rwkv_chunk.cu",
             "replaces": "src/repro/kernels/rwkv_chunk.py:27",
             "max_abs_err": max(p["max_abs_err"] for p in per),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": RWKV_SCAN_SHAPE, "mixes": per}]
     del r, k, v, u, w, cases

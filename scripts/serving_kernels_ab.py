@@ -2,7 +2,7 @@
 """Time the serving kernels of two checkouts on one card, in turns.
 
     python3 scripts/serving_kernels_ab.py --a PARENT_CHECKOUT [--b CHECKOUT]
-        [--variants JSON] [--profile] [--out FILE]
+        [--variants JSON] [--profile] [--out FILE] [--set serving|scan_dw]
 
 Each turn is a fresh process that puts one checkout's ``src/`` first on
 ``sys.path``, builds that checkout's ``masked_ffn`` and ``decode_gqa``
@@ -24,11 +24,22 @@ positions a decode_gqa split takes, ``ks``/``fs`` the bf16
 masked_ffn_batch's cluster sizes. One JSON line per turn,
 then a summary line; ``--out`` also writes them all to a file. Needs one
 CUDA device.
+
+``--set scan_dw`` times two other kernels instead, the same way (A, B, B,
+A, each held to its plain version): the chunked RWKV-6 scan
+(rwkv_chunk_scan) at RWKV-6-3B's prefill shape (B 1, S 512, H 40, N 64,
+chunk 128, bf16), at the model's decay and at logw = -8, and the masked-FFN
+dW (masked_ffn_dw, fp32 gelu, the training path's masks) at femnist_attn's
+M 490 and femnist_kernel's M 10, each at C 5 and 64; ``ms`` is device time
+from a CUDA graph of calls, ``call_ms`` one call between two CUDA events,
+and ``by_kernel`` each CUDA kernel's device time a call (torch.profiler).
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,7 +60,60 @@ def summarise(rows):
     return out
 
 
-def child(src: str, tune: dict, profile: bool, rotate_ffn: bool) -> dict:
+def by_kernel(torch, cs, run, n=10):
+    """Device µs a call of each CUDA kernel that ``run`` launches, from
+    torch.profiler over n eager calls."""
+    torch.cuda.synchronize()
+    rows = cs.busy_share(torch, lambda: [run() for _ in range(n)], watch=("rwkv", "dw"))
+    name = lambda k: re.search(r"(\w+_kernel)", k).group(1) if "_kernel" in k else k[:60]
+    return {name(r["kernel"]): r["us_per_call"] for r in rows.get("watched", [])}
+
+
+def scan_dw(torch, np, cs):
+    """Device and call times of rwkv_chunk_scan at the prefill shape and of
+    masked_ffn_dw at (C, M) in {5, 64} x {490, 10}, each held to its plain
+    version (relative ∞-norm 1e-4)."""
+    from repro_torch.kernels import masked_ffn as ffn
+    from repro_torch.kernels import rwkv_chunk as rwkv
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    B, S, H, N, c = (cs.RWKV_SCAN_SHAPE[k] for k in ("B", "S", "H", "N", "chunk"))
+    r, k, v = (torch.randn(B, S, H, N, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    u = 0.1 * torch.randn(H, N, generator=g, device=dev)
+    w = (torch.rand(H, N, generator=g, device=dev) * 5 - 6
+         + 0.1 * torch.randn(B, S, H, N, generator=g, device=dev))
+    for name, logw in (("model_decay", -torch.exp(w)), ("logw=-8", torch.full_like(w, -8.0))):
+        run = lambda: rwkv.rwkv_chunk_scan(r, k, v, logw, u, chunk=c)
+        (y, st), (yp, sp) = run(), rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=c)
+        err = max(cs.rel_inf(y, yp), cs.rel_inf(st, sp))
+        if not err <= 1e-4:
+            raise SystemExit(f"rwkv_chunk_scan[{name}] rel err {err}")
+        out[f"rwkv_chunk_scan/{name}"] = {"ms": cs.graph_ms(run, torch),
+                                          "call_ms": cs.time_ms(run, torch), "rel_err": err,
+                                          "by_kernel": by_kernel(torch, cs, run)}
+    del r, k, v, u, w
+    d = cs.TRAIN_SHAPE["d"]
+    for C, (M, F) in itertools.product((5, 64), ((cs.ATTN_SHAPE["M"], cs.ATTN_SHAPE["F"]),
+                                               (cs.TRAIN_SHAPE["M"], cs.TRAIN_SHAPE["F"]))):
+        rnd = lambda *sh, fan: torch.randn(*sh, generator=g, device=dev) / fan ** 0.5
+        x, gy = rnd(C, M, d, fan=1), rnd(C, M, d, fan=1)
+        w_in, w_out = rnd(C, d, F, fan=d), rnd(C, F, d, fan=F)
+        mask = cs.train_masks(torch, np, C, "main", dev, M, F)
+        run = lambda: ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, None, act="gelu")
+        got, want = run(), ffn.masked_ffn_dw_plain(gy, x, w_in, w_out, mask, None, "gelu")
+        err = max(cs.rel_inf(a, b) for a, b in zip(got, want) if b is not None)
+        if not err <= 1e-4:
+            raise SystemExit(f"masked_ffn_dw[C{C}/M{M}] rel err {err}")
+        out[f"masked_ffn_dw/C{C}/M{M}"] = {
+            "ms": cs.graph_ms(run, torch), "call_ms": cs.time_ms(run, torch), "rel_err": err,
+            "by_kernel": by_kernel(torch, cs, run), "geometry": (ffn.dw_launch_geometry(C, M, d, F)
+                         if hasattr(ffn, "dw_launch_geometry") else None)}
+    return out
+
+
+def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> dict:
     sys.path.insert(0, str(Path(src).resolve() / "src"))
     sys.path.insert(1, str(ROOT))
     import numpy as np
@@ -61,6 +125,11 @@ def child(src: str, tune: dict, profile: bool, rotate_ffn: bool) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("serving_kernels_ab: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    if which == "scan_dw":
+        t0 = time.perf_counter()
+        _build.build_all(["rwkv_chunk", "masked_ffn_train"])
+        return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
+                "kernels": scan_dw(torch, np, cs)}
     if "ts" in tune:
         gqa.split_len = lambda *a: tune["ts"]
     if {"ks", "fs"} & set(tune):
@@ -153,8 +222,9 @@ def ffn_rotation(torch, cs, ffn):
             "two_sets_ms": cs.graph_ms(cs.rotating(calls), torch)}
 
 
-def run_turn(src, tune=None, profile=False, rotate_ffn=False, timeout=900):
-    cmd = [sys.executable, __file__, "--child", str(src), "--tune", json.dumps(tune or {})]
+def run_turn(src, tune=None, profile=False, rotate_ffn=False, which="serving", timeout=900):
+    cmd = [sys.executable, __file__, "--child", str(src), "--tune", json.dumps(tune or {}),
+           "--set", which]
     cmd += ["--profile"] * profile + ["--rotate-ffn"] * rotate_ffn
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
     if proc.returncode != 0:
@@ -170,22 +240,25 @@ def main() -> int:
     ap.add_argument("--variants", default="[]", help="JSON list of B's launch shapes")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out")
+    ap.add_argument("--set", default="serving", choices=("serving", "scan_dw"),
+                    help="the kernels to time")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--tune", default="{}", help=argparse.SUPPRESS)
     ap.add_argument("--rotate-ffn", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         print(json.dumps(child(args.child, json.loads(args.tune), args.profile,
-                               args.rotate_ffn)))
+                               args.rotate_ffn, args.set)))
         return 0
     turns = []
     order = [("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)] if args.a else []
     for label, src in order:
         turns.append({"turn": label, **run_turn(src, profile=args.profile,
-                                                rotate_ffn=args.profile and label == "B")})
+                                                rotate_ffn=args.profile and label == "B",
+                                                which=args.set)})
         print(json.dumps(turns[-1]), flush=True)
     for tune in json.loads(args.variants):
-        turns.append({"turn": "B", **run_turn(args.b, tune)})
+        turns.append({"turn": "B", **run_turn(args.b, tune, which=args.set)})
         print(json.dumps(turns[-1]), flush=True)
     summary = {}
     for t in turns:

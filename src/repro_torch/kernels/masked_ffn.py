@@ -40,6 +40,9 @@ BLOCK_NEURONS = 128
 # the bf16 serving kernel's launch shape (ffn_geometry)
 CLUSTERS = (1, 2, 4, 8)        # blocks a cluster may have (portable sizes)
 COVER = 1                      # blocks wanted per SM in each pass
+# the dW kernel's launch shape (dw_launch_geometry)
+DW_GROUPS = 16                 # most blocks one (client, f-block)'s m-tiles split over
+DW_ROWS = 64                   # rows of d a dW block covers (DW_DK)
 
 _ACTS = {"relu": torch.relu,
          "relu2": lambda h: torch.square(torch.relu(h)),
@@ -340,19 +343,44 @@ def _launch_dx(gy, x, w_in, w_out, row_mask, w_gate, act):
     return dx
 
 
+def dw_launch_geometry(C, M, d, F, n_sm=132):
+    """How the dW kernel launches for C clients of M rows, width d and F
+    hidden neurons on a card of ``n_sm`` SMs: each (client, f-block) pair's
+    ``m_tiles`` 8-row m-tiles are split over ``groups`` blocks of
+    ``m_tiles_per_block`` contiguous m-tiles (as many as fill the SMs, at
+    most DW_GROUPS), a block for each DW_ROWS rows of d; ``blocks`` in all,
+    ``grid`` (groups, F/128·ceil(d/64), C). ``route`` says how the partials
+    are added in m-tile order: "direct" (one block a pair writes dW) or
+    "scratch" (an fp32 scratch and a second kernel)."""
+    nmt, nfb, ndk = -(-M // 8), F // BLOCK_NEURONS, -(-d // DW_ROWS)
+    pairs = C * nfb * ndk
+    per = -(-nmt // max(1, min(nmt, DW_GROUPS, n_sm // max(pairs, 1))))
+    groups = -(-nmt // per)
+    return {"route": "direct" if groups == 1 else "scratch", "groups": groups, "m_tiles": nmt,
+            "m_tiles_per_block": per, "blocks": groups * pairs,
+            "grid": (groups, nfb * ndk, C)}
+
+
 def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
     dtype, dev, C, M, d, Fh = _check_train("masked_ffn_dw", x, w_in, w_out,
                                            row_mask, w_gate, gy)
     lib = _build.load("masked_ffn_train")
+    geo = dw_launch_geometry(C, M, d, Fh, _build.sm_count(dev))
     # every element is written by the kernel, dropped tiles as exact zeros
     dw_in = torch.empty_like(w_in)
     dw_out = torch.empty_like(w_out)
     dw_gate = None if w_gate is None else torch.empty_like(w_gate)
+    scratch = None
+    if geo["groups"] > 1:              # each block's fp32 partial of its pair's dW
+        blocks = geo["groups"] * (Fh // BLOCK_NEURONS) * -(-d // DW_ROWS) * C
+        per_block = 32 * (2 if w_gate is None else 3) * 256   # partials a thread, threads
+        scratch = torch.empty((blocks * per_block,), dtype=torch.float32, device=dev)
     err = lib.masked_ffn_dw_launch(
         gy.data_ptr(), x.data_ptr(), w_in.data_ptr(), _ptr(w_gate),
         w_out.data_ptr(), row_mask.data_ptr(), dw_in.data_ptr(),
-        _ptr(dw_gate), dw_out.data_ptr(), C, M, d, Fh, _ACT_CODE[act],
-        _build.DTYPE_CODE[dtype], torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(dw_gate), dw_out.data_ptr(), _ptr(scratch), C, M, d, Fh,
+        _ACT_CODE[act], _build.DTYPE_CODE[dtype], geo["groups"],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_ffn_dw kernel launch failed: CUDA error {err}")
     dw_launches.n += 1
@@ -365,7 +393,7 @@ def _bind_train(lib):
     lib.masked_ffn_train_fwd_launch.restype = i
     lib.masked_ffn_dx_launch.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.masked_ffn_dx_launch.restype = i
-    lib.masked_ffn_dw_launch.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.masked_ffn_dw_launch.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.masked_ffn_dw_launch.restype = i
 
 

@@ -1,8 +1,10 @@
 """Chunked RWKV-6 WKV recurrence (port of ``repro/kernels/rwkv_chunk.py``).
 
 ``rwkv_chunk_scan`` dispatches on where its tensors lie: on a CUDA tensor it
-launches the hand-written kernel in ``csrc/rwkv_chunk.cu`` (which replaces
-the Pallas ``_kernel``) and counts the launch; on a CPU tensor it runs
+launches the hand-written kernels in ``csrc/rwkv_chunk.cu`` (which replace
+the Pallas ``_kernel``: a state pass per chunk, the state carried in chunk
+order, and an output pass over pairs of sub-blocks, counted as one
+launch); on a CPU tensor it runs
 ``rwkv_chunk_scan_plain``. There is no fallback from the card to the plain
 version. Unlike the Pallas kernel, which always starts from a zero state,
 both take an optional initial state (``tmix_seq``'s ``state_in``).
@@ -16,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_SIZES = (16, 32, 64)      # head dims N the kernel takes
-MAX_CHUNK = 128                # csrc/rwkv_chunk.cu CMAX
+MAX_CHUNK = 1024               # csrc/rwkv_chunk.cu CMAX
 
 launches = _build.LaunchCounter()
 
@@ -72,7 +74,7 @@ def rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=64, state=None):
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rwkv_chunk_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.rwkv_chunk_launch.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.rwkv_chunk_launch.restype = i
 
 
@@ -96,9 +98,14 @@ def _launch(r, k, v, logw, u, chunk, state):
         _build.check_operand("state", state, torch.float32, dev)
     y = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
     s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
+    # each chunk's local state term and total log decay, for the output pass
+    nc = S // chunk
+    ds = torch.empty((B * H * nc * N * N,), dtype=torch.float32, device=dev)
+    ltot = torch.empty((B * H * nc * N,), dtype=torch.float32, device=dev)
     err = _build.load("rwkv_chunk").rwkv_chunk_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-        None if state is None else state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+        None if state is None else state.data_ptr(), ds.data_ptr(), ltot.data_ptr(),
+        y.data_ptr(), s_out.data_ptr(),
         B, S, H, N, chunk, _build.DTYPE_CODE[dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -253,7 +253,7 @@ def _train_masks(C, M, F, g, dev):
 @pytest.mark.parametrize("act,gated", [("gelu", False), ("silu", True),
                                        ("relu", False), ("relu2", True)])
 @pytest.mark.parametrize("C,M,d,F", [(5, 10, 64, 1024), (3, 13, 200, 384),
-                                     (2, 1, 40, 128)])
+                                     (2, 1, 40, 128), (2, 9, 42, 256)])
 def test_masked_ffn_train_kernels_match_plain(dev, dtype, act, gated, C, M, d, F):
     g = torch.Generator(device=dev).manual_seed(C * F + d)
     r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev)
@@ -312,6 +312,86 @@ def test_masked_ffn_train_autograd_launches_each_kernel_once(dev):
     want_in, want_out, _ = ffn.masked_ffn_dw_plain(gy, *args, None, "gelu")
     assert _rel_err(w_in.grad, want_in) <= 1e-4
     assert _rel_err(w_out.grad, want_out) <= 1e-4
+
+
+def _dw_masks(C, M, F, g, dev):
+    """_train_masks, with every third client's rows 8-15 dropped as well:
+    a skipped m-tile inside a kept f-block."""
+    mask = _train_masks(C, M, F, g, dev)
+    mask[::3, 8:16] = 0.0
+    return mask.contiguous()
+
+
+def _dw_case(C, M, dtype, gated, dev, d=64, F=256):
+    g = torch.Generator(device=dev).manual_seed(C * M + d + gated)
+    r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev)
+                         / math.sqrt(fan)).to(dtype)
+    x, gy = r(C, M, d, fan=1), r(C, M, d, fan=1)
+    w_in, w_out = r(C, d, F, fan=d), r(C, F, d, fan=F)
+    w_gate = r(C, d, F, fan=d) if gated else None
+    return gy, x, w_in, w_out, _dw_masks(C, M, F, g, dev), w_gate
+
+
+def _check_dw(got, want, mask, dtype):
+    C, _, F = mask.shape
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == dtype
+        assert _rel_err(a, b) <= _tol(dtype)
+    cols = (mask.amax(dim=1).view(C, F // 128, 128).amax(dim=2) == 0
+            ).repeat_interleave(128, dim=1)                       # dropped f-blocks
+    assert (got[0].transpose(1, 2)[cols] == 0).all() and (got[1][cols] == 0).all()
+    if got[2] is not None:
+        assert (got[2].transpose(1, 2)[cols] == 0).all()
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [5, 64])
+@pytest.mark.parametrize("M", [1, 7, 8, 9, 490, 1100])
+def test_masked_ffn_dw_splits_m_tiles_at_femnist_attn_widths(dev, M, C, dtype, gated):
+    """d 64, F 256, gelu: the dW kernel against its plain version, with the
+    m-tiles split as dw_launch_geometry says; dropped f-blocks exactly 0."""
+    gy, x, w_in, w_out, mask, w_gate = _dw_case(C, M, dtype, gated, dev)
+    before = ffn.dw_launches.n
+    got = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act="gelu")
+    torch.cuda.synchronize()
+    assert ffn.dw_launches.n == before + 1
+    want = ffn.masked_ffn_dw_plain(gy, x, w_in, w_out, mask, w_gate, "gelu")
+    _check_dw(got, want, mask, dtype)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 5, 16])
+@pytest.mark.parametrize("C,M", [(5, 490), (5, 10), (64, 10), (3, 1100)])
+def test_masked_ffn_dw_any_split_of_the_m_tiles(dev, monkeypatch, groups, C, M):
+    """However many blocks share a pair's m-tiles (one block: dW written
+    directly; more: partials through the scratch, added in block order), at
+    the training paths' shapes, fp32 and gated bf16, against the plain
+    version."""
+    def geometry(C_, M_, d_, F_, n_sm=132):
+        nmt = -(-M_ // 8)
+        per = -(-nmt // min(groups, nmt))
+        return {"groups": -(-nmt // per)}
+    monkeypatch.setattr(ffn, "dw_launch_geometry", geometry)
+    for dtype, gated in ((torch.float32, False), (torch.bfloat16, True)):
+        gy, x, w_in, w_out, mask, w_gate = _dw_case(C, M, dtype, gated, dev)
+        got = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act="gelu")
+        torch.cuda.synchronize()
+        want = ffn.masked_ffn_dw_plain(gy, x, w_in, w_out, mask, w_gate, "gelu")
+        _check_dw(got, want, mask, dtype)
+
+
+@pytest.mark.parametrize("C", [5, 64])
+def test_masked_ffn_dw_repeats_bitwise_at_m490(dev, C):
+    """Two calls on the same inputs give the same bits (fixed-order sums,
+    no atomics)."""
+    gy, x, w_in, w_out, mask, w_gate = _dw_case(C, 490, torch.float32, False, dev)
+    a = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act="gelu")
+    b = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def _head_masks(C, H, dev):
@@ -555,7 +635,8 @@ def _rwkv_inputs(B, S, H, N, dtype, dev, seed, logw=None):
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("B,S,H,N,chunk", [(2, 32, 3, 16, 8), (1, 24, 2, 32, 12),
                                            (3, 16, 1, 64, 16), (1, 512, 4, 64, 128),
-                                           (2, 200, 3, 32, 100)])
+                                           (2, 200, 3, 32, 100), (1, 512, 3, 64, 256),
+                                           (2, 16, 3, 32, 1), (1, 1024, 2, 16, 512)])
 def test_rwkv_chunk_kernel_matches_plain(dev, dtype, with_state, B, S, H, N, chunk):
     """y and the final state against the plain chunked version: both fp32
     inside, only the order of the sums differs (1e-4 relative ∞-norm)."""
@@ -580,6 +661,18 @@ def test_rwkv_chunk_kernel_strong_decay_finite(dev, dtype):
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=128)
     assert _rel_err(y, yp) <= 1e-4 and _rel_err(st, sp) <= 1e-4
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_chunk_kernel_repeats_bitwise_at_prefill_shape(dev, with_state):
+    """B 1, S 512, H 40, N 64, chunk 128, bf16: two calls give the same bits
+    (fixed-order sums, no atomics)."""
+    r, k, v, logw, u = _rwkv_inputs(1, 512, 40, 64, torch.bfloat16, dev, 5)
+    state = 0.5 * torch.randn(1, 40, 64, 64, device=dev) if with_state else None
+    y0, s0 = ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=128, state=state)
+    y1, s1 = ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=128, state=state)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -613,9 +706,9 @@ def test_rwkv_and_stats_wrappers_refuse_what_the_kernels_do_not_take(dev):
     r48, k48, v48, logw48, u48 = _rwkv_inputs(1, 16, 2, 48, torch.float32, dev, 0)
     with pytest.raises(ValueError, match="head size"):
         ops.rwkv_chunk_scan(r48, k48, v48, logw48, u48, chunk=8)
-    r, k, v, logw, u = _rwkv_inputs(1, 256, 2, 32, torch.float32, dev, 0)
-    with pytest.raises(ValueError, match="chunk <= 128"):
-        ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=256)
+    r, k, v, logw, u = _rwkv_inputs(1, 2048, 1, 16, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match=f"chunk <= {rwkv.MAX_CHUNK}"):
+        ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=2048)
     w = torch.zeros(8, 16, device=dev)
     with pytest.raises(ValueError, match="on cpu"):
         ops.invariant_stats(w, w.cpu())
