@@ -394,8 +394,10 @@ def phase_train_kernels(torch, np, dev="cuda"):
     tile no row keeps is exactly 0. ``ms`` is device time per call, from
     CUDA events around a CUDA graph of calls (the kernels are a few
     microseconds, below the host's launch time, which ``host_ms`` gives:
-    one call in a back-to-back loop). The dW kernel also runs twice on the
-    same inputs (the same bits), beside the launch shape it takes."""
+    one call in a back-to-back loop). Each kernel also runs twice on the
+    same inputs (the same bits), beside the launch shape it takes
+    (``dw_launch_geometry``, or ``fwd_dx_launch_geometry`` and whether the
+    weight slab stays resident)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import masked_ffn as ffn
     dev = torch.device(dev)
@@ -452,6 +454,12 @@ def phase_train_kernels(torch, np, dev="cuda"):
                 check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
                       f"{k}[{name}]: two calls differ")
                 extra["geometry"] = ffn.dw_launch_geometry(C, M, d, F, _build.sm_count(dev))
+            else:
+                again = kern()
+                check(torch.equal(got[0], again), f"{k}[{name}]: two calls differ")
+                geo = ffn.fwd_dx_launch_geometry(C, M, d, F, _build.sm_count(dev))
+                extra["geometry"] = dict(geo, slab_resident=ffn.fd_slab_resident(
+                    M, d, F, gated, k == "masked_ffn_dx", geo["groups"]))
             nbytes, flops = work[k]
             b_ms, b_by = bound_ms(nbytes, flops, FP32_FLOPS
                                   if dtype == torch.float32 else BF16_FLOPS)

@@ -2,7 +2,7 @@
 """Time the serving kernels of two checkouts on one card, in turns.
 
     python3 scripts/serving_kernels_ab.py --a PARENT_CHECKOUT [--b CHECKOUT]
-        [--variants JSON] [--profile] [--out FILE] [--set serving|scan_dw]
+        [--variants JSON] [--profile] [--out FILE] [--set serving|scan_dw|fwd_dx]
 
 Each turn is a fresh process that puts one checkout's ``src/`` first on
 ``sys.path``, builds that checkout's ``masked_ffn`` and ``decode_gqa``
@@ -33,6 +33,14 @@ dW (masked_ffn_dw, fp32 gelu, the training path's masks) at femnist_attn's
 M 490 and femnist_kernel's M 10, each at C 5 and 64; ``ms`` is device time
 from a CUDA graph of calls, ``call_ms`` one call between two CUDA events,
 and ``by_kernel`` each CUDA kernel's device time a call (torch.profiler).
+
+``--set fwd_dx`` times the masked-FFN training forward
+(masked_ffn_train_fwd) and dx (masked_ffn_dx) the same way (A, B, B, A,
+each held to its plain version and to a second call's bits), fp32 gelu
+under the training path's masks, at femnist_attn's M 490 (F 256) and
+femnist_kernel's M 10 (F 1024), each at C 5 and 64, beside the launch
+shape (``fwd_dx_launch_geometry``); ``--variants`` may set ``cover``
+(blocks wanted per SM) for B.
 """
 from __future__ import annotations
 
@@ -60,11 +68,12 @@ def summarise(rows):
     return out
 
 
-def by_kernel(torch, cs, run, n=10):
-    """Device µs a call of each CUDA kernel that ``run`` launches, from
-    torch.profiler over n eager calls."""
+def by_kernel(torch, cs, run, n=10, watch=("rwkv", "dw")):
+    """Device µs a call of each CUDA kernel that ``run`` launches (those
+    whose names hold a string of ``watch``), from torch.profiler over n
+    eager calls."""
     torch.cuda.synchronize()
-    rows = cs.busy_share(torch, lambda: [run() for _ in range(n)], watch=("rwkv", "dw"))
+    rows = cs.busy_share(torch, lambda: [run() for _ in range(n)], watch=watch)
     name = lambda k: re.search(r"(\w+_kernel)", k).group(1) if "_kernel" in k else k[:60]
     return {name(r["kernel"]): r["us_per_call"] for r in rows.get("watched", [])}
 
@@ -113,6 +122,45 @@ def scan_dw(torch, np, cs):
     return out
 
 
+def fwd_dx(torch, np, cs, ffn):
+    """Device and call times of masked_ffn_train_fwd and masked_ffn_dx (fp32
+    gelu, ungated, the training path's "main" masks) at (C, M) in {5, 64} x
+    {490, 10} (F 256 at M 490, 1024 at M 10, d 64), each held to its plain
+    version (relative ∞-norm 1e-4), with the launch shape where the
+    checkout has one."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    d = cs.TRAIN_SHAPE["d"]
+    out = {}
+    for C, (M, F) in itertools.product((5, 64), ((cs.ATTN_SHAPE["M"], cs.ATTN_SHAPE["F"]),
+                                               (cs.TRAIN_SHAPE["M"], cs.TRAIN_SHAPE["F"]))):
+        rnd = lambda *sh, fan: torch.randn(*sh, generator=g, device=dev) / fan ** 0.5
+        x, gy = rnd(C, M, d, fan=1), rnd(C, M, d, fan=1)
+        w_in, w_out = rnd(C, d, F, fan=d), rnd(C, F, d, fan=F)
+        mask = cs.train_masks(torch, np, C, "main", dev, M, F)
+        geo = (ffn.fwd_dx_launch_geometry(C, M, d, F) if hasattr(ffn, "fwd_dx_launch_geometry")
+               else None)
+        for name, run, plain in (
+                ("masked_ffn_train_fwd",
+                 lambda: ffn.masked_ffn_train_fwd(x, w_in, w_out, mask, None, act="gelu"),
+                 lambda: ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, None, "gelu")),
+                ("masked_ffn_dx",
+                 lambda: ffn.masked_ffn_dx(gy, x, w_in, w_out, mask, None, act="gelu"),
+                 lambda: ffn.masked_ffn_dx_plain(gy, x, w_in, w_out, mask, None, "gelu"))):
+            got, again, want = run(), run(), plain()
+            torch.cuda.synchronize()
+            err = cs.rel_inf(got, want)
+            if not err <= 1e-4:
+                raise SystemExit(f"{name}[C{C}/M{M}] rel err {err}")
+            if not torch.equal(got, again):
+                raise SystemExit(f"{name}[C{C}/M{M}] two calls differ")
+            out[f"{name}/C{C}/M{M}"] = {
+                "ms": cs.graph_ms(run, torch), "call_ms": cs.time_ms(run, torch),
+                "rel_err": err, "geometry": geo,
+                "by_kernel": by_kernel(torch, cs, run, watch=("train_", "reduce"))}
+    return out
+
+
 def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> dict:
     sys.path.insert(0, str(Path(src).resolve() / "src"))
     sys.path.insert(1, str(ROOT))
@@ -130,6 +178,15 @@ def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> 
         _build.build_all(["rwkv_chunk", "masked_ffn_train"])
         return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
                 "kernels": scan_dw(torch, np, cs)}
+    if which == "fwd_dx":
+        if "cover" in tune:
+            ffn.FD_COVER = tune["cover"]
+        t0 = time.perf_counter()
+        _build.build_all(["masked_ffn_train"])
+        return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
+                "ptxas": [ln for ln in _build.build_log.get("masked_ffn_train", "").splitlines()
+                          if "registers" in ln or "spill" in ln],
+                "kernels": fwd_dx(torch, np, cs, ffn)}
     if "ts" in tune:
         gqa.split_len = lambda *a: tune["ts"]
     if {"ks", "fs"} & set(tune):
@@ -240,7 +297,7 @@ def main() -> int:
     ap.add_argument("--variants", default="[]", help="JSON list of B's launch shapes")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out")
-    ap.add_argument("--set", default="serving", choices=("serving", "scan_dw"),
+    ap.add_argument("--set", default="serving", choices=("serving", "scan_dw", "fwd_dx"),
                     help="the kernels to time")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--tune", default="{}", help=argparse.SUPPRESS)

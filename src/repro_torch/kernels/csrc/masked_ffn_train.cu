@@ -11,37 +11,36 @@
 //   train_dx_kernel   <- _dx_kernel  (:165, via _dx_impl :327)
 //   train_dw_kernel   <- _dw_kernel  (:193, via _dw_impl :367)
 // with the Pallas semantics: a (8-row m-tile, 128-neuron f-block) tile is
-// skipped when no row of the tile keeps any neuron of the block (each
-// block ORs the row mask itself, as _prefetch_mask :259 does); kept tiles
-// apply the exact per-row mask; the forward rounds the masked hidden
-// activation to the input type before the down product (:129); the
-// backward recomputes the pre-activations from (x, weights, mask) and
-// saves no activations (_bwd_core :144); every sum is fp32.
+// skipped when no row of the tile keeps any neuron of the block, and reads
+// no weight (each block ORs the row mask itself, as _prefetch_mask :259
+// does); kept tiles apply the exact per-row mask; the forward rounds the
+// masked hidden activation to the input type before the down product
+// (:129); the backward recomputes the pre-activations from (x, weights,
+// mask) and saves no activations (_bwd_core :144); every sum is fp32.
 //
-// What bounds it on an H100: at the fleet's widths (d 64, F 1024, M 10 rows
-// a client, ungated) a client's forward reads 2·d·F·4 B = 524 KB of fp32
-// weights for 2·2·M·d·F = 2.6 MFLOP — 5 FLOP per byte, far below the ridge —
-// and at C = 5 clients a whole pass is a few MB: launch latency and the
-// serial d-loop of a tile bound it, not bytes. At femnist_attn's FFN (M 490
-// rows a client, F 256) the dW is 0.32 GFLOP over 62 m-tiles a client,
-// 4.9 us of fp32 FMA at 67 TFLOP/s: there the work must spread over the
-// card's SMs, which a block per (f-block, client) did not (20 blocks). The
-// forward and dx keep every operand of a tile's recompute in shared memory
-// (weights staged in d-chunks with padded rows, so the neuron-parallel
-// reads are bank-conflict free) and spread tiles over (f-block, m-tile,
-// client) blocks; wgmma/TMA wait.
+// What bounds them on an H100: operations, not bytes. At femnist_attn's FFN
+// (C 5 clients of M 490 rows, d 64, F 256, ungated) the forward is 0.16
+// GFLOP and dx 0.24 GFLOP of fp32 FMA (2.4 and 3.6 us at 67 TFLOP/s) on ~5
+// MB of inputs (1.5 us); at the fleet's M 10, F 1024 a pass is a few MB
+// and a few MFLOP, so there launch latency and each block's chain of
+// latencies bound it. So every kernel here keeps a (client, f-block)'s
+// weight slab resident in shared memory across a group of m-tiles, staged
+// once with 16-byte loads in flight, and feeds register tiles from it.
 //
 // Hopper has no sequential grid, so the Pallas accumulators revisited
 // across the grid become:
-//   forward, dx: one block per (f-block, m-tile, client) writes an fp32
-//     partial; a second kernel sums the kept f-blocks' partials in fixed
-//     f order (no atomics: deterministic).
+//   forward, dx: a (client, f-block) pair's m-tiles are split over G
+//     blocks; each block writes an fp32 partial of its tiles' rows for its
+//     f-block, and a programmatic-dependent kernel sums the kept f-blocks'
+//     partials in f order (no atomics: deterministic).
 //   dW: a (client, f-block) pair's m-tiles are split over G blocks that
 //     keep the f-block's weight slab in shared memory; their fp32 partials
 //     are added in m-tile order through an fp32 scratch and a second
 //     kernel (train_dw_kernel, below); an f-block no m-tile keeps is
 //     written as exact zeros.
 // Masks are data: a new mask never means a new build.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -51,229 +50,7 @@ using rt::dact_f;
 
 constexpr int BN = 128;          // neurons per f-block (BLOCK_NEURONS)
 constexpr int MT = 8;            // rows per m-tile (the Pallas block_m)
-constexpr int KC = 16;           // d-chunk staged per step of the recompute
-constexpr int THREADS = 256;
-constexpr int LD = BN + 1;       // padded shared-memory row
-constexpr int RPT = MT * BN / THREADS;   // rows per thread in the recompute
-
-static_assert(RPT == 4, "recompute maps 256 threads onto 8 rows x 128 neurons");
-
-struct Recompute {
-  float xs[MT][KC];
-  float gs[MT][KC];
-  float wi[KC][LD];
-  float wg[KC][LD];
-  float wo[KC][LD];              // wo[k][n] = W_out[f0 + n][k0 + k]
-};
-
-struct Smem {
-  Recompute r;
-  float a[MT][BN];               // forward: rounded hm; backward: hm
-  float b[MT][BN];               // dzh
-  float c[MT][BN];               // dzg
-};
-
-// Does any row of the m-tile keep any neuron of the f-block? Block-uniform.
-__device__ __forceinline__ bool tile_kept(const float* __restrict__ mask_c,
-                                          int m0, int rows, int f0, int F) {
-  bool any = false;
-  for (int e = threadIdx.x; e < rows * BN; e += THREADS)
-    any |= mask_c[(size_t)(m0 + e / BN) * F + f0 + e % BN] != 0.f;
-  return __syncthreads_or(any);
-}
-
-// Recompute one tile's pre-activations from x (and, for the backward, gy)
-// and leave in shared memory:
-//   forward:  a = round_T(act-and-gate(z) ⊙ mask)
-//   backward: a = hm, b = dzh, c = dzg   (repro _bwd_core, fp32)
-// Rows past M read as zero with mask 0. Ends with __syncthreads().
-template <typename T, bool BWD>
-__device__ void recompute(Smem& s, const T* __restrict__ x_c,
-                          const T* __restrict__ g_c,
-                          const T* __restrict__ wi_c,
-                          const T* __restrict__ wg_c,
-                          const T* __restrict__ wo_c,
-                          const float* __restrict__ mask_c, int m0, int rows,
-                          int f0, int d, int F, int act) {
-  const int tid = threadIdx.x, n = tid % BN, r0 = (tid / BN) * RPT;
-  const bool gated = wg_c != nullptr;
-  float zh[RPT], zg[RPT], gh[RPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) zh[i] = zg[i] = gh[i] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    const int kn = min(KC, d - k0);
-    __syncthreads();                       // previous chunk consumed
-    for (int e = tid; e < MT * KC; e += THREADS) {
-      const int r = e / KC, k = e % KC;
-      const bool in = r < rows && k < kn;
-      const size_t at = (size_t)(m0 + r) * d + k0 + k;
-      s.r.xs[r][k] = in ? rt::to_f(x_c[at]) : 0.f;
-      if (BWD) s.r.gs[r][k] = in ? rt::to_f(g_c[at]) : 0.f;
-    }
-    for (int e = tid; e < KC * BN; e += THREADS) {
-      const int k = e / BN, nn = e % BN;
-      const size_t at = (size_t)(k0 + k) * F + f0 + nn;
-      s.r.wi[k][nn] = k < kn ? rt::to_f(wi_c[at]) : 0.f;
-      if (gated) s.r.wg[k][nn] = k < kn ? rt::to_f(wg_c[at]) : 0.f;
-    }
-    if (BWD) {                             // W_out rows, transposed
-      for (int e = tid; e < KC * BN; e += THREADS) {
-        const int nn = e / KC, k = e % KC;
-        s.r.wo[k][nn] = k < kn ? rt::to_f(wo_c[(size_t)(f0 + nn) * d + k0 + k]) : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < KC; ++k) {
-      const float wi = s.r.wi[k][n];
-      const float wg = gated ? s.r.wg[k][n] : 0.f;
-      const float wo = BWD ? s.r.wo[k][n] : 0.f;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float xv = s.r.xs[r0 + i][k];
-        zh[i] = fmaf(xv, wi, zh[i]);
-        if (gated) zg[i] = fmaf(xv, wg, zg[i]);
-        if (BWD) gh[i] = fmaf(s.r.gs[r0 + i][k], wo, gh[i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = r0 + i;
-    const float rm = r < rows ? mask_c[(size_t)(m0 + r) * F + f0 + n] : 0.f;
-    if (!BWD) {
-      const float v = gated ? act_f(zg[i], act) * zh[i] : act_f(zh[i], act);
-      s.a[r][n] = rt::to_f(rt::from_f<T>(rm != 0.f ? v * rm : 0.f));
-    } else {
-      const float ghm = gh[i] * rm;
-      float hm, dzh, dzg = 0.f;
-      if (gated) {
-        const float a = act_f(zg[i], act);
-        hm = a * zh[i];
-        dzh = ghm * a;
-        dzg = ghm * zh[i] * dact_f(zg[i], act);
-      } else {
-        hm = act_f(zh[i], act);
-        dzh = ghm * dact_f(zh[i], act);
-      }
-      s.a[r][n] = hm * rm;
-      s.b[r][n] = dzh;
-      s.c[r][n] = dzg;
-    }
-  }
-  __syncthreads();
-}
-
-// grid (f-blocks, m-tiles, clients). part: (nfb, C, M, d) fp32;
-// keep: (C, m-tiles, nfb) int32, read by the reduce.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-train_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w_in,
-                 const T* __restrict__ w_gate, const T* __restrict__ w_out,
-                 const float* __restrict__ mask, int* __restrict__ keep,
-                 float* __restrict__ part, int M, int d, int F, int act) {
-  __shared__ Smem s;
-  const int fb = blockIdx.x, mt = blockIdx.y, c = blockIdx.z;
-  const int nfb = gridDim.x, nmt = gridDim.y, C = gridDim.z;
-  const int m0 = mt * MT, rows = min(MT, M - m0), f0 = fb * BN;
-  const size_t dF = (size_t)d * F;
-  const float* mask_c = mask + (size_t)c * M * F;
-
-  const bool kept = tile_kept(mask_c, m0, rows, f0, F);
-  if (threadIdx.x == 0) keep[((size_t)c * nmt + mt) * nfb + fb] = kept;
-  if (!kept) return;
-  recompute<T, false>(s, x + (size_t)c * M * d, nullptr, w_in + c * dF,
-                      w_gate ? w_gate + c * dF : nullptr, nullptr, mask_c,
-                      m0, rows, f0, d, F, act);
-
-  // down product of the kept block: thread (column k, 2 rows)
-  const T* wo = w_out + c * dF + (size_t)f0 * d;
-  const int r0 = (threadIdx.x / 64) * 2;
-  for (int k = threadIdx.x % 64; k < d; k += 64) {
-    float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll 8
-    for (int n = 0; n < BN; ++n) {
-      const float w = rt::to_f(wo[(size_t)n * d + k]);
-      acc0 = fmaf(s.a[r0][n], w, acc0);
-      acc1 = fmaf(s.a[r0 + 1][n], w, acc1);
-    }
-    float* dst = part + (((size_t)fb * C + c) * M + m0 + r0) * d + k;
-    if (r0 < rows) dst[0] = acc0;
-    if (r0 + 1 < rows) dst[d] = acc1;
-  }
-}
-
-// grid (f-blocks, m-tiles, clients); same partial layout as the forward.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-train_dx_kernel(const T* __restrict__ gy, const T* __restrict__ x,
-                const T* __restrict__ w_in, const T* __restrict__ w_gate,
-                const T* __restrict__ w_out, const float* __restrict__ mask,
-                int* __restrict__ keep, float* __restrict__ part,
-                int M, int d, int F, int act) {
-  __shared__ Smem s;
-  const int fb = blockIdx.x, mt = blockIdx.y, c = blockIdx.z;
-  const int nfb = gridDim.x, nmt = gridDim.y, C = gridDim.z;
-  const int m0 = mt * MT, rows = min(MT, M - m0), f0 = fb * BN;
-  const size_t dF = (size_t)d * F;
-  const float* mask_c = mask + (size_t)c * M * F;
-  const T* wi_c = w_in + c * dF;
-  const T* wg_c = w_gate ? w_gate + c * dF : nullptr;
-
-  const bool kept = tile_kept(mask_c, m0, rows, f0, F);
-  if (threadIdx.x == 0) keep[((size_t)c * nmt + mt) * nfb + fb] = kept;
-  if (!kept) return;
-  recompute<T, true>(s, x + (size_t)c * M * d, gy + (size_t)c * M * d, wi_c,
-                     wg_c, w_out + c * dF, mask_c, m0, rows, f0, d, F, act);
-
-  // dx[r][k] = Σ_n dzh[r][n]·W_in[k][f0+n] + dzg[r][n]·W_gate[k][f0+n]:
-  // W_in/W_gate rows staged KC at a time; thread (k, row, half of the
-  // block's neurons), the two halves summed in fixed order
-  const int tid = threadIdx.x, k = tid % KC, r = (tid / KC) % MT;
-  const int half = tid / (KC * MT), nb = half * (BN / 2);
-  float* pair = &s.r.xs[0][0];         // MT*KC floats, free after recompute
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    const int kn = min(KC, d - k0);
-    __syncthreads();
-    for (int e = tid; e < KC * BN; e += THREADS) {
-      const int kk = e / BN, nn = e % BN;
-      const size_t at = (size_t)(k0 + kk) * F + f0 + nn;
-      s.r.wi[kk][nn] = kk < kn ? rt::to_f(wi_c[at]) : 0.f;
-      if (wg_c) s.r.wg[kk][nn] = kk < kn ? rt::to_f(wg_c[at]) : 0.f;
-    }
-    __syncthreads();
-    float acc = 0.f;
-#pragma unroll 8
-    for (int n = nb; n < nb + BN / 2; ++n) {
-      acc = fmaf(s.b[r][n], s.r.wi[k][n], acc);
-      if (wg_c) acc = fmaf(s.c[r][n], s.r.wg[k][n], acc);
-    }
-    if (half == 1) pair[r * KC + k] = acc;
-    __syncthreads();
-    if (half == 0 && r < rows && k < kn)
-      part[(((size_t)fb * C + c) * M + m0 + r) * d + k0 + k] = acc + pair[r * KC + k];
-  }
-}
-
-// out[c][m][k] = Σ over the kept f-blocks of part[fb][c][m][k], f in order.
-template <typename T>
-__global__ void reduce_fb_kernel(const float* __restrict__ part,
-                                 const int* __restrict__ keep,
-                                 T* __restrict__ out, int C, int M, int d,
-                                 int nfb) {
-  const size_t total = (size_t)C * M * d;
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= total) return;
-  const int c = (int)(e / ((size_t)M * d)), m = (int)(e / d % M);
-  const int nmt = (M + MT - 1) / MT;
-  const int* kp = keep + ((size_t)c * nmt + m / MT) * nfb;
-  float acc = 0.f;
-  for (int fb = 0; fb < nfb; ++fb)
-    if (kp[fb]) acc += part[fb * total + e];
-  out[e] = rt::from_f<T>(acc);
-}
+constexpr int LD = BN + 1;       // padded shared-memory row of a weight slab
 
 // ---------------------------------------------------------------------------
 // dW. A (client, f-block) pair's m-tiles are split over G blocks, block q
@@ -683,56 +460,693 @@ cudaError_t launch_dw(const void* gy, const void* x, const void* w_in, const voi
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-cudaError_t reduce(const float* part, const int* keep, void* out, int C,
-                   int M, int d, int nfb, int dtype, cudaStream_t s) {
+
+// ---------------------------------------------------------------------------
+// Forward and dx. A (client, f-block) pair's m-tiles are split over G
+// blocks, block q taking the contiguous m-tiles [q·per, (q+1)·per) (grid
+// (G, nfb, C)). A block first marks which of its m-tiles some row keeps
+// (masks only, whole 128-neuron rows of the mask a warp-wide load; a block
+// none of whose tiles is kept reads no weight and returns), then stages
+// the f-block's slab, W_in and W_gate rows (stride LDW) and W_out rows
+// (stride ldo), as they lie, and keeps it while its warps take its m-tiles.
+// Where T is fp32 and d a multiple of 4 the slab lands by 16-byte cp.async
+// in FD_CHUNKS pieces of rows of d (on an H100, 64 KB in ~2 k cycles by
+// 16-byte copies, ~8 k by 4-byte ones), and the groups sum their first
+// m-tiles' pre-activations a piece at a time as the pieces land.
+// A group of FD_WT = 4 warps takes one m-tile at a time, warp s owning the
+// f-block's neurons 32s .. 32s + 31, a neuron a lane. For a kept m-tile the
+// group:
+//   1. has x (and gy) of its 8 rows in its buffer, transposed (cp.async'd
+//      there while it computed its last m-tile);
+//   2. each lane sums its neuron's pre-activations for all 8 rows in
+//      registers (zh, zg, and for dx gh = gy·W_outᵀ), serially over k;
+//   3. applies the mask and activation (the forward rounds the hidden
+//      activation to T) and writes h, or (dzh, dzg), transposed;
+//   4. each warp sums the output over its 32 neurons, serially, 64 columns
+//      at a time (lane l columns l and l + 32 of all 8 rows):
+//        forward y  = h·W_out[f-block],   dx = dzh·W_inᵀ (+ dzg·W_gateᵀ,
+//      interleaved per neuron); the group's 4 sums are added in warp order
+//      (p0 + p1 + p2 + p3) and written as the f-block's fp32 partial.
+// Every shared read is free of bank conflicts: W_in rows and W_out rows
+// are read across lanes along a row, or as 16-byte pieces at a stride of an
+// odd number of 16-byte units (LDW = 132 floats, ldo = 4 mod 8); x, h and
+// dz are broadcasts. A broadcast costs a cycle a value (measured on an
+// H100: a 16-byte broadcast load takes as long as four 4-byte ones), so a k
+// step costs 9 shared cycles for 8 FMAs: the products are bound by shared
+// memory, not by the FMA rate.
+// train_fd_reduce_kernel (a programmatic dependent) then adds the kept
+// f-blocks' partials in f order: out = ((0 + p0) + p1) + ... Where the slab
+// does not fit (e.g. d 200, F 384, gated: 310 KB), it is restaged FD_KC rows
+// of d at a time, the groups taking their m-tiles in rounds with a block
+// barrier around each chunk.
+constexpr int FD_THREADS = 256;
+constexpr int FD_WARPS = FD_THREADS / 32;
+constexpr int FD_WT = 4;                  // warps an m-tile (a group)
+constexpr int FD_NG = FD_WARPS / FD_WT;   // groups a block
+constexpr int FD_KC = 32;                 // rows of d of a restaged chunk
+constexpr int FD_CHUNKS = 4;              // pieces a resident slab lands in
+constexpr int FD_COLS = 64;               // output columns a warp sums at once
+constexpr int LDW = BN + 4;               // a W_in / W_gate row in shared memory
+static_assert(FD_WT * 32 == BN, "a neuron a lane");
+
+struct FdGeom {
+  int G, per;         // blocks per (client, f-block); m-tiles a block
+  int nfb;            // f-blocks
+  int kch;            // rows of d staged at once (d where the slab is resident)
+  int resident;       // the slab is staged once per block
+  int ldo;            // a W_out row in shared memory: kch rounded up, 4 mod 8
+  int region;         // floats of the slab: W_in, W_out, W_gate
+  int slot;           // floats of an x (and gy) slot of a group's buffer
+  int gbuf;           // floats of a group's buffer
+};
+
+// A group's buffer: two slots of x (and gy) of an m-tile transposed, (kch,
+// MT) each (the next m-tile's lands while the group computes this one); h
+// or dzh (and dzg) transposed, (BN, MT) each; the warps' output sums
+// (FD_WT, MT, FD_COLS).
+FdGeom fd_geom(int G, int M, int d, int F, bool bwd, bool gated) {
+  FdGeom g{};
+  const int nmt = (M + MT - 1) / MT;
+  g.G = G < 1 ? 1 : G;
+  g.per = (nmt + g.G - 1) / g.G;
+  g.nfb = F / BN;
+  auto set = [&](int kch) {
+    g.kch = kch;
+    g.ldo = (kch + 3) / 4 * 4;
+    if (g.ldo / 4 % 2 == 0) g.ldo += 4;
+    g.region = (gated ? 2 : 1) * kch * LDW + BN * g.ldo;
+    g.slot = ((bwd ? 2 : 1) * kch * MT + 3) / 4 * 4;
+    g.gbuf = 2 * g.slot + (bwd && gated ? 2 : 1) * BN * MT + FD_WT * MT * FD_COLS;
+  };
+  set(d);
+  g.resident = sizeof(float) * ((size_t)g.region + (size_t)FD_NG * g.gbuf) +
+                   sizeof(int) * (size_t)g.per <= MAX_SMEM;
+  if (!g.resident) set(FD_KC);
+  return g;
+}
+
+inline size_t fd_smem(const FdGeom& g) {
+  return sizeof(float) * ((size_t)g.region + (size_t)FD_NG * g.gbuf) + sizeof(int) * g.per;
+}
+
+__device__ __forceinline__ void ld8(const float* p, float (&v)[MT]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void st8(float* p, const float (&v)[MT]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The four warps of group `grp` meet (named barrier grp + 1; 0 is
+// __syncthreads').
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "r"(32 * FD_WT) : "memory");
+}
+
+// cp.async into shared memory (4 or 16 bytes), and its group fences.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+__device__ __forceinline__ void cp_wait_upto3(int n) {
+  static_assert(FD_CHUNKS <= 4, "the pieces of the slab a wait can leave pending");
+  if (n >= 3) cp_wait<3>();
+  else if (n == 2) cp_wait<2>();
+  else if (n == 1) cp_wait<1>();
+  else cp_wait<0>();
+}
+
+// Rows [c0, c0 + kn) of d of the f-block's W_in and W_gate into shared
+// memory at rows [k0, k0 + kn) (stride LDW). fp32: 16-byte cp.async, which
+// the caller commits and waits for; otherwise loads and stores, 8 in
+// flight a thread.
+template <typename T, bool GATED>
+__device__ __forceinline__ void fd_stage_in(float* __restrict__ slab, const FdGeom& g,
+                                            const T* __restrict__ wi_c,
+                                            const T* __restrict__ wg_c, int c0, int kn, int k0,
+                                            int f0, int F) {
+  float* wi = slab + k0 * LDW;
+  float* wg = slab + g.kch * LDW + BN * g.ldo + k0 * LDW;
+  if constexpr (std::is_same<T, float>::value) {
+    for (int e = threadIdx.x; e < kn * (BN / 4); e += FD_THREADS) {
+      const int k = e / (BN / 4), v = e % (BN / 4) * 4;
+      cp_async16(wi + k * LDW + v, wi_c + (size_t)(c0 + k) * F + f0 + v);
+      if (GATED) cp_async16(wg + k * LDW + v, wg_c + (size_t)(c0 + k) * F + f0 + v);
+    }
+    return;
+  }
+  for (int b0 = threadIdx.x; b0 < kn * BN; b0 += FD_THREADS * 8) {
+    float a[8], q[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = b0 + u * FD_THREADS;
+      if (e < kn * BN) {
+        const size_t at = (size_t)(c0 + e / BN) * F + f0 + e % BN;
+        a[u] = rt::to_f(wi_c[at]);
+        if (GATED) q[u] = rt::to_f(wg_c[at]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = b0 + u * FD_THREADS;
+      if (e < kn * BN) {
+        wi[e / BN * LDW + e % BN] = a[u];
+        if (GATED) wg[e / BN * LDW + e % BN] = q[u];
+      }
+    }
+  }
+}
+
+// Columns [c0, c0 + kn) of the f-block's 128 W_out rows into shared memory
+// at columns from 0 (stride g.ldo). fp32 with d and c0 multiples of 4:
+// 16-byte cp.async (the whole of d is one contiguous run of 128·d floats),
+// which the caller commits and waits for; otherwise loads and stores.
+template <typename T>
+__device__ __forceinline__ void fd_stage_out(float* __restrict__ slab, const FdGeom& g,
+                                             const T* __restrict__ wo_c, int c0, int kn, int f0,
+                                             int d) {
+  float* wo = slab + g.kch * LDW;
+  if constexpr (std::is_same<T, float>::value) {
+    if (d % 4 == 0 && c0 % 4 == 0) {
+      const int kv = kn / 4;            // kn is a multiple of 4 here
+      for (int e = threadIdx.x; e < BN * kv; e += FD_THREADS) {
+        const int n = e / kv, v = e % kv * 4;
+        cp_async16(wo + n * g.ldo + v, wo_c + (size_t)(f0 + n) * d + c0 + v);
+      }
+      return;
+    }
+  }
+  for (int b0 = threadIdx.x; b0 < kn * BN; b0 += FD_THREADS * 8) {
+    float o[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = b0 + u * FD_THREADS;
+      if (e < kn * BN) o[u] = rt::to_f(wo_c[(size_t)(f0 + e / kn) * d + c0 + e % kn]);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = b0 + u * FD_THREADS;
+      if (e < kn * BN) wo[e / kn * g.ldo + e % kn] = o[u];
+    }
+  }
+}
+
+// Rows [m0, m0 + rows) of a (·, d) matrix at columns [c0, c0 + kn) into
+// buf[k][MT], transposed, rows past `rows` as zeros: by the group's 128
+// threads (gt this thread's rank). fp32: 4-byte cp.async, landing by the
+// cp_wait that covers the commit that follows; otherwise loads and stores.
+template <typename T>
+__device__ __forceinline__ void rows_t(float* __restrict__ buf, const T* __restrict__ src,
+                                       int m0, int rows, int c0, int kn, int d, int gt) {
+  for (int e = gt; e < MT * kn; e += 32 * FD_WT) {
+    const int r = e % MT;
+    const T* p = src + (size_t)(m0 + r) * d + c0 + e / MT;
+    if constexpr (std::is_same<T, float>::value) {
+      if (r < rows) cp_async4(buf + e, p);
+      else buf[e] = 0.f;
+    } else {
+      buf[e] = r < rows ? rt::to_f(*p) : 0.f;
+    }
+  }
+}
+
+// Step 2: the lane's pre-activations (neuron n) of all 8 rows over rows
+// [k0, k1) of d of the staged slab, serially: per k two 16-byte broadcasts
+// of x (and of gy) and a weight feed 8 FMAs a matrix; W_out row n is read
+// 4 columns at a time.
+template <bool BWD, bool GATED>
+__device__ __forceinline__ void warp_pre(float (&zh)[MT], float (&zg)[MT], float (&gh)[MT],
+                                         const float* __restrict__ xs,
+                                         const float* __restrict__ gs,
+                                         const float* __restrict__ slab, const FdGeom& g, int k0,
+                                         int k1, int n) {
+  const float* wi = slab + n;
+  const float* wo = slab + g.kch * LDW + n * g.ldo;
+  const float* wg = slab + g.kch * LDW + BN * g.ldo + n;
+  auto step = [&](int k, float b) {
+    float xv[MT], gv[MT];
+    ld8(xs + k * MT, xv);
+    if (BWD) ld8(gs + k * MT, gv);
+    const float a = wi[k * LDW], cg = GATED ? wg[k * LDW] : 0.f;
+#pragma unroll
+    for (int r = 0; r < MT; ++r) {
+      zh[r] = fmaf(xv[r], a, zh[r]);
+      if (GATED) zg[r] = fmaf(xv[r], cg, zg[r]);
+      if (BWD) gh[r] = fmaf(gv[r], b, gh[r]);
+    }
+  };
+  int k = k0;
+  if (BWD) {
+#pragma unroll 2
+    for (; k + 4 <= k1; k += 4) {
+      const float4 b = lds4(wo + k);
+      step(k, b.x);
+      step(k + 1, b.y);
+      step(k + 2, b.z);
+      step(k + 3, b.w);
+    }
+  }
+#pragma unroll 4
+  for (; k < k1; ++k) step(k, BWD ? wo[k] : 0.f);
+}
+
+// Step 3: mask and activation of the lane's neuron n into hb, transposed
+// (n, MT):
+//   forward: h = round_T(act-and-gate(z) ⊙ mask)
+//   dx:      dzh, and dzg BN·MT floats after it      (repro _bwd_core, fp32)
+template <typename T, bool BWD, bool GATED>
+__device__ __forceinline__ void warp_finish(float* __restrict__ hb, const float (&zh)[MT],
+                                            const float (&zg)[MT], const float (&gh)[MT],
+                                            const float (&rm)[MT], int n, int act) {
+  float h[MT], h2[MT];
+#pragma unroll
+  for (int r = 0; r < MT; ++r) {
+    if (!BWD) {
+      const float v = GATED ? act_f(zg[r], act) * zh[r] : act_f(zh[r], act);
+      h[r] = rt::to_f(rt::from_f<T>(rm[r] != 0.f ? v * rm[r] : 0.f));
+    } else if (GATED) {
+      const float ghm = gh[r] * rm[r], a = act_f(zg[r], act);
+      h[r] = ghm * a;
+      h2[r] = ghm * zh[r] * dact_f(zg[r], act);
+    } else {
+      h[r] = gh[r] * rm[r] * dact_f(zh[r], act);
+    }
+  }
+  st8(hb + n * MT, h);
+  if (BWD && GATED) st8(hb + (BN + n) * MT, h2);
+  __syncwarp();
+}
+
+// Step 4: columns cc + lane and cc + lane + 32 (< kn) of the staged slab,
+// all 8 rows, serially over the warp's neurons [nb, nb + 32). dx reads the
+// W_in (and W_gate) rows 4 neurons at a time.
+template <bool BWD, bool GATED>
+__device__ __forceinline__ void warp_out(float (&acc)[MT][2], const float* __restrict__ hb,
+                                         const float* __restrict__ slab, const FdGeom& g,
+                                         int kn, int cc, int nb) {
+  const int lane = threadIdx.x & 31;
+  const int c0 = min(cc + lane, kn - 1), c1 = min(cc + lane + 32, kn - 1);
+#pragma unroll
+  for (int r = 0; r < MT; ++r) acc[r][0] = acc[r][1] = 0.f;
+  if (!BWD) {
+    const float* wo = slab + g.kch * LDW;
+#pragma unroll 8
+    for (int n = nb; n < nb + 32; ++n) {
+      float h[MT];
+      ld8(hb + n * MT, h);
+      const float a0 = wo[n * g.ldo + c0], a1 = wo[n * g.ldo + c1];
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        acc[r][0] = fmaf(h[r], a0, acc[r][0]);
+        acc[r][1] = fmaf(h[r], a1, acc[r][1]);
+      }
+    }
+    return;
+  }
+  const float* wg = slab + g.kch * LDW + BN * g.ldo;
+#pragma unroll 2
+  for (int n = nb; n < nb + 32; n += 4) {
+    const float4 i0 = lds4(slab + c0 * LDW + n), i1 = lds4(slab + c1 * LDW + n);
+    float4 q0 = i0, q1 = i1;
+    if (GATED) {
+      q0 = lds4(wg + c0 * LDW + n);
+      q1 = lds4(wg + c1 * LDW + n);
+    }
+    const float a0[4] = {i0.x, i0.y, i0.z, i0.w}, a1[4] = {i1.x, i1.y, i1.z, i1.w};
+    const float b0[4] = {q0.x, q0.y, q0.z, q0.w}, b1[4] = {q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float h[MT], z[MT];
+      ld8(hb + (n + u) * MT, h);
+      if (GATED) ld8(hb + (BN + n + u) * MT, z);
+#pragma unroll
+      for (int r = 0; r < MT; ++r) {
+        acc[r][0] = fmaf(h[r], a0[u], acc[r][0]);
+        if (GATED) acc[r][0] = fmaf(z[r], b0[u], acc[r][0]);
+        acc[r][1] = fmaf(h[r], a1[u], acc[r][1]);
+        if (GATED) acc[r][1] = fmaf(z[r], b1[u], acc[r][1]);
+      }
+    }
+  }
+}
+
+// The group's output of columns [cc, cc + 64): the four warps' sums added
+// in warp order through `op`; element i of group thread gt is row (gt +
+// 128i) / 64, column cc + (gt + 128i) % 64. Then its rows < rows and
+// columns < kn go to dst (a row-major (·, d) matrix at the tile's first
+// row and the chunk's first column).
+__device__ __forceinline__ void group_put(float* __restrict__ dst, const float (&acc)[MT][2],
+                                          float* __restrict__ op, int grp, int s, int gt,
+                                          int rows, int d, int kn, int cc) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < MT; ++r) {
+    op[(s * MT + r) * FD_COLS + lane] = acc[r][0];
+    op[(s * MT + r) * FD_COLS + lane + 32] = acc[r][1];
+  }
+  group_sync(grp);
+#pragma unroll
+  for (int i = 0; i < MT * FD_COLS / (32 * FD_WT); ++i) {
+    const int e = gt + i * 32 * FD_WT, r = e / FD_COLS, col = cc + e % FD_COLS;
+    float v = op[e];
+#pragma unroll
+    for (int p = 1; p < FD_WT; ++p) v += op[p * MT * FD_COLS + e];
+    if (r < rows && col < kn) dst[(size_t)r * d + col] = v;
+  }
+  group_sync(grp);                      // op is consumed
+}
+
+// grid (G, nfb, C), FD_THREADS threads. part: (nfb, C, M, d) fp32; keep:
+// (C, m-tiles, nfb) int32, both read by the reduce.
+template <typename T, bool BWD, bool GATED>
+__device__ __forceinline__ void fd_body(const T* __restrict__ gy, const T* __restrict__ x,
+                                        const T* __restrict__ w_in, const T* __restrict__ w_gate,
+                                        const T* __restrict__ w_out,
+                                        const float* __restrict__ mask, int* __restrict__ keep,
+                                        float* __restrict__ part, const FdGeom& g, int M, int d,
+                                        int F, int act) {
+  extern __shared__ __align__(16) float dsm[];
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int q = blockIdx.x, fb = blockIdx.y, c = blockIdx.z, C = gridDim.z, tid = threadIdx.x;
+  const int grp = tid / (32 * FD_WT), s = tid / 32 % FD_WT, gt = tid % (32 * FD_WT);
+  const int nb = 32 * s, n = nb + (tid & 31);      // the warp's neurons, the lane's
+  const int f0 = fb * BN;
+  const int nmt = (M + MT - 1) / MT, mt0 = q * g.per, mt1 = min(mt0 + g.per, nmt);
+  const int nbk = mt1 > mt0 ? mt1 - mt0 : 0;
+  const size_t dF = (size_t)d * F;
+  const float* mask_c = mask + (size_t)c * M * F;
+  const T* x_c = x + (size_t)c * M * d;
+  const T* g_c = BWD ? gy + (size_t)c * M * d : nullptr;
+  const T* wi_c = w_in + c * dF;
+  const T* wg_c = GATED ? w_gate + c * dF : nullptr;
+  const T* wo_c = w_out + c * dF;
+  float* xb = dsm + g.region + (size_t)grp * g.gbuf;   // x (and gy) slots 0 and 1
+  float* hb = xb + 2 * g.slot;
+  float* op = hb + (BWD && GATED ? 2 : 1) * BN * MT;
+  int* kept = reinterpret_cast<int*>(dsm + g.region + (size_t)FD_NG * g.gbuf);
+  float* part_c = part + ((size_t)fb * C + c) * M * d;
+
+  // which of this block's m-tiles does some row keep? A warp reads whole
+  // 128-neuron rows of the mask, 16 bytes a lane, 8 rows in flight.
+  for (int i = tid; i < nbk; i += FD_THREADS) kept[i] = 0;
+  __syncthreads();
+  bool mine = false;
+  const int rows_b = nbk ? min(nbk * MT, M - mt0 * MT) : 0;
+  const float* mrow = mask_c + (size_t)mt0 * MT * F + f0 + 4 * (tid % 32);
+  for (int r0 = tid / 32; r0 < rows_b; r0 += FD_WARPS * 8) {
+    float4 mv[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int r = r0 + u * FD_WARPS;
+      mv[u] = r < rows_b ? __ldg(reinterpret_cast<const float4*>(mrow + (size_t)r * F))
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const bool nz = mv[u].x != 0.f || mv[u].y != 0.f || mv[u].z != 0.f || mv[u].w != 0.f;
+      if (nz) kept[(r0 + u * FD_WARPS) / MT] = 1;
+      mine |= nz;
+    }
+  }
+  const bool any = __syncthreads_or(mine);
+  for (int i = tid; i < nbk; i += FD_THREADS)
+    keep[((size_t)c * nmt + mt0 + i) * g.nfb + fb] = kept[i];
+  if (!any) return;
+  auto mask_of = [&](float (&rm)[MT], int m0, int rows) {
+#pragma unroll
+    for (int r = 0; r < MT; ++r) rm[r] = r < rows ? mask_c[(size_t)(m0 + r) * F + f0 + n] : 0.f;
+  };
+
+  if (g.resident) {
+    // the group's kept m-tiles mt0 + grp + i·FD_NG in order, each one's x
+    // (and gy) landing in the other slot while the group computes the last
+    auto next = [&](int mt) {
+      while (mt < mt1 && !kept[mt - mt0]) mt += FD_NG;
+      return mt;
+    };
+    auto fetch = [&](int mt, float* b) {
+      const int rows = min(MT, M - mt * MT);
+      rows_t<T>(b, x_c, mt * MT, rows, 0, d, d, gt);
+      if (BWD) rows_t<T>(b + d * MT, g_c, mt * MT, rows, 0, d, d, gt);
+    };
+    // the slab's pieces: W_in (and W_gate) rows a quarter of d each, and
+    // W_out whole with the first piece (dx: needed by the pre-activations)
+    // or the last (forward: needed only by the output)
+    const int kc = ((d + FD_CHUNKS - 1) / FD_CHUNKS + 3) / 4 * 4;   // rows of d a piece
+    int mt = next(mt0 + grp);
+    if (mt < mt1) fetch(mt, xb);
+    cp_commit();
+#pragma unroll
+    for (int i = 0; i < FD_CHUNKS; ++i) {
+      const int k0 = min(d, i * kc), k1 = min(d, i * kc + kc);
+      if (BWD && i == 0) fd_stage_out<T>(dsm, g, wo_c, 0, d, f0, d);
+      if (k1 > k0) fd_stage_in<T, GATED>(dsm, g, wi_c, wg_c, k0, k1 - k0, k0, f0, F);
+      if (!BWD && i == FD_CHUNKS - 1) fd_stage_out<T>(dsm, g, wo_c, 0, d, f0, d);
+      cp_commit();
+    }
+    for (int t = 0; mt < mt1 || t == 0; ++t) {
+      const bool have = mt < mt1;
+      const int m0 = mt * MT, rows = have ? min(MT, M - m0) : 0;
+      const float* xs = xb + (t & 1) * g.slot;
+      float rm[MT], zh[MT] = {}, zg[MT] = {}, gh[MT] = {};
+      if (have) mask_of(rm, m0, rows);
+      int nxt;
+      if (t == 0) {                     // every thread waits for each piece of the slab
+#pragma unroll
+        for (int i = 0; i < FD_CHUNKS; ++i) {
+          cp_wait_upto3(FD_CHUNKS - 1 - i);
+          __syncthreads();
+          if (have)
+            warp_pre<BWD, GATED>(zh, zg, gh, xs, xs + d * MT, dsm, g, min(d, i * kc),
+                                 min(d, i * kc + kc), n);
+        }
+        if (!have) break;
+        nxt = next(mt + FD_NG);
+        if (nxt < mt1) fetch(nxt, xb + g.slot);
+        cp_commit();
+      } else {
+        nxt = next(mt + FD_NG);
+        if (nxt < mt1) fetch(nxt, xb + ((t + 1) & 1) * g.slot);
+        cp_commit();
+        cp_wait<1>();                   // this thread's copies of tile mt have landed,
+        group_sync(grp);                // and the group's
+        warp_pre<BWD, GATED>(zh, zg, gh, xs, xs + d * MT, dsm, g, 0, d, n);
+      }
+      warp_finish<T, BWD, GATED>(hb, zh, zg, gh, rm, n, act);
+      for (int cc = 0; cc < d; cc += FD_COLS) {
+        float acc[MT][2];
+        warp_out<BWD, GATED>(acc, hb, dsm, g, d, cc, nb);
+        group_put(part_c + (size_t)m0 * d, acc, op, grp, s, gt, rows, d, d, cc);
+      }
+      group_sync(grp);                  // slot t & 1 is consumed
+      mt = nxt;
+    }
+    return;
+  }
+
+  // restaged: the groups take the block's m-tiles in rounds; each chunk of
+  // the slab is staged by the whole block
+  for (int base = mt0; base < mt1; base += FD_NG) {
+    bool round_any = false;             // block-uniform
+    for (int i = base - mt0; i < min(base + FD_NG, mt1) - mt0; ++i) round_any |= kept[i] != 0;
+    if (!round_any) continue;
+    const int mt = base + grp;
+    const bool on = mt < mt1 && kept[mt - mt0];
+    const int m0 = mt * MT, rows = on ? min(MT, M - m0) : 0;
+    float rm[MT], zh[MT] = {}, zg[MT] = {}, gh[MT] = {};
+    if (on) mask_of(rm, m0, rows);
+    for (int c0 = 0; c0 < d; c0 += g.kch) {
+      const int kn = min(g.kch, d - c0);
+      __syncthreads();                  // the previous chunk is consumed
+      fd_stage_in<T, GATED>(dsm, g, wi_c, wg_c, c0, kn, 0, f0, F);
+      if (BWD) fd_stage_out<T>(dsm, g, wo_c, c0, kn, f0, d);
+      if (on) {
+        rows_t<T>(xb, x_c, m0, rows, c0, kn, d, gt);
+        if (BWD) rows_t<T>(xb + g.kch * MT, g_c, m0, rows, c0, kn, d, gt);
+      }
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (on) warp_pre<BWD, GATED>(zh, zg, gh, xb, xb + g.kch * MT, dsm, g, 0, kn, n);
+    }
+    if (on) warp_finish<T, BWD, GATED>(hb, zh, zg, gh, rm, n, act);
+    for (int c0 = 0; c0 < d; c0 += g.kch) {
+      const int kn = min(g.kch, d - c0);
+      __syncthreads();
+      if (BWD) fd_stage_in<T, GATED>(dsm, g, wi_c, wg_c, c0, kn, 0, f0, F);
+      else fd_stage_out<T>(dsm, g, wo_c, c0, kn, f0, d);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (on)
+        for (int cc = 0; cc < kn; cc += FD_COLS) {
+          float acc[MT][2];
+          warp_out<BWD, GATED>(acc, hb, dsm, g, kn, cc, nb);
+          group_put(part_c + (size_t)m0 * d + c0, acc, op, grp, s, gt, rows, d, kn, cc);
+        }
+    }
+  }
+}
+
+template <typename T, bool GATED>
+__global__ void __launch_bounds__(FD_THREADS, GATED ? 1 : 2)
+train_fwd_kernel(const T* __restrict__ gy, const T* __restrict__ x, const T* __restrict__ w_in,
+                 const T* __restrict__ w_gate, const T* __restrict__ w_out,
+                 const float* __restrict__ mask, int* __restrict__ keep,
+                 float* __restrict__ part, FdGeom g, int M, int d, int F, int act) {
+  fd_body<T, false, GATED>(gy, x, w_in, w_gate, w_out, mask, keep, part, g, M, d, F, act);
+}
+
+template <typename T, bool GATED>
+__global__ void __launch_bounds__(FD_THREADS, GATED ? 1 : 2)
+train_dx_kernel(const T* __restrict__ gy, const T* __restrict__ x, const T* __restrict__ w_in,
+                const T* __restrict__ w_gate, const T* __restrict__ w_out,
+                const float* __restrict__ mask, int* __restrict__ keep,
+                float* __restrict__ part, FdGeom g, int M, int d, int F, int act) {
+  fd_body<T, true, GATED>(gy, x, w_in, w_gate, w_out, mask, keep, part, g, M, d, F, act);
+}
+
+// out[c][m][k] = Σ over the kept f-blocks of part[fb][c][m][k], f in order,
+// 4 consecutive elements a thread. A programmatic dependent of
+// train_fwd_kernel / train_dx_kernel.
+template <typename T>
+__global__ void __launch_bounds__(256)
+train_fd_reduce_kernel(const float* __restrict__ part, const int* __restrict__ keep,
+                       T* __restrict__ out, int C, int M, int d, int nfb) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t total = (size_t)C * M * d;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  RT_DISPATCH(dtype, T, {
-    reduce_fb_kernel<T><<<blocks, 256, 0, s>>>(part, keep, static_cast<T*>(out),
-                                              C, M, d, nfb);
-  });
-  return cudaGetLastError();
+  const size_t e0 = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (e0 >= total) return;
+  const int nmt = (M + MT - 1) / MT;
+  if (d % 4 == 0) {                     // the 4 elements lie in one row
+    const int c = (int)(e0 / ((size_t)M * d)), m = (int)(e0 / d % M);
+    const int* kp = keep + ((size_t)c * nmt + m / MT) * nfb;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int fb = 0; fb < nfb; ++fb)
+      if (kp[fb]) {
+        const float4 p = *reinterpret_cast<const float4*>(part + fb * total + e0);
+        acc.x += p.x;
+        acc.y += p.y;
+        acc.z += p.z;
+        acc.w += p.w;
+      }
+    out[e0] = rt::from_f<T>(acc.x);
+    out[e0 + 1] = rt::from_f<T>(acc.y);
+    out[e0 + 2] = rt::from_f<T>(acc.z);
+    out[e0 + 3] = rt::from_f<T>(acc.w);
+    return;
+  }
+  for (size_t e = e0; e < e0 + 4 && e < total; ++e) {
+    const int c = (int)(e / ((size_t)M * d)), m = (int)(e / d % M);
+    const int* kp = keep + ((size_t)c * nmt + m / MT) * nfb;
+    float acc = 0.f;
+    for (int fb = 0; fb < nfb; ++fb)
+      if (kp[fb]) acc += part[fb * total + e];
+    out[e] = rt::from_f<T>(acc);
+  }
+}
+
+template <typename T, bool BWD, bool GATED>
+cudaError_t launch_fd(const void* gy, const void* x, const void* w_in, const void* w_gate,
+                      const void* w_out, const float* mask, int* keep, float* part, void* out,
+                      int C, int M, int d, int F, int act, int G, cudaStream_t s) {
+  const FdGeom g = fd_geom(G, M, d, F, BWD, GATED);
+  if (C == 0 || M == 0 || d == 0) return cudaSuccess;
+  if (g.nfb == 0 || keep == nullptr || part == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = fd_smem(g);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  auto kern = BWD ? train_dx_kernel<T, GATED> : train_fwd_kernel<T, GATED>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(g.G, g.nfb, C), FD_THREADS, smem, s>>>(
+      static_cast<const T*>(gy), static_cast<const T*>(x), static_cast<const T*>(w_in),
+      static_cast<const T*>(w_gate), static_cast<const T*>(w_out), mask, keep, part, g, M, d, F,
+      act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)C * M * d;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((total + 1023) / 1024));
+  cfg.blockDim = dim3(256);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, train_fd_reduce_kernel<T>, static_cast<const float*>(part),
+                           static_cast<const int*>(keep), static_cast<T*>(out), C, M, d, g.nfb);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, bool BWD>
+cudaError_t dispatch_fd(const void* gy, const void* x, const void* w_in, const void* w_gate,
+                        const void* w_out, const float* mask, int* keep, float* part, void* out,
+                        int C, int M, int d, int F, int act, int G, cudaStream_t s) {
+  return w_gate ? launch_fd<T, BWD, true>(gy, x, w_in, w_gate, w_out, mask, keep, part, out, C,
+                                          M, d, F, act, G, s)
+                : launch_fd<T, BWD, false>(gy, x, w_in, w_gate, w_out, mask, keep, part, out, C,
+                                           M, d, F, act, G, s);
 }
 
 }  // namespace
 
 // All pointers are device pointers of row-major arrays; x, gy, the weights
-// and the outputs are of type `dtype`, mask is fp32; w_gate (and dw_gate)
-// may be null (ungated). Scratch from the caller: keep (C, ceil(M/8), F/128)
-// int32 and part (F/128, C, M, d) fp32. F % 128 == 0. Each returns
+// and the outputs are of type `dtype` (16-byte aligned), mask is fp32;
+// w_gate (and dw_gate) may be null (ungated). F % 128 == 0. Each returns
 // cudaGetLastError() after its launches; none allocates or synchronises.
+//
+// Forward and dx: G blocks share each (client, f-block) pair's m-tiles; the
+// f-blocks' fp32 partials go through keep (C, ceil(M/8), F/128) int32 and
+// part (F/128, C, M, d) fp32 to the reduce.
 extern "C" int masked_ffn_train_fwd_launch(
     const void* x, const void* w_in, const void* w_gate, const void* w_out,
     const float* mask, int* keep, float* part, void* y,
-    int C, int M, int d, int F, int act, int dtype, void* stream) {
+    int C, int M, int d, int F, int act, int dtype, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nfb = F / BN, nmt = (M + MT - 1) / MT;
+  cudaError_t err = cudaErrorInvalidValue;
   RT_DISPATCH(dtype, T, {
-    train_fwd_kernel<T><<<dim3(nfb, nmt, C), THREADS, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w_in),
-        static_cast<const T*>(w_gate), static_cast<const T*>(w_out), mask,
-        keep, part, M, d, F, act);
+    err = dispatch_fd<T, false>(nullptr, x, w_in, w_gate, w_out, mask, keep, part, y, C, M, d,
+                                F, act, G, s);
   });
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce(part, keep, y, C, M, d, nfb, dtype, s);
+  return err;
 }
 
 extern "C" int masked_ffn_dx_launch(
     const void* gy, const void* x, const void* w_in, const void* w_gate,
     const void* w_out, const float* mask, int* keep, float* part, void* dx,
-    int C, int M, int d, int F, int act, int dtype, void* stream) {
+    int C, int M, int d, int F, int act, int dtype, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nfb = F / BN, nmt = (M + MT - 1) / MT;
+  cudaError_t err = cudaErrorInvalidValue;
   RT_DISPATCH(dtype, T, {
-    train_dx_kernel<T><<<dim3(nfb, nmt, C), THREADS, 0, s>>>(
-        static_cast<const T*>(gy), static_cast<const T*>(x),
-        static_cast<const T*>(w_in), static_cast<const T*>(w_gate),
-        static_cast<const T*>(w_out), mask, keep, part, M, d, F, act);
+    err = dispatch_fd<T, true>(gy, x, w_in, w_gate, w_out, mask, keep, part, dx, C, M, d, F,
+                               act, G, s);
   });
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce(part, keep, dx, C, M, d, nfb, dtype, s);
+  return err;
+}
+
+// Whether the forward (bwd = 0) or dx (bwd = 1) keeps the whole f-block
+// slab resident in shared memory at this shape and split (1), or restages
+// it a chunk of rows of d at a time (0).
+extern "C" int masked_ffn_fd_resident(int M, int d, int F, int gated, int bwd, int G) {
+  return fd_geom(G, M, d, F, bwd != 0, gated != 0).resident;
 }
 
 // dW of the training form. G blocks share each (client, f-block) pair's

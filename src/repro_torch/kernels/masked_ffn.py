@@ -43,6 +43,10 @@ COVER = 1                      # blocks wanted per SM in each pass
 # the dW kernel's launch shape (dw_launch_geometry)
 DW_GROUPS = 16                 # most blocks one (client, f-block)'s m-tiles split over
 DW_ROWS = 64                   # rows of d a dW block covers (DW_DK)
+# the forward and dx kernels' launch shape (fwd_dx_launch_geometry)
+FD_WARPS = 8                   # warps a block has (FD_WARPS)
+FD_WT = 4                      # warps an m-tile takes, 32 of its 128 neurons each (FD_WT)
+FD_COVER = 1                   # blocks wanted per SM
 
 _ACTS = {"relu": torch.relu,
          "relu2": lambda h: torch.square(torch.relu(h)),
@@ -298,47 +302,73 @@ def _check_train(name, x, w_in, w_out, row_mask, w_gate, gy=None):
     return dtype, dev, C, M, d, w_in.shape[2]
 
 
-def _partials(dev, C, M, d, Fh):
-    nfb = Fh // BLOCK_NEURONS
-    keep = torch.empty((C, -(-M // 8), nfb), dtype=torch.int32, device=dev)
-    part = torch.empty((nfb, C, M, d), dtype=torch.float32, device=dev)
-    return keep, part
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch_train_fwd(x, w_in, w_out, row_mask, w_gate, act):
-    dtype, dev, C, M, d, Fh = _check_train("masked_ffn_train_fwd", x, w_in,
-                                           w_out, row_mask, w_gate)
+def fwd_dx_launch_geometry(C, M, d, F, n_sm=132):
+    """How the forward and dx kernels launch for C clients of M rows, width
+    d and F hidden neurons on a card of ``n_sm`` SMs: each (client, f-block)
+    pair's ``m_tiles`` 8-row m-tiles are split over ``groups`` blocks of
+    ``m_tiles_per_block`` contiguous m-tiles (as many as give the SMs
+    FD_COVER blocks each, one a pair where the pairs fill them already), a
+    block's ``warps`` warps taking them ``warps_per_m_tile`` warps to an
+    m-tile at a time; ``blocks`` in all, ``grid`` (groups, F/128, C). Each
+    block writes an fp32 partial a f-block, and a second kernel adds them in
+    f order."""
+    nmt, nfb = -(-M // 8), F // BLOCK_NEURONS
+    pairs = C * nfb
+    per = -(-nmt // max(1, min(nmt, -(-FD_COVER * n_sm // max(pairs, 1)))))
+    groups = -(-nmt // per)
+    return {"groups": groups, "m_tiles": nmt, "m_tiles_per_block": per, "warps": FD_WARPS,
+            "warps_per_m_tile": FD_WT, "blocks": groups * pairs, "grid": (groups, nfb, C)}
+
+
+def fd_slab_resident(M, d, F, gated, bwd, groups):
+    """Whether the forward (``bwd`` False) or dx kernel keeps each
+    f-block's weight slab resident in shared memory for the block's m-tiles
+    at this shape and split, or restages it 32 rows of d at a time (the
+    kernel's own reckoning; builds the kernels)."""
     lib = _build.load("masked_ffn_train")
-    keep, part = _partials(dev, C, M, d, Fh)
-    y = torch.empty((C, M, d), dtype=dtype, device=dev)
-    err = lib.masked_ffn_train_fwd_launch(
-        x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
-        row_mask.data_ptr(), keep.data_ptr(), part.data_ptr(), y.data_ptr(),
-        C, M, d, Fh, _ACT_CODE[act], _build.DTYPE_CODE[dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
+    return bool(lib.masked_ffn_fd_resident(M, d, F, int(gated), int(bwd), groups))
+
+
+def _aligned(t):
+    """t, or a copy of it at a 16-byte boundary (the kernels read the mask
+    and the weights 16 bytes at a time)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_fd(name, gy, x, w_in, w_out, row_mask, w_gate, act):
+    dtype, dev, C, M, d, Fh = _check_train(name, x, w_in, w_out, row_mask, w_gate, gy)
+    w_in, w_out, row_mask, w_gate = (_aligned(t) for t in (w_in, w_out, row_mask, w_gate))
+    lib = _build.load("masked_ffn_train")
+    geo = fwd_dx_launch_geometry(C, M, d, Fh, _build.sm_count(dev))
+    nfb = Fh // BLOCK_NEURONS           # the f-blocks' fp32 partials, for the reduce
+    keep = torch.empty((C, -(-M // 8), nfb), dtype=torch.int32, device=dev)
+    part = torch.empty((nfb, C, M, d), dtype=torch.float32, device=dev)
+    out = torch.empty((C, M, d), dtype=dtype, device=dev)
+    args = (x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
+            row_mask.data_ptr(), keep.data_ptr(), part.data_ptr(), out.data_ptr(), C, M, d, Fh,
+            _ACT_CODE[act], _build.DTYPE_CODE[dtype], geo["groups"],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if gy is None:
+        err = lib.masked_ffn_train_fwd_launch(*args)
+    else:
+        err = lib.masked_ffn_dx_launch(gy.data_ptr(), *args)
     if err != 0:
-        raise RuntimeError(f"masked_ffn_train_fwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _launch_train_fwd(x, w_in, w_out, row_mask, w_gate, act):
+    y = _launch_fd("masked_ffn_train_fwd", None, x, w_in, w_out, row_mask, w_gate, act)
     train_fwd_launches.n += 1
     return y
 
 
 def _launch_dx(gy, x, w_in, w_out, row_mask, w_gate, act):
-    dtype, dev, C, M, d, Fh = _check_train("masked_ffn_dx", x, w_in, w_out,
-                                           row_mask, w_gate, gy)
-    lib = _build.load("masked_ffn_train")
-    keep, part = _partials(dev, C, M, d, Fh)
-    dx = torch.empty((C, M, d), dtype=dtype, device=dev)
-    err = lib.masked_ffn_dx_launch(
-        gy.data_ptr(), x.data_ptr(), w_in.data_ptr(), _ptr(w_gate),
-        w_out.data_ptr(), row_mask.data_ptr(), keep.data_ptr(),
-        part.data_ptr(), dx.data_ptr(), C, M, d, Fh, _ACT_CODE[act],
-        _build.DTYPE_CODE[dtype], torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"masked_ffn_dx kernel launch failed: CUDA error {err}")
+    dx = _launch_fd("masked_ffn_dx", gy, x, w_in, w_out, row_mask, w_gate, act)
     dx_launches.n += 1
     return dx
 
@@ -389,12 +419,14 @@ def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
 
 def _bind_train(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.masked_ffn_train_fwd_launch.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.masked_ffn_train_fwd_launch.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.masked_ffn_train_fwd_launch.restype = i
-    lib.masked_ffn_dx_launch.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.masked_ffn_dx_launch.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.masked_ffn_dx_launch.restype = i
     lib.masked_ffn_dw_launch.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.masked_ffn_dw_launch.restype = i
+    lib.masked_ffn_fd_resident.argtypes = [i] * 6
+    lib.masked_ffn_fd_resident.restype = i
 
 
 _build.register_binding("masked_ffn_train", _bind_train)

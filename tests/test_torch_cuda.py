@@ -394,6 +394,86 @@ def test_masked_ffn_dw_repeats_bitwise_at_m490(dev, C):
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _check_fd(gy, x, w_in, w_out, mask, w_gate, dtype, act="gelu"):
+    """The forward and dx kernels against their plain versions; rows that
+    no f-block keeps come out exactly 0."""
+    y = ffn.masked_ffn_train_fwd(x, w_in, w_out, mask, w_gate, act=act)
+    dx = ffn.masked_ffn_dx(gy, x, w_in, w_out, mask, w_gate, act=act)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and dx.dtype == dtype
+    assert _rel_err(y, ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, act)) <= _tol(dtype)
+    assert _rel_err(dx, ffn.masked_ffn_dx_plain(gy, x, w_in, w_out, mask, w_gate, act)) <= _tol(dtype)
+    dead = mask.sum(dim=2) == 0
+    assert (y[dead] == 0).all() and (dx[dead] == 0).all()
+
+
+@pytest.mark.parametrize("groups", [1, 2, 5, 16])
+@pytest.mark.parametrize("C,M", [(5, 490), (5, 10), (64, 10), (3, 1100)])
+def test_masked_ffn_fwd_dx_any_split_of_the_m_tiles(dev, monkeypatch, groups, C, M):
+    """However many blocks share a pair's m-tiles, at the training paths'
+    shapes, fp32 and gated bf16, the forward and dx equal their plain
+    versions."""
+    def geometry(C_, M_, d_, F_, n_sm=132):
+        nmt = -(-M_ // 8)
+        per = -(-nmt // min(groups, nmt))
+        return {"groups": -(-nmt // per)}
+    monkeypatch.setattr(ffn, "fwd_dx_launch_geometry", geometry)
+    for dtype, gated in ((torch.float32, False), (torch.bfloat16, True)):
+        _check_fd(*_dw_case(C, M, dtype, gated, dev), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,F,gated,resident", [(64, 256, False, True), (64, 256, True, True),
+                                                (42, 256, True, True), (200, 384, False, False),
+                                                (200, 384, True, False)])
+def test_masked_ffn_fwd_dx_resident_and_restaged_slab(dev, dtype, d, F, gated, resident):
+    """The weight slab kept resident for a block's m-tiles (d 64; d 42, not
+    a multiple of a 16-byte vector) or restaged 32 rows of d at a time
+    (d 200, F 384: 310 KB gated): both equal the plain versions."""
+    C, M = 3, 13
+    groups = ffn.fwd_dx_launch_geometry(C, M, d, F)["groups"]
+    for bwd in (False, True):
+        assert ffn.fd_slab_resident(M, d, F, gated, bwd, groups) == resident
+    _check_fd(*_dw_case(C, M, dtype, gated, dev, d=d, F=F), dtype)
+
+
+@pytest.mark.parametrize("C", [5, 64])
+def test_masked_ffn_fwd_dx_repeat_bitwise_at_m490(dev, C):
+    """Two calls on the same inputs give the same bits (the f-blocks'
+    partials added in f order, no atomics)."""
+    gy, x, w_in, w_out, mask, w_gate = _dw_case(C, 490, torch.float32, False, dev)
+    for run in (lambda: ffn.masked_ffn_train_fwd(x, w_in, w_out, mask, w_gate, act="gelu"),
+                lambda: ffn.masked_ffn_dx(gy, x, w_in, w_out, mask, w_gate, act="gelu")):
+        a, b = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,M,d,F,gated", [(5, 490, 64, 256, False), (5, 10, 64, 1024, False),
+                                           (3, 13, 200, 384, True)])
+def test_masked_ffn_fwd_dx_read_no_skipped_block(dev, dtype, C, M, d, F, gated):
+    """Every weight of the f-blocks that no row of a client keeps is NaN:
+    the forward and dx stay finite and equal the plain versions on the
+    clean weights, so no skipped byte is read."""
+    gy, x, w_in, w_out, mask, w_gate = _dw_case(C, M, dtype, gated, dev, d=d, F=F)
+    want_y = ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, "gelu")
+    want_dx = ffn.masked_ffn_dx_plain(gy, x, w_in, w_out, mask, w_gate, "gelu")
+    cols = (mask.amax(dim=1).view(C, F // 128, 128).amax(dim=2) == 0
+            ).repeat_interleave(128, dim=1)                       # (C, F) dropped f-blocks
+    assert cols.any()
+    for c in range(C):
+        w_in[c][:, cols[c]] = math.nan
+        w_out[c][cols[c]] = math.nan
+        if w_gate is not None:
+            w_gate[c][:, cols[c]] = math.nan
+    y = ffn.masked_ffn_train_fwd(x, w_in, w_out, mask, w_gate, act="gelu")
+    dx = ffn.masked_ffn_dx(gy, x, w_in, w_out, mask, w_gate, act="gelu")
+    torch.cuda.synchronize()
+    assert torch.isfinite(y.float()).all() and torch.isfinite(dx.float()).all()
+    assert _rel_err(y, want_y) <= _tol(dtype) and _rel_err(dx, want_dx) <= _tol(dtype)
+
+
 def _head_masks(C, H, dev):
     """Per-client head masks: all kept, one head dropped, half dropped, one
     kept, all dropped."""
