@@ -143,3 +143,9 @@ class InvariantPolicy(BasePolicy):
         if self._votes is None:       # no stats yet: fall back to ordered
             return ordered_keep(size, r)
         return invariant_keep(self._votes[name], self._ema_stats[name], r)
+
+
+def DropoutPolicy(method: str, unit_specs: Sequence[dict], seed: int = 0,
+                  **kw) -> BasePolicy:
+    """Constructor-shaped alias for get_policy()."""
+    return get_policy(method, unit_specs, seed=seed, **kw)

@@ -41,12 +41,25 @@ def _per_unit(arr, axis, tile, size):
     return a.reshape(tile, size, -1).transpose(0, 1).reshape(size, -1)
 
 
-def neuron_stats_for_group(prev_tree, new_tree, group) -> torch.Tensor:
-    """Per-neuron relative update statistic over the group's producers:
-    ||Δw|| / (||w(t-1)|| + eps). Returns (size,) float32. (The reference's
-    kind="max" ablation is not ported.)"""
+def neuron_stats_for_group(prev_tree, new_tree, group,
+                           kind: str = "norm") -> torch.Tensor:
+    """Per-neuron relative update statistic over the group's producers.
+
+    kind="norm" (default): ||Δw|| / (||w(t-1)|| + eps) per neuron.
+    kind="max": the per-weight max of |Δw| / (|w(t-1)| + eps) (dominated by
+    near-zero weights; the reference keeps it for ablation). Returns
+    (size,) float32."""
     size = group["size"]
     dev = _get(prev_tree, group["out"][0][0]).device
+    if kind == "max":
+        stats = torch.zeros((size,), dtype=torch.float32, device=dev)
+        for path, axis, tile in group["out"]:
+            w0 = _get(prev_tree, path).float()
+            w1 = _get(new_tree, path).float()
+            rel = (w1 - w0).abs() / (w0.abs() + EPS)
+            stats = torch.maximum(stats,
+                                  _per_unit(rel, axis, tile, size).amax(1))
+        return stats
     num = torch.zeros((size,), dtype=torch.float32, device=dev)
     den = torch.zeros((size,), dtype=torch.float32, device=dev)
     for path, axis, tile in group["out"]:
@@ -57,8 +70,9 @@ def neuron_stats_for_group(prev_tree, new_tree, group) -> torch.Tensor:
     return torch.sqrt(num) / (torch.sqrt(den) + EPS)
 
 
-def neuron_stats(prev_tree, new_tree, unit_specs) -> Dict[str, torch.Tensor]:
-    return {g["name"]: neuron_stats_for_group(prev_tree, new_tree, g)
+def neuron_stats(prev_tree, new_tree, unit_specs,
+                 kind: str = "norm") -> Dict[str, torch.Tensor]:
+    return {g["name"]: neuron_stats_for_group(prev_tree, new_tree, g, kind)
             for g in unit_specs}
 
 
@@ -105,3 +119,13 @@ def calibrate_threshold(per_client_stats, n_drop_target: int, th0: float,
             return th
         th *= TH_GROWTH
     return th
+
+
+def calibrate_threshold_per_group(per_client_stats,
+                                  drop_targets: Dict[str, int], th0: float,
+                                  max_iters: int = 200) -> Dict[str, float]:
+    """Per-layer thresholds (paper: 'FLuID can have a different drop
+    threshold for each layer'): calibrate_threshold on each group alone."""
+    return {g: calibrate_threshold([{g: cs[g]} for cs in per_client_stats],
+                                   target, th0, max_iters)
+            for g, target in drop_targets.items()}

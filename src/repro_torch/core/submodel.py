@@ -19,7 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 def _get(tree, path):
@@ -119,3 +119,10 @@ def embed_delta(sub_delta, full_like, unit_specs, keep_map):
         d[_kept_grid(target, axes)] = _get(sub_delta, path).to(target.dtype)
         _set(full_delta, path, d)
     return full_delta, mask
+
+
+def submodel_sizes(params, unit_specs, keep_map):
+    """(#params sub, #params full) — the transfer/compute saving."""
+    n_sub = sum(x.numel() for x in tree_leaves(extract(params, unit_specs,
+                                                        keep_map)))
+    return n_sub, sum(x.numel() for x in tree_leaves(params))

@@ -8,10 +8,24 @@ The whole cohort trains as one batched program:
   * Where the reference vmaps one client's SGD over the cohort, the port
     carries the client axis C explicitly: params are stacked (C, ...) once
     a round (``w0 = apply_mask(params, bank[idx])``), and each SGD step is
-    one batched forward over all clients, ``loss.sum()`` over the clients'
+    a forward over all clients, ``loss.sum()`` over the clients'
     weighted-mean losses, one ``backward()``, and ``w -= lr * m * g`` under
-    ``no_grad``. Through ``KernelMLP.apply_kernels`` a step launches the
-    masked-FFN forward, dx and dW kernels once each for the whole cohort.
+    ``no_grad``. The forward is the reference's choice of two:
+      - dense (``use_kernels=False``, the default): ``make_weighted_loss``
+        of ``model_cls.apply`` on each client's slice of the masked params,
+        one client after another in the forward, one backward for all —
+        any model (convs, pooling, the LSTM). A client's forward and
+        backward are then the sequential path's own ops, so a full-model
+        client's delta is the sequential one bit for bit, as the
+        reference's vmap gives on XLA. ``torch.func.vmap`` would batch the
+        convs into a grouped conv that sums in another order, and the
+        CNNs' training amplifies that one-ulp noise (a max-pool window or
+        a ReLU input near a tie sends the gradient another way) until the
+        invariant keep-maps part from the sequential run's;
+      - kernels (``use_kernels=True``): the model's ``apply_kernels``,
+        where a step launches the masked-FFN forward, dx and dW kernels
+        (and the head-masked ones) once each for the whole cohort.
+    Both give the same gradients up to float summation order.
   * Shards pad to the cohort-max step count and batch size with sample
     weight 0, so ragged shards and per-client step counts share the
     program; an all-zero step is an exact no-op.
@@ -20,8 +34,7 @@ The whole cohort trains as one batched program:
     (core/aggregate.aggregate_stacked).
 
 The round's host data is built in numpy, in the reference's RNG order, and
-moved to the device once a round. Only the kernel path (``use_kernels``)
-is ported.
+moved to the device once a round.
 """
 from __future__ import annotations
 
@@ -37,7 +50,8 @@ from repro_torch.core import submodel as sub
 from repro_torch.core.aggregate import ClientUpdate, aggregate_stacked
 from repro_torch.core.maskbank import MaskBank
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.fl.client import FleetClient, make_weighted_kernel_loss
+from repro_torch.fl.client import (FleetClient, make_weighted_kernel_loss,
+                                   make_weighted_loss)
 
 
 @dataclass
@@ -88,18 +102,15 @@ class FleetEngine:
     data, not program structure."""
 
     def __init__(self, model_cls, clients: Sequence[FleetClient], unit_specs,
-                 use_kernels: bool = True, device="cuda"):
+                 use_kernels: bool = False, device="cuda"):
         self.model_cls = model_cls
         self.clients = list(clients)
         self.unit_specs = unit_specs
+        self.use_kernels = bool(use_kernels)
         self.device = torch.device(device)
         if not self.clients:
             raise ValueError("FleetEngine needs at least one client")
-        if not use_kernels:
-            raise NotImplementedError(
-                "the port's fleet runs the kernel path only "
-                "(use_kernels=True); the dense path waits (ROADMAP.md)")
-        if not hasattr(model_cls, "apply_kernels"):
+        if self.use_kernels and not hasattr(model_cls, "apply_kernels"):
             raise ValueError(
                 f"use_kernels=True needs a model exposing apply_kernels / "
                 f"kernel_masks (see models/kernel_models.py); "
@@ -109,7 +120,13 @@ class FleetEngine:
         self.steps = max(c.local_epochs * (c.n_samples // c.eff_batch_size)
                          for c in self.clients)
         self.lrs = np.array([c.lr for c in self.clients], np.float32)
-        self._loss = make_weighted_kernel_loss(model_cls)
+        if self.use_kernels:
+            self._loss = make_weighted_kernel_loss(model_cls)
+        else:
+            one = make_weighted_loss(model_cls)
+            self._loss = lambda w, xb, yb, wb: torch.stack(
+                [one(tree_map(lambda a: a[c], w), xb[c], yb[c], wb[c])
+                 for c in range(xb.shape[0])])
         self._ones_mask: Optional[dict] = None
         self._bank_cache = None        # (fingerprint, bank, idx, n_by_row)
 
@@ -168,12 +185,14 @@ class FleetEngine:
         mask-zeroed deltas."""
         m = tree_map(lambda b: b[idx], bank)
         w0 = sub.apply_mask(tree_map(lambda p: p[None], params), m)
-        kmasks = self.model_cls.kernel_masks(m)
+        loss = self._loss
+        if self.use_kernels:
+            loss = functools.partial(loss, kmasks=self.model_cls.kernel_masks(m))
         w = tree_map(lambda a: a.clone().requires_grad_(True), w0)
         leaves, masks = tree_leaves(w), tree_leaves(m)
         lr_of = [lrs.reshape((-1,) + (1,) * (a.ndim - 1)) for a in leaves]
         for s in range(self.steps):
-            self._loss(w, xs[:, s], ys[:, s], sw[:, s], kmasks).sum().backward()
+            loss(w, xs[:, s], ys[:, s], sw[:, s]).sum().backward()
             with torch.no_grad():
                 for a, mk, lr in zip(leaves, masks, lr_of):
                     a -= lr * mk * a.grad

@@ -2,18 +2,21 @@
 (port of ``repro/fl/simulation.py``).
 
 An experiment is a typed ``SimulationConfig`` (workload, backend, policy,
-cohort, speed model, device). The port runs the kernel training path, on
-the ``fleet`` backend with ``use_kernels=True``, for the reference's two
-kernel workloads: ``femnist_kernel`` (``KernelMLP``), where every SGD step
-of the cohort goes through the hand-written masked-FFN forward, dx and dW
-kernels on the card, and ``femnist_attn`` (``KernelAttnClassifier``),
-which adds the head-masked Q/K/V projection and O merge kernels, forward
-and backward. The other workloads and backends raise
-``NotImplementedError`` until their slice (ROADMAP.md queue A).
+cohort, speed model, device). The port runs every workload of the
+reference's small-cohort simulation — the paper's ``femnist`` (CNN),
+``cifar10`` (VGG-9) and ``shakespeare`` (LSTM), the ``synth`` probe MLP,
+and the kernel workloads ``femnist_kernel`` and ``femnist_attn`` — on the
+synchronous backends ``sequential`` (the default: one client at a time,
+stragglers on physically extracted sub-models) and ``fleet`` (the cohort
+as one batched program; dense by default, through the hand-written
+masked-FFN and head-masked kernels with ``use_kernels=True``, which only
+the two kernel workloads' models support). ``sharded_fleet`` raises
+``NotImplementedError`` until its slice (ROADMAP.md queue A).
 
 ``device`` defaults to "cuda", and a config that asks for the card raises
-on a machine without one. With ``device="cpu"`` the kernels' plain versions
-run instead (the tests do so).
+on a machine without one. With ``device="cpu"`` the cohort trains on the
+CPU, and the kernel path runs the kernels' plain versions (the tests do
+so).
 
 The reference draws its initial params from ``jax.random``; the port draws
 them from a seeded ``torch.Generator``. ``build_simulation(cfg, params=...)``
@@ -37,16 +40,22 @@ from repro_torch.fl.client import FleetClient, SimClient
 from repro_torch.fl.population import ClientStore
 from repro_torch.fl.rounds import BACKEND_NAMES, PORTED_BACKENDS, make_backend
 from repro_torch.models.kernel_models import KERNEL_MODELS
+from repro_torch.models.small import MODELS
 
 BACKENDS = tuple(n for n in BACKEND_NAMES if n != "async")
 
 WORKLOADS = {
     # dataset, model, paper lr, batch size
+    "femnist": ("femnist", "femnist_cnn", 0.004, 10),
+    "cifar10": ("cifar10", "cifar_vgg9", 0.01, 20),
+    "shakespeare": ("shakespeare", "shakespeare_lstm", 0.001, 32),
+    # kernel-capable variants: same datasets, models whose masked matmuls
+    # can route through the kernels (use_kernels=True, fleet only)
     "femnist_kernel": ("femnist", "kernel_mlp", 0.02, 10),
     "femnist_attn": ("femnist", "kernel_attn", 0.02, 10),
+    # population-scale probe workload: 32-dim vector MLP
+    "synth": ("synth", "synth_mlp", 0.05, 20),
 }
-# the reference's other workloads, waiting for their models' slice
-NOT_PORTED_WORKLOADS = ("femnist", "cifar10", "shakespeare", "synth")
 
 
 @dataclass
@@ -104,10 +113,6 @@ class SimulationConfig:
         if self.use_kernels and self.backend != "fleet":
             raise ValueError("use_kernels=True requires backend='fleet' "
                              "(the kernel path lives in the cohort program)")
-        if self.workload in NOT_PORTED_WORKLOADS:
-            raise NotImplementedError(
-                f"workload {self.workload!r} is not ported yet (ROADMAP.md "
-                f"queue A); the port has {tuple(WORKLOADS)}")
         if self.workload not in WORKLOADS:
             raise ValueError(f"workload must be one of "
                              f"{tuple(WORKLOADS)}, got {self.workload!r}")
@@ -116,10 +121,10 @@ class SimulationConfig:
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")
-        if self.backend not in PORTED_BACKENDS or not self.use_kernels:
+        if self.backend not in PORTED_BACKENDS:
             raise NotImplementedError(
-                "the port runs backend='fleet' with use_kernels=True; the "
-                "other backends and the dense path wait (ROADMAP.md queue A)")
+                f"backend {self.backend!r} is not ported yet (ROADMAP.md "
+                f"queue A); the port has {PORTED_BACKENDS}")
         if self.policy != "none" and self.policy not in available_policies():
             raise ValueError(f"unknown dropout policy {self.policy!r}; "
                              f"available: {available_policies()} or 'none'")
@@ -131,7 +136,7 @@ class Simulation:
     clients: List[SimClient]
     model_cls: type
     ds: object
-    backend: str = "fleet"
+    backend: str = "sequential"
 
     @property
     def store(self) -> ClientStore:
@@ -166,7 +171,8 @@ def default_speeds(n_clients: int, straggler_ids: Sequence[int],
 def _build(cfg: SimulationConfig, params=None) -> Simulation:
     co = cfg.cohort
     ds_name, model_name, lr, bs = WORKLOADS[cfg.workload]
-    model_cls = KERNEL_MODELS[model_name]
+    model_cls = (MODELS[model_name] if model_name in MODELS
+                 else KERNEL_MODELS[model_name])
     dev = torch.device(cfg.device)
     ds = make_dataset(ds_name, n=co.n_data, n_test=max(400, co.n_data // 5),
                       n_partitions=max(co.n_clients * 2, 16), seed=cfg.seed)
@@ -177,9 +183,10 @@ def _build(cfg: SimulationConfig, params=None) -> Simulation:
                                 slow_factor=co.slow_factor, seed=cfg.seed)
     lrs = co.client_lrs(lr)
     epochs = co.client_epochs()
-    clients = [FleetClient(i, model_cls, ds.x[parts[i]], ds.y[parts[i]],
-                           speed=speeds[i], batch_size=bs, lr=lrs[i],
-                           local_epochs=epochs[i], seed=cfg.seed)
+    client_cls = SimClient if cfg.backend == "sequential" else FleetClient
+    clients = [client_cls(i, model_cls, ds.x[parts[i]], ds.y[parts[i]],
+                          speed=speeds[i], batch_size=bs, lr=lrs[i],
+                          local_epochs=epochs[i], seed=cfg.seed)
                for i in range(co.n_clients)]
     if params is None:
         params = model_cls.init(cfg.seed, device=dev)

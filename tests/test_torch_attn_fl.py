@@ -216,7 +216,7 @@ def test_fleet_round_matches_reference():
     jeng = j_fleet.FleetEngine(JAttn, _fresh_clients(j_client), SPECS,
                                use_kernels=True)
     teng = t_fleet.FleetEngine(TAttn, _fresh_clients(t_client), SPECS,
-                               device="cpu")
+                               use_kernels=True, device="cpu")
     assert teng.steps == jeng.steps and teng.bs == jeng.bs
     jr = jeng.run_cohort(jax.tree.map(jnp.asarray, params), keep_maps, rates)
     tparams = params_from_numpy(params, device="cpu")
@@ -293,13 +293,13 @@ def test_femnist_attn_config_and_launches_on_cpu():
                                   use_kernels=True, device="cpu",
                                   cohort=t_simu.CohortConfig(n_clients=2, n_data=60))
     assert t_simu.WORKLOADS["femnist_attn"] == ("femnist", "kernel_attn", 0.02, 10)
-    assert "femnist_attn" not in t_simu.NOT_PORTED_WORKLOADS
+    assert t_simu.WORKLOADS == j_simu.WORKLOADS
     ops.reset_launch_counts()
     sim, hist = t_simu.run_experiment(cfg, rounds=1)
     assert isinstance(sim.server.params["attn"]["wq"], torch.Tensor)
     assert set(ops.launch_counts().values()) == {0}     # plain versions only
     with pytest.raises(NotImplementedError):
-        t_simu.SimulationConfig(workload="femnist_attn", backend="fleet",
+        t_simu.SimulationConfig(workload="femnist_attn", backend="sharded_fleet",
                                 device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

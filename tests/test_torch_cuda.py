@@ -813,3 +813,94 @@ def test_rwkv_prefill_launches_the_kernel_once_per_layer(dev):
     assert ops.launch_counts()["rwkv_chunk_scan"] == cfg.n_layers
     lc, _, _ = model.forward_seq(cpu, cfg, {"tokens": toks}, want_cache=True)
     assert _rel_err(lg.cpu(), lc) <= 1e-4
+
+
+@pytest.fixture
+def fp32_convs(dev):
+    """True fp32 on the card: no TF32 in cuBLAS or cuDNN (cuDNN's convs
+    default to TF32), restored afterwards."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize("name", ["femnist_cnn", "cifar_vgg9", "shakespeare_lstm",
+                                  "synth_mlp"])
+def test_paper_models_forward_backward_match_cpu(fp32_convs, name):
+    """The paper's models on the card against the same call on the CPU,
+    no kernel launched (they reach none, as in the reference): fp32
+    logits within 1e-4 relative; make_loss gradients in fp64 within
+    1e-10. In fp32 a max-pool window whose two largest inputs lie within
+    the two devices' rounding of each other sends the gradient to another
+    input (the CNN's conv grads then differ by ~3e-3 relative on this
+    batch): a discontinuity of max pooling, not of the port, which fp64
+    moves out of reach."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.fl.client import make_loss
+    from repro_torch.models.small import MODELS
+    cls = MODELS[name]
+    rng = np.random.RandomState(1)
+    if name == "shakespeare_lstm":
+        x = torch.from_numpy(rng.randint(0, cls.vocab, (16, cls.seq_len)).astype(np.int32))
+    else:
+        x = torch.from_numpy(rng.randn(16, *cls.input_shape).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, cls.num_classes, 16))
+    cpu = cls.init(0, device="cpu")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lc = cls.apply(cpu, x)
+        lg = cls.apply(tree_map(lambda t: t.to(fp32_convs), cpu), x.to(fp32_convs))
+    assert _rel_err(lg.cpu(), lc) <= 1e-4
+    x64 = x if name == "shakespeare_lstm" else x.double()
+    grads = []
+    for d in ("cpu", fp32_convs):
+        p = tree_map(lambda t: t.double().to(d).requires_grad_(True), cpu)
+        loss = make_loss(cls)(p, x64.to(d), y.to(d))
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, tree_leaves(p))])
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}
+    for a, b in zip(*grads):
+        assert _rel_err(b, a) <= 1e-10
+
+
+@pytest.mark.parametrize("workload", ["femnist", "cifar10", "shakespeare", "synth"])
+def test_sequential_round_matches_dense_fleet_round(fp32_convs, workload):
+    """One round on the card, a straggler at rate 0.5: the sequential
+    backend (extracted sub-model) and the dense fleet (masked params under
+    vmap) give the same sim times, masks, deltas (2e-5, the reference's
+    tolerance) and aggregate."""
+    from repro_torch.core.dropout import get_policy
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.partition import partition_non_iid
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.fl import client, rounds, simulation
+    from repro_torch.models.small import MODELS
+    ds_name, model_name, lr, bs = simulation.WORKLOADS[workload]
+    cls = MODELS[model_name]
+    ds = make_dataset(ds_name, n=200, n_test=40, n_partitions=16)
+    parts = partition_non_iid(ds, 4)
+    speeds = simulation.default_speeds(4, (0,))
+
+    def backend(name, client_cls):
+        cs = [client_cls(i, cls, ds.x[parts[i]], ds.y[parts[i]], speed=speeds[i],
+                         batch_size=bs, lr=lr) for i in range(4)]
+        return rounds.make_backend(name, cls, cs, cls.UNIT_SPECS, device=fp32_convs)
+    params = cls.init(0, device=fp32_convs)
+    keep = {0: get_policy("random", cls.UNIT_SPECS, seed=2).keep_map(0.5)}
+    ops.reset_launch_counts()
+    seq = backend("sequential", client.SimClient).run_round(params, keep, {0: 0.5})
+    flt = backend("fleet", client.FleetClient).run_round(params, keep, {0: 0.5})
+    torch.cuda.synchronize()
+    assert set(ops.launch_counts().values()) == {0}
+    assert flt.sim_times == seq.sim_times
+    for a, b in zip(seq.updates(), flt.updates()):
+        assert (a.client_id, a.n_samples) == (b.client_id, b.n_samples)
+        assert (a.mask is None) == (b.mask is None)
+        for x, z in zip(tree_leaves(a.delta), tree_leaves(b.delta)):
+            assert float((x - z).abs().max()) <= 2e-5
+        if a.mask is not None:
+            assert all(torch.equal(x, z) for x, z in
+                       zip(tree_leaves(a.mask), tree_leaves(b.mask)))
+    for x, z in zip(tree_leaves(seq.aggregate(params)), tree_leaves(flt.aggregate(params))):
+        assert float((x - z).abs().max()) <= 2e-5

@@ -289,7 +289,7 @@ def test_fleet_round_matches_reference():
     jeng = j_fleet.FleetEngine(JMLP, _fresh_clients(j_client), JMLP.UNIT_SPECS,
                                use_kernels=True)
     teng = t_fleet.FleetEngine(TMLP, _fresh_clients(t_client), TMLP.UNIT_SPECS,
-                               device="cpu")
+                               use_kernels=True, device="cpu")
     assert teng.steps == jeng.steps and teng.bs == jeng.bs
     jr = jeng.run_cohort(jax.tree.map(jnp.asarray, params), keep_maps, rates)
     tr = teng.run_cohort(params_from_numpy(params, device="cpu"), keep_maps, rates)
@@ -311,7 +311,7 @@ def test_mask_bank_dedupes_like_reference():
     jeng = j_fleet.FleetEngine(JMLP, _fresh_clients(j_client), JMLP.UNIT_SPECS,
                                use_kernels=True)
     teng = t_fleet.FleetEngine(TMLP, _fresh_clients(t_client), TMLP.UNIT_SPECS,
-                               device="cpu")
+                               use_kernels=True, device="cpu")
     jb, ji, jn = jeng._mask_bank(jax.tree.map(jnp.asarray, params), keep_maps)
     tb, ti, tn = teng._mask_bank(params_from_numpy(params, device="cpu"), keep_maps)
     assert tree_leaves(tb)[0].shape[0] == 3          # clients 0 and 3 share a row
@@ -385,10 +385,11 @@ def test_simulation_config_on_cuda_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(workload="femnist"), NotImplementedError),
-    (dict(workload="femnist_attn", backend="sequential"), NotImplementedError),
-    (dict(workload="femnist_kernel", backend="sequential"), NotImplementedError),
-    (dict(workload="femnist_kernel", backend="fleet"), NotImplementedError),
+    (dict(workload="femnist", backend="sharded_fleet"), NotImplementedError),
+    (dict(workload="femnist_kernel", backend="sharded_fleet"),
+     NotImplementedError),
+    (dict(workload="femnist_attn", backend="async"), ValueError),
+    (dict(workload="femnist_cnn"), ValueError),
     (dict(workload="femnist_kernel", backend="sequential", use_kernels=True),
      ValueError),
     (dict(workload="mnist", backend="fleet", use_kernels=True), ValueError),
