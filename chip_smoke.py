@@ -63,6 +63,29 @@ the seconds the phase took (``phase_s``):
              64 clients, held to train / train_attn's kernel-fleet runs
              (plans, keep-maps, round times, params within 5e-4); ms per
              SGD step and busy share beside theirs; no kernel launched
+  population a 100 000-client store (BENCH_population's), cohorts of 200
+             sampled per round, femnist_kernel on the kernel fleet, 4
+             rounds with a drift: each masked-FFN kernel launched once per
+             SGD step, and every launch held against its plain version on
+             the same inputs; the drifted client flagged; the plain
+             versions give identical cohorts, plans, keep-maps and round
+             times, params within 1e-6; the sharded fleet (4 shards) the
+             same, every launch held, with shard partials summing bitwise
+             to its numerator; one round at cohort 1000, every launch
+             held. Then, on rounds that follow: ms a round and clients/s
+             with nothing wrapped, the shares of the host batch build and
+             the invariant stats, the store's ops, busy share
+  async      launch/async_fl's defaults (20 000 clients, buffer_k 16,
+             concurrency 128) on femnist_kernel with the kernels, drop_prob
+             0.05, a flash crowd of 20 at step 3, 10 buffers: launches per
+             SGD step of every dispatch group, every launch held against
+             its plain version (a padding slot's rows exactly 0), stale
+             arrivals, dropouts, in-flight bookkeeping; the plain versions
+             give the same clock, arrivals and plans, params within 1e-6;
+             zero spread (buffer_k = concurrency = cohort 16) equals the
+             kernel fleet bitwise; femnist_attn (K 8, concurrency 16, a
+             flash crowd of 20, 3 buffers) held the same two ways. Then
+             buffers a second with nothing wrapped, ms a dispatch group
 
 Any failure exits non-zero. The last three lines are the per-kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
@@ -1327,6 +1350,8 @@ class RoundRecorder:
                 self.log.append({
                     "train_s": dt, "steps": steps, "client_steps": sum(per_client),
                     "clients": len(backend.clients),
+                    "ids": [c.id for c in backend.clients],
+                    "backend": type(backend).__name__,
                     "keep_maps": {c: {g: k.copy() for g, k in km.items()}
                                   for c, km in keep_maps.items()}})
                 return res
@@ -1693,6 +1718,613 @@ def phase_train_dense(torch, np, kernel_runs, dev="cuda"):
     return out
 
 
+# population and async layer (fl/population.py, fl/shard_fleet.py,
+# fl/async_rounds.py): the store and cohort sizes of the reference's
+# BENCH_population (smallest cohort) and launch/async_fl's defaults
+POP_CFG = dict(n_clients=100_000, cohort_size=200, workload="femnist_kernel",
+               backend="fleet", use_kernels=True, n_partitions=64,
+               samples_per_partition=100, straggler_frac_pop=0.1)
+POP_ROUNDS, POP_DRIFT_AT, POP_SHARDS, POP_BIG_COHORT = 4, 2, 4, 1000
+ASYNC_ARGS = ["--workload", "femnist_kernel", "--drop-prob", "0.05",
+              "--flash-crowd", "3:20"]
+ASYNC_BUFFERS = 10
+ATTN_ASYNC = dict(buffer_k=8, concurrency=16, flash_crowds=((1, 20),), buffers=3)
+# kernels against plain on the population and async paths: each launch
+# within the kernels phase's fp32 tolerance, and the runs' final params
+# within 1e-6 (their measured gap is 3e-8 to 9e-8)
+HOLD_TOL, POP_PARAM_TOL = 1e-4, 1e-6
+# the timing rounds (buffers) that follow the gated runs, nothing wrapped
+POP_TIMED_ROUNDS, ASYNC_TIMED_BUFFERS = 3, 5
+
+
+class CallTimer:
+    """While active, wraps methods: each call's seconds (synchronised on
+    both sides) and ``info(self, *args)`` go to ``calls[label]``."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.calls = {label: [] for label in targets}
+
+    def __enter__(self):
+        self.orig = []
+        for label, (cls, attr, info) in self.targets.items():
+            fn = cls.__dict__[attr]
+            self.orig.append((cls, attr, fn))
+
+            def wrapped(obj, *a, _fn=fn, _label=label, _info=info, **kw):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = _fn(obj, *a, **kw)
+                self.torch.cuda.synchronize()
+                self.calls[_label].append(
+                    (time.perf_counter() - t0, _info(obj, *a, **kw) if _info else None))
+                return res
+            setattr(cls, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, attr, fn in self.orig:
+            setattr(cls, attr, fn)
+
+    def seconds(self, label):
+        return sum(s for s, _ in self.calls[label])
+
+
+class HoldLaunches:
+    """While active, each launch of the masked-FFN training kernels (B1's
+    training form, B2, B3) and of the six head-masked kernels (B4-B9) is
+    also computed by its plain version on the same inputs. The plain
+    versions launch no kernel, so the launch counts stay the path's. Per
+    kernel: the launches held, the client counts C they ran at, the worst
+    relative ∞-norm and absolute errors, and the rows of the backward
+    launches whose incoming gradient is all zero (a padding slot, or a
+    client's zero-weighted tail step), whose outputs must be exactly 0."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import masked_attn as attn
+        from repro_torch.kernels import masked_ffn as ffn
+
+        def ffn_plain(fn):
+            return lambda *a, act: fn(*a, act)
+        # name: (module, the function its autograd Function calls, plain
+        # version, whether it is a backward kernel)
+        self.targets = {
+            "masked_ffn_train_fwd": (ffn, "masked_ffn_train_fwd",
+                                     ffn_plain(ffn.masked_ffn_batch_plain), False),
+            "masked_ffn_dx": (ffn, "masked_ffn_dx", ffn_plain(ffn.masked_ffn_dx_plain), True),
+            "masked_ffn_dw": (ffn, "masked_ffn_dw", ffn_plain(ffn.masked_ffn_dw_plain), True),
+            "masked_head_proj": (attn, "proj_fwd", attn.masked_head_proj_plain, False),
+            "masked_head_proj_dx": (attn, "proj_dx", attn.masked_head_proj_dx_plain, True),
+            "masked_head_proj_dw": (attn, "proj_dw", attn.masked_head_proj_dw_plain, True),
+            "masked_head_merge": (attn, "merge_fwd", attn.masked_head_merge_plain, False),
+            "masked_head_merge_da": (attn, "merge_da", attn.masked_head_merge_da_plain, True),
+            "masked_head_merge_dw": (attn, "merge_dw", attn.masked_head_merge_dw_plain, True)}
+        self.held = {k: {"n": 0, "C": set(), "rel_err": 0.0, "max_abs_err": 0.0,
+                         "zero_grad_rows": 0} for k in self.targets}
+
+    def _held(self, name, fn, plain, backward):
+        def call(*a, **kw):
+            got, want = fn(*a, **kw), plain(*a, **kw)
+            pairs = [(x, y) for x, y in zip(got if isinstance(got, tuple) else (got,),
+                                            want if isinstance(want, tuple) else (want,))
+                     if y is not None]
+            h = self.held[name]
+            h["n"] += 1
+            h["C"].add(a[0].shape[0])
+            h["rel_err"] = max(h["rel_err"], *(rel_inf(x, y) for x, y in pairs))
+            h["max_abs_err"] = max(h["max_abs_err"], *(
+                float((x.float() - y.float()).abs().max()) for x, y in pairs))
+            if backward:                       # a[0] is the incoming gradient
+                zero = a[0].flatten(1).abs().amax(1) == 0
+                h["zero_grad_rows"] += int(zero.sum())
+                check(all(bool((x[zero] == 0).all()) for x, _ in pairs),
+                      f"{name}: a row with zero incoming gradient has a nonzero output")
+            return got
+        return call
+
+    def __enter__(self):
+        self.orig = []
+        for name, (mod, attr, plain, backward) in self.targets.items():
+            fn = getattr(mod, attr)
+            self.orig.append((mod, attr, fn))
+            setattr(mod, attr, self._held(name, fn, plain, backward))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.orig:
+            setattr(mod, attr, fn)
+
+    def check(self, name, counts, kernels):
+        """Every launch of ``kernels`` was held, each within HOLD_TOL;
+        returns their records."""
+        out = {}
+        for k in kernels:
+            h = self.held[k]
+            check(h["n"] == counts[k],
+                  f"{name}: {k}: {h['n']} of {counts[k]} launches held against plain")
+            check(h["rel_err"] <= HOLD_TOL,
+                  f"{name}: {k}: rel err {h['rel_err']} against plain at C {sorted(h['C'])}")
+            out[k] = {**h, "C": sorted(h["C"])}
+        return out
+
+
+def sgd_timer(torch, extra=None):
+    """CallTimer over the cohort program (``FleetEngine._run``: one call
+    launches each kernel once per SGD step), the round's host batch build
+    and its invariant stats, plus ``extra``."""
+    from repro_torch.fl.fleet import CohortResult, FleetEngine
+    return CallTimer(torch, {
+        "sgd": (FleetEngine, "_run", lambda e, *a: (e.steps, len(e.clients))),
+        "stacked_data": (FleetEngine, "_stacked_data", None),
+        "stats": (CohortResult, "non_straggler_stats", None),
+        **(extra or {})})
+
+
+def check_launches(name, counts, timer, per_step):
+    """Each kernel of ``per_step`` launched that many times per SGD step of
+    every cohort program the timer saw; returns the step count."""
+    steps = sum(n for _, (n, _) in timer.calls["sgd"])
+    for k, n in per_step.items():
+        check(counts[k] == n * steps,
+              f"{name}: {k} launched {counts[k]} times, expected {n} per SGD "
+              f"step ({n} x {steps})")
+    return steps
+
+
+def wall_rounds(torch, sim, n):
+    """Wall seconds of each of ``n`` more rounds (buffers) of ``sim``, with
+    nothing wrapped and nothing checked: one synchronize at each end."""
+    out = []
+    torch.cuda.synchronize()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        sim.run_round()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def round_rate(clients, secs):
+    """ms a round and clients/s over rounds of ``clients`` clients."""
+    return {"round_s": secs, "ms_per_round": 1e3 * sum(secs) / len(secs),
+            "clients_per_s": clients * len(secs) / sum(secs)}
+
+
+def part_shares(torch, sim, n, extra=None):
+    """``n`` more rounds (buffers) of ``sim`` under sgd_timer, which
+    synchronises on both sides of each timed part (so no part overlaps
+    another, and these rounds run slower than wall_rounds'): ms per SGD
+    step of the cohort program, and the ms a round and share of the
+    round of the host batch build and of the invariant stats. Returns
+    (parts, timer)."""
+    with sgd_timer(torch, extra) as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            sim.run_round()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    sgd = timer.calls["sgd"]
+    stacked, stats = timer.seconds("stacked_data"), timer.seconds("stats")
+    return {"rounds": n, "synced_ms_per_round": 1e3 * total / n,
+            "ms_per_sgd_step": 1e3 * sum(s for s, _ in sgd) / sum(k for _, (k, _) in sgd),
+            "stacked_data_ms_per_round": 1e3 * stacked / n,
+            "stacked_data_share": stacked / total,
+            "stats_ms_per_round": 1e3 * stats / n, "stats_share": stats / total}, timer
+
+
+def leaves_of(sim):
+    from repro_torch.core.tree import tree_leaves
+    return tree_leaves(sim.server.params)
+
+
+def store_equal(np, a, b):
+    from repro_torch.fl.population import ClientStore
+    import dataclasses
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name),
+                              equal_nan=True)
+               for f in dataclasses.fields(ClientStore))
+
+
+def hold_same_histories(name, ha, hb, clock=False):
+    check(len(ha) == len(hb), f"{name}: {len(ha)} rounds against {len(hb)}")
+    for x, y in zip(ha, hb):
+        check(x.stragglers == y.stragglers and x.rates == y.rates,
+              f"{name}: round {x.round} plan differs")
+        check(x.round_time == y.round_time,
+              f"{name}: round {x.round} time {x.round_time} against {y.round_time}")
+        check(not clock or (x.clock, x.staleness_max, x.staleness_mean)
+              == (y.clock, y.staleness_max, y.staleness_mean),
+              f"{name}: round {x.round} clock or staleness differs")
+
+
+def max_diff(a, b):
+    return max(float((p - q).abs().max()) for p, q in zip(a, b))
+
+
+def pop_run(torch, rounds, dev="cuda", drift_at=None, **over):
+    """A population run through ``build_population``: ``rounds`` rounds,
+    the last evaluated; before round ``drift_at`` a sampled full-model
+    client of the next cohort slows to 2x base. Returns (sim, per-round
+    log of RoundRecorder, timer, drift victim)."""
+    from repro_torch.fl.population import PopulationConfig, build_population
+    sim = build_population(PopulationConfig(**{**POP_CFG, **over, "device": dev}))
+    victim = None
+    with RoundRecorder(torch) as rec, sgd_timer(torch) as timer:
+        for r in range(rounds):
+            if r == drift_at:
+                ids = sim.cohort_ids()
+                victim = int(next(
+                    c for c in ids if sim.store.rates_of([c])[0] == 1.0
+                    and sim.store.speeds_of([c])[0] < 1.2 * sim.cfg.base_speed))
+                sim.set_speed(victim, 2 * sim.cfg.base_speed)
+            sim.run_round(eval_now=r == rounds - 1)
+    return sim, rec.log, timer, victim
+
+
+def store_op_ms(np, sim, reps=20):
+    """Host ms of the store's per-round ops over the whole registry."""
+    store, size = sim.store, sim.cfg.cohort_size
+    out = {}
+    t0 = time.perf_counter()
+    for r in range(reps):
+        noise = sim.cohort_noise(100 + r)
+    out["cohort_noise_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ids = store.sample_cohort(noise, size)
+    out["sample_cohort_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    lat = np.linspace(9.0, 14.0, size, dtype=np.float32)
+    rates = np.ones(size, np.float32)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        store.update_from_round(ids, lat, rates)
+    out["update_from_round_ms"] = 1e3 * (time.perf_counter() - t0) / reps
+    out["store_size"] = store.capacity
+    return out
+
+
+def stats_forms(torch, sim, dev, turns=4):
+    """The round's invariant stats two ways on one cohort result of
+    ``sim``'s next cohort: batched over the clients (the fleet's
+    ``non_straggler_stats``) and one ``neuron_stats`` call a client, each
+    brought to the host, in turns (A, B, B, A, ...). Returns the ms of
+    each and their largest relative difference."""
+    from repro_torch.core import invariant as inv
+    from repro_torch.core.tree import tree_map
+    from repro_torch.fl.rounds import make_backend
+    be = make_backend("fleet", sim.model_cls, sim._materialize(sim.cohort_ids()),
+                      sim.model_cls.UNIT_SPECS, use_kernels=True, device=dev)
+    params = sim.server.params
+    res = be.run_round(params, {}, {})
+    specs = sim.model_cls.UNIT_SPECS
+
+    def per_client():
+        return [{g: v.cpu() for g, v in inv.neuron_stats(
+            params, tree_map(lambda p, d: p + d[i], params, res.deltas), specs).items()}
+            for i in range(len(res.client_ids))]
+    forms = {"batched": lambda: res.non_straggler_stats(params), "per_client": per_client}
+    ms = {k: [] for k in forms}
+    out = {}
+    for t in range(turns):
+        for k in (("batched", "per_client") if t % 2 == 0 else ("per_client", "batched")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[k] = forms[k]()
+            ms[k].append(1e3 * (time.perf_counter() - t0))
+    rel = max(float(((a[g] - b[g]).abs() / b[g].abs().clamp_min(1e-30)).max())
+              for a, b in zip(out["batched"], out["per_client"]) for g in b)
+    return {"clients": len(res.client_ids), "batched_ms": ms["batched"],
+            "per_client_ms": ms["per_client"], "max_rel_diff": rel}
+
+
+def phase_population(torch, np, dev="cuda"):
+    """The population layer on the card: a 100 000-client store, cohorts
+    of 200 sampled per round, femnist_kernel on the kernel fleet, 4
+    rounds with a drift before round 2. Gates: each masked-FFN training
+    kernel launched once per SGD step, and each launch held against its
+    plain version on the same inputs (HoldLaunches); dropout engaged and
+    the drifted client flagged; finite params; the same run with the plain
+    versions swapped in gives identical cohorts, stragglers, rates,
+    keep-maps and round times and params within 1e-6; the sharded fleet (4
+    shards, every launch held) the same plans, params within 1e-6, and
+    shard partials that sum left to right to its numerator bitwise. Then
+    one round at cohort 1000, every launch held. The times come from
+    rounds that follow the gated ones: ms a round and clients/s with
+    nothing wrapped, the parts' shares from rounds timed part by part."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.fl.rounds import make_backend
+    from repro_torch.kernels import ops
+    name = "population"
+    cohort = POP_CFG["cohort_size"]
+    per_step = {k: 1 for k in TRAIN_KERNELS}
+    ops.reset_launch_counts()                  # main path starts here
+    with HoldLaunches(torch) as hold:
+        sim, log, timer, victim = pop_run(torch, POP_ROUNDS, dev, drift_at=POP_DRIFT_AT)
+    counts = ops.launch_counts()               # main path ends here
+    steps = check_launches(name, counts, timer, per_step)
+    held = hold.check(name, counts, TRAIN_KERNELS)
+    hist, params = list(sim.server.history), [p.clone() for p in leaves_of(sim)]
+    check(all(bool(torch.isfinite(p).all()) for p in params), f"{name}: non-finite params")
+    check(any(h.stragglers for h in hist), f"{name}: dropout never engaged")
+    check(all(victim not in h.stragglers for h in hist[:POP_DRIFT_AT + 1])
+          and victim in hist[POP_DRIFT_AT + 1].stragglers
+          and sim.store.rates_of([victim])[0] < 1.0,
+          f"{name}: client {victim}, slowed before round {POP_DRIFT_AT}, "
+          f"was not flagged after it")
+
+    undo = swap_in_plain(ops)
+    try:
+        psim, plog, *_ = pop_run(torch, POP_ROUNDS, dev, drift_at=POP_DRIFT_AT)
+        for x, y in zip(log, plog):
+            check(x["ids"] == y["ids"] and same_keep_maps(np, x["keep_maps"], y["keep_maps"]),
+                  f"{name}: kernels and plain cohorts or keep-maps differ")
+        hold_same_histories(f"{name} (kernels against plain)", hist, psim.server.history)
+        plain_diff = max_diff(params, leaves_of(psim))
+        check(plain_diff <= POP_PARAM_TOL,
+              f"{name}: kernels against plain params differ by {plain_diff}")
+        plain_s = wall_rounds(torch, psim, POP_TIMED_ROUNDS)
+        plain_parts, _ = part_shares(torch, psim, 2)
+    finally:
+        undo()
+    del psim
+
+    ops.reset_launch_counts()
+    with HoldLaunches(torch) as shold:
+        ssim, slog, stimer, _ = pop_run(torch, POP_ROUNDS, dev, drift_at=POP_DRIFT_AT,
+                                        backend="sharded_fleet", n_shards=POP_SHARDS)
+    shard_counts = ops.launch_counts()
+    check({r["backend"] for r in slog} == {"ShardedFleetBackend"},
+          f"{name}: the sharded run took another backend")
+    shard_steps = check_launches(f"{name} sharded", shard_counts, stimer, per_step)
+    shard_held = shold.check(f"{name} sharded", shard_counts, TRAIN_KERNELS)
+    check(len(stimer.calls["sgd"]) == POP_SHARDS * POP_ROUNDS,
+          f"{name}: {len(stimer.calls['sgd'])} shard programs, expected "
+          f"{POP_SHARDS} a round")
+    for x, y in zip(log, slog):
+        check(x["ids"] == y["ids"] and same_keep_maps(np, x["keep_maps"], y["keep_maps"]),
+              f"{name}: sharded and fleet cohorts or keep-maps differ")
+    hold_same_histories(f"{name} (sharded against fleet)", hist, ssim.server.history)
+    shard_diff = max_diff(params, leaves_of(ssim))
+    check(shard_diff <= POP_PARAM_TOL,
+          f"{name}: sharded against fleet params differ by {shard_diff}")
+    # one more sharded cohort program: its partials against its numerator
+    clients = ssim._materialize(ssim.cohort_ids())
+    ids = [c.id for c in clients]
+    rates = {c: float(r) for c, r in zip(ids, ssim.store.rates_of(ids)) if r < 1.0}
+    be = make_backend("sharded_fleet", ssim.model_cls, clients, ssim.model_cls.UNIT_SPECS,
+                      n_shards=POP_SHARDS, use_kernels=True, device=dev)
+    res = be.run_round(ssim.server.params,
+                       {c: ssim.server.policy.keep_map(r) for c, r in rates.items()}, rates)
+    pr_num, pr_w = res.shard_partials
+
+    def chain(a):
+        acc = a[0]
+        for i in range(1, a.shape[0]):
+            acc = acc + a[i]
+        return acc
+    check(all(torch.equal(x, y) for x, y in zip(tree_leaves(tree_map(chain, pr_num)),
+                                                tree_leaves(res.num)))
+          and torch.equal(chain(pr_w), res.w_per_mask),
+          f"{name}: shard partials do not sum to the numerator bitwise")
+    del be, res
+    shard_s = wall_rounds(torch, ssim, POP_TIMED_ROUNDS)
+    del ssim
+
+    round_s = wall_rounds(torch, sim, POP_TIMED_ROUNDS)
+    parts, _ = part_shares(torch, sim, 2)
+    prof = busy_share(torch, lambda: sim.run_round())
+    store_ms = store_op_ms(np, sim)
+    del sim
+
+    ops.reset_launch_counts()
+    with HoldLaunches(torch) as bhold:
+        bsim, _, btimer, _ = pop_run(torch, 1, dev, cohort_size=POP_BIG_COHORT)
+    big_counts = ops.launch_counts()
+    check_launches(f"{name} cohort {POP_BIG_COHORT}", big_counts, btimer, per_step)
+    big_held = bhold.check(f"{name} cohort {POP_BIG_COHORT}", big_counts, TRAIN_KERNELS)
+    check(all(bool(torch.isfinite(p).all()) for p in leaves_of(bsim)),
+          f"{name}: cohort {POP_BIG_COHORT}: non-finite params")
+    big_s = wall_rounds(torch, bsim, 1)
+    big_parts, _ = part_shares(torch, bsim, 1)
+    bprof = busy_share(torch, lambda: bsim.run_round())
+    stats_ab = stats_forms(torch, bsim, dev)
+    return {
+        "config": {**POP_CFG, "rounds": POP_ROUNDS, "drift_before_round": POP_DRIFT_AT},
+        "steps_per_round": log[0]["steps"], "timed_rounds": POP_TIMED_ROUNDS,
+        **round_rate(cohort, round_s), "parts": parts,
+        "round_times_sim": [h.round_time for h in hist],
+        "n_stragglers": [len(h.stragglers) for h in hist],
+        "rates_used": [sorted(set(h.rates.values())) for h in hist],
+        "drift_victim": victim, "accuracy": hist[-1].accuracy,
+        "held_against_plain": held,
+        "plain": {**round_rate(cohort, plain_s), "parts": plain_parts},
+        "params_max_abs_diff_vs_plain": plain_diff,
+        "sharded": {"n_shards": POP_SHARDS, **round_rate(cohort, shard_s),
+                    "params_max_abs_diff_vs_fleet": shard_diff,
+                    "held_against_plain": shard_held,
+                    "launches": shard_counts, "sgd_steps": shard_steps},
+        "profile_round": prof, "store_ops": store_ms,
+        f"cohort{POP_BIG_COHORT}": {
+            **round_rate(POP_BIG_COHORT, big_s), "parts": big_parts,
+            "held_against_plain": big_held, "launches": big_counts,
+            "profile_round": bprof, "stats_forms": stats_ab},
+        "launches": counts, "sgd_steps": steps}
+
+
+def async_run(torch, np, argv, buffers, dev="cuda", **acfg):
+    """launch/async_fl's config from ``argv`` (its defaults otherwise),
+    with the kernels on (and AsyncConfig fields overridden by ``acfg``),
+    ``buffers`` buffers. Checks at every dispatch that no client in flight
+    is sampled again. Returns (sim, timer)."""
+    import dataclasses
+    from repro_torch.fl.async_rounds import AsyncBufferedBackend
+    from repro_torch.fl.population import build_population
+    from repro_torch.launch import async_fl
+    args = async_fl.make_parser().parse_args(argv + ["--device", dev])
+    cfg = dataclasses.replace(async_fl.build_cfg(args), use_kernels=True)
+    if acfg:
+        cfg = dataclasses.replace(cfg, async_cfg=dataclasses.replace(cfg.async_cfg, **acfg))
+    sim = build_population(cfg)
+    resampled = []
+    orig = AsyncBufferedBackend.set_dispatch
+
+    def set_dispatch(backend, clients):
+        resampled.extend({c.id for c in clients} & backend.in_flight_ids)
+        orig(backend, clients)
+    group = {"group": (AsyncBufferedBackend, "_dispatch_chunk",
+                       lambda be, params, chunk, km, rates, members: members is not None)}
+    with sgd_timer(torch, group) as timer:
+        AsyncBufferedBackend.set_dispatch = set_dispatch
+        try:
+            for b in range(buffers):
+                sim.run_round(eval_now=b == buffers - 1)
+        finally:
+            AsyncBufferedBackend.set_dispatch = orig
+    check(not resampled, f"async: clients {sorted(resampled)[:8]} sampled while in flight")
+    check(set(np.flatnonzero(sim.store.in_flight).tolist()) == sim.backend.in_flight_ids,
+          "async: the store's in-flight set is not the backend's")
+    return sim, timer
+
+
+def hold_async_against_plain(np, name, a, b):
+    """Two async runs: the same clock, arrivals, staleness, plans,
+    keep-maps and store, params within POP_PARAM_TOL; returns the params'
+    gap."""
+    (sa, *_), (sb, *_) = a, b
+    hold_same_histories(name, sa.server.history, sb.server.history, clock=True)
+    check(sa.backend.last_arrived == sb.backend.last_arrived
+          and sa.backend.in_flight_ids == sb.backend.in_flight_ids,
+          f"{name}: arrivals differ")
+    check(store_equal(np, sa.store, sb.store), f"{name}: stores differ")
+    diff = max_diff(leaves_of(sa), leaves_of(sb))
+    check(diff <= POP_PARAM_TOL, f"{name}: params differ by {diff}")
+    return diff
+
+
+def phase_async(torch, np, dev="cuda"):
+    """The async buffered backend on the card: launch/async_fl's defaults
+    (20 000 clients, buffer_k 16, concurrency 128, staleness exponent 0.5,
+    client tail 0.6) on femnist_kernel with the kernels, drop_prob 0.05
+    and a flash crowd of 20 at step 3 (a padded dispatch group), 10
+    buffers. Gates: each masked-FFN kernel launched once per SGD step of
+    every dispatch group, and each launch held against its plain version
+    on the same inputs, a padding slot's rows exactly 0; stale arrivals
+    and survived dropouts; the store's in-flight set is the backend's, and
+    no client is sampled while in flight; the plain versions give the same
+    clock, arrivals, staleness and plans, params within 1e-6. A
+    zero-spread run (buffer_k = concurrency = cohort 16, pass-through
+    arrivals, no tail, 3 rounds) equals the kernel fleet bitwise. A short
+    femnist_attn run (K 8, concurrency 16, a flash crowd of 20 at step 1,
+    3 buffers) holds the head-masked kernels under padding against their
+    plain versions in the same two ways. The times come from buffers that
+    follow the gated ones."""
+    from repro_torch.core.straggler import ArrivalModel
+    from repro_torch.fl.async_rounds import AsyncBufferedBackend, AsyncConfig
+    from repro_torch.fl.population import PopulationConfig, build_population
+    from repro_torch.kernels import ops
+    name = "async"
+    per_step = {k: 1 for k in TRAIN_KERNELS}
+    ops.reset_launch_counts()                  # main path starts here
+    with HoldLaunches(torch) as hold:
+        run = async_run(torch, np, ASYNC_ARGS, ASYNC_BUFFERS, dev)
+    counts = ops.launch_counts()               # main path ends here
+    sim, timer = run
+    steps = check_launches(name, counts, timer, per_step)
+    held = hold.check(name, counts, TRAIN_KERNELS)
+    hist, be = list(sim.server.history), sim.backend
+    check(all(n == be.cfg.buffer_k for _, (_, n) in timer.calls["sgd"]),
+          f"{name}: a dispatch group not of buffer_k clients")
+    padded = sum(1 for _, pad in timer.calls["group"] if pad)
+    check(padded > 0, f"{name}: no padded dispatch group")
+    check(held["masked_ffn_dw"]["zero_grad_rows"] > 0, f"{name}: no padding row held")
+    check(any(h.staleness_max > 0 for h in hist), f"{name}: no stale arrival")
+    check(be.total_drops > 0, f"{name}: no dropout survived")
+    check(any(h.stragglers for h in hist), f"{name}: dropout never engaged")
+    check(all(bool(torch.isfinite(p).all()) for p in leaves_of(sim)),
+          f"{name}: non-finite params")
+
+    undo = swap_in_plain(ops)
+    try:
+        plain = async_run(torch, np, ASYNC_ARGS, ASYNC_BUFFERS, dev)
+    finally:
+        undo()
+    plain_diff = hold_async_against_plain(np, f"{name} (kernels against plain)", run, plain)
+    del plain
+
+    # zero spread: async at buffer_k = concurrency = cohort equals the fleet
+    zero = dict(POP_CFG, n_clients=20_000, cohort_size=16, device=dev)
+    fleet = build_population(PopulationConfig(**zero))
+    fleet.run(3)
+    asy = build_population(PopulationConfig(**{**zero, "backend": "async"}, async_cfg=AsyncConfig(
+        buffer_k=16, concurrency=16, arrival=ArrivalModel())))
+    asy.run(3)
+    hf, ha = fleet.server.history, asy.server.history
+    zero_ok = {
+        "params": all(torch.equal(a, b) for a, b in zip(leaves_of(fleet), leaves_of(asy))),
+        "store": store_equal(np, fleet.store, asy.store),
+        "plans": all(x.stragglers == y.stragglers and x.rates == y.rates
+                     and x.round_time == y.round_time and x.threshold == y.threshold
+                     for x, y in zip(hf, ha)),
+        # left to right, as the clock adds them (Python's sum of floats
+        # compensates, so it can differ in the last place)
+        "clock_is_barrier_sum": [h.clock for h in ha]
+        == list(itertools.accumulate(h.round_time for h in hf))}
+    check(all(zero_ok.values()), f"{name}: zero-spread async against the kernel fleet: {zero_ok}")
+    check(any(h.stragglers for h in hf), f"{name}: zero-spread run never dropped")
+    del fleet, asy
+
+    # femnist_attn under padding, kernels against plain
+    attn_argv = ["--workload", "femnist_attn", "--drop-prob", "0.05"]
+    acfg = {k: v for k, v in ATTN_ASYNC.items() if k != "buffers"}
+    ops.reset_launch_counts()
+    with HoldLaunches(torch) as ahold:
+        attn = async_run(torch, np, attn_argv, ATTN_ASYNC["buffers"], dev, **acfg)
+    attn_counts = ops.launch_counts()
+    attn_steps = check_launches(f"{name} femnist_attn", attn_counts, attn[1],
+                                {**per_step, **ATTN_KERNELS})
+    attn_held = ahold.check(f"{name} femnist_attn", attn_counts,
+                            (*TRAIN_KERNELS, *ATTN_KERNELS))
+    check(any(pad for _, pad in attn[1].calls["group"]),
+          f"{name} femnist_attn: no padded dispatch group")
+    check(all(attn_held[k]["zero_grad_rows"] > 0 for k in HEAD_DW),
+          f"{name} femnist_attn: no padding row held")
+    undo = swap_in_plain(ops)
+    try:
+        attn_plain = async_run(torch, np, attn_argv, ATTN_ASYNC["buffers"], dev, **acfg)
+    finally:
+        undo()
+    attn_diff = hold_async_against_plain(np, f"{name} femnist_attn (kernels against plain)",
+                                         attn, attn_plain)
+    del attn, attn_plain
+
+    clock = sim.clock                          # after the gated buffers
+    buf_s = wall_rounds(torch, sim, ASYNC_TIMED_BUFFERS)
+    group = {"group": (AsyncBufferedBackend, "_dispatch_chunk", None)}
+    parts, ptimer = part_shares(torch, sim, ASYNC_TIMED_BUFFERS, group)
+    group_s = [s for s, _ in ptimer.calls["group"]]
+    prof = busy_share(torch, lambda: sim.run_round())
+    return {
+        "config": {"argv": ASYNC_ARGS, "buffers": ASYNC_BUFFERS, "buffer_k": be.cfg.buffer_k,
+                   "concurrency": be.cfg.concurrency, "n_clients": sim.cfg.n_clients},
+        "virtual_clock_s": clock, "timed_buffers": ASYNC_TIMED_BUFFERS, "buffer_s": buf_s,
+        "buffers_per_wall_s": len(buf_s) / sum(buf_s),
+        "parts": {**parts, "dispatch_groups": len(group_s),
+                  "ms_per_dispatch_group": 1e3 * sum(group_s) / len(group_s)},
+        "padded_groups": padded,
+        "staleness_max": [h.staleness_max for h in hist],
+        "n_stragglers": [len(h.stragglers) for h in hist],
+        "dropouts_survived": be.total_drops, "dispatched": be.n_dispatched,
+        "in_flight": len(be.in_flight_ids), "accuracy": hist[-1].accuracy,
+        "held_against_plain": held, "params_max_abs_diff_vs_plain": plain_diff,
+        "zero_spread": {**zero_ok, "rounds": 3, "clock_s": ha[-1].clock},
+        "femnist_attn": {**ATTN_ASYNC, "flash_crowds": list(ATTN_ASYNC["flash_crowds"]),
+                         "params_max_abs_diff_vs_plain": attn_diff,
+                         "held_against_plain": attn_held,
+                         "launches": attn_counts, "sgd_steps": attn_steps},
+        "profile_buffer": prof, "launches": counts, "sgd_steps": steps}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -1752,6 +2384,12 @@ def main() -> int:
               f"train_dense launched a kernel: {ops.launch_counts()}")
         emit("train_dense", **dense, launches=ops.launch_counts())
         del train_runs, attn_runs
+        torch.cuda.empty_cache()
+        # the population and async layer: their launch counts stay on their
+        # own lines
+        emit("population", **phase_population(torch, np))
+        torch.cuda.empty_cache()
+        emit("async", **phase_async(torch, np))
         # launches: serving's kernels from the serve phase, the chunked scan's
         # from serve_rwkv, the FFN training kernels' from train, the
         # head-masked kernels' from train_attn; invariant_stats is on no main

@@ -7,8 +7,8 @@ it, weighted by sample count:
 
     w_new = w + sum_c(n_c * mask_c * delta_c) / sum_c(n_c * mask_c)
 
-The async forms (``aggregate_buffered``, ``staleness_scale``) wait for the
-async slice (ROADMAP.md queue A).
+The async buffer's form, ``aggregate_buffered``, discounts each arrival's
+weight by ``staleness_scale`` before both sums.
 """
 from __future__ import annotations
 
@@ -59,6 +59,38 @@ def aggregate_stacked(global_params, stacked_deltas, weights,
     denominator factors through the K distinct bank rows."""
     k = tree_leaves(mask_bank)[0].shape[0]
     num, w_per_mask = partial_sums(stacked_deltas, weights, mask_idx, k)
+    return combine_partials(global_params, num, w_per_mask, mask_bank)
+
+
+def staleness_scale(staleness, exponent):
+    """Per-arrival staleness discount for buffered async FedAvg,
+    normalized so a uniformly stale buffer is plain masked FedAvg:
+
+        scale_i = (1 + s_i)^(-a) / max_j (1 + s_j)^(-a)
+
+    s_i is the number of server versions between client i's dispatch and
+    its arrival, ``a`` the exponent. The max-normalization gives two exact
+    identities: an all-fresh buffer scales by exactly 1.0, and a uniformly
+    stale one by x/x == 1.0. fp32; (C,) on the device of ``staleness``
+    (numpy input lands on the CPU)."""
+    s = torch.as_tensor(staleness, dtype=torch.float32)
+    a = torch.as_tensor(exponent, dtype=torch.float32, device=s.device)
+    raw = (1.0 + s) ** (-a)
+    return raw / raw.max()
+
+
+def aggregate_buffered(global_params, stacked_deltas, weights,
+                       mask_bank, mask_idx, staleness, exponent):
+    """``aggregate_stacked`` for an async arrival buffer
+    (fl/async_rounds.py): each arrival's sample-count weight is scaled by
+    ``staleness_scale`` before both the numerator and the per-mask
+    denominator, so coordinates only a stale straggler trained still
+    average to its (discounted) delta. With zero staleness the scaled
+    weights equal ``weights`` bitwise and this is ``aggregate_stacked``."""
+    scale = staleness_scale(staleness, exponent).to(weights.device)
+    w = weights.float() * scale
+    k = tree_leaves(mask_bank)[0].shape[0]
+    num, w_per_mask = partial_sums(stacked_deltas, w, mask_idx, k)
     return combine_partials(global_params, num, w_per_mask, mask_bank)
 
 

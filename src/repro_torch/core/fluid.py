@@ -5,8 +5,9 @@ port's modules. The per-client stats it reads are torch fp32 tensors
 (``core/invariant``); everything it decides is numpy or Python.
 
 The server is agnostic to how clients execute: anything satisfying the
-RoundBackend contract (fl/rounds.py; the port has the fleet backend so
-far) works, and the backend may change per round. Per calibration step the server (1) records end-to-end client
+RoundBackend contract (fl/rounds.py: sequential, fleet, sharded_fleet,
+and the async buffered backend) works, and the backend may change per
+round. Per calibration step the server (1) records end-to-end client
 times into the store's speed history, (2) re-detects stragglers and
 T_target from that history, (3) re-derives per-straggler dropout rates r_i
 from the linear time model and writes them back to the store, (4)

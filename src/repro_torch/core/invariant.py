@@ -29,16 +29,19 @@ def _get(tree, path: str):
     return node
 
 
-def _per_unit(arr, axis, tile, size):
-    """Group an array's producer weights by unit: -> (size, -1).
+def _per_unit(arr, axis, tile, size, lead=0):
+    """Group an array's producer weights by unit: -> (*lead axes, size, -1).
 
     Mirrors submodel.expand_indices' grammar: tile>0 is tile-major (unit
     index fastest along the axis), tile<0 is unit-major (each unit owns
-    |tile| contiguous slots — the attention-head layout)."""
-    a = torch.movedim(arr, axis, 0)
+    |tile| contiguous slots — the attention-head layout). ``lead`` leading
+    axes (a stacked client axis) stay in front."""
+    a = torch.movedim(arr, axis + lead, lead)
+    front = a.shape[:lead]
     if tile < 0:
-        return a.reshape(size, -1)
-    return a.reshape(tile, size, -1).transpose(0, 1).reshape(size, -1)
+        return a.reshape(*front, size, -1)
+    return (a.reshape(*front, tile, size, -1).transpose(lead, lead + 1)
+            .reshape(*front, size, -1))
 
 
 def neuron_stats_for_group(prev_tree, new_tree, group,
@@ -48,7 +51,9 @@ def neuron_stats_for_group(prev_tree, new_tree, group,
     kind="norm" (default): ||Δw|| / (||w(t-1)|| + eps) per neuron.
     kind="max": the per-weight max of |Δw| / (|w(t-1)| + eps) (dominated by
     near-zero weights; the reference keeps it for ablation). Returns
-    (size,) float32."""
+    (size,) float32; (C, size) when new_tree's leaves carry a leading
+    client axis over prev_tree's (C clients' new trees stacked, as the
+    fleet's are), each row the statistic of one client."""
     size = group["size"]
     dev = _get(prev_tree, group["out"][0][0]).device
     if kind == "max":
@@ -57,21 +62,26 @@ def neuron_stats_for_group(prev_tree, new_tree, group,
             w0 = _get(prev_tree, path).float()
             w1 = _get(new_tree, path).float()
             rel = (w1 - w0).abs() / (w0.abs() + EPS)
+            lead = w1.ndim - w0.ndim
             stats = torch.maximum(stats,
-                                  _per_unit(rel, axis, tile, size).amax(1))
+                                  _per_unit(rel, axis, tile, size, lead).amax(-1))
         return stats
     num = torch.zeros((size,), dtype=torch.float32, device=dev)
     den = torch.zeros((size,), dtype=torch.float32, device=dev)
     for path, axis, tile in group["out"]:
         w0 = _get(prev_tree, path).float()
         w1 = _get(new_tree, path).float()
-        num = num + _per_unit(torch.square(w1 - w0), axis, tile, size).sum(1)
+        lead = w1.ndim - w0.ndim
+        num = num + _per_unit(torch.square(w1 - w0), axis, tile, size,
+                              lead).sum(-1)
         den = den + _per_unit(torch.square(w0), axis, tile, size).sum(1)
     return torch.sqrt(num) / (torch.sqrt(den) + EPS)
 
 
 def neuron_stats(prev_tree, new_tree, unit_specs,
                  kind: str = "norm") -> Dict[str, torch.Tensor]:
+    """{group: neuron_stats_for_group}: (size,) per group, or (C, size)
+    for a stacked new_tree."""
     return {g["name"]: neuron_stats_for_group(prev_tree, new_tree, g, kind)
             for g in unit_specs}
 

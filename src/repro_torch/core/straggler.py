@@ -1,8 +1,8 @@
 """Straggler detection + sub-model sizing from profiled client latencies.
 
 A numpy copy of ``repro/core/straggler.py`` (same decisions for the same
-latencies, tests/test_torch_fl.py). The async arrival model
-(``ArrivalModel``) waits for the async slice (ROADMAP.md queue A).
+latencies, tests/test_torch_fl.py), with the async backend's arrival
+model (``ArrivalModel``, tests/test_torch_async.py).
 
 The paper's rule (§5):
   * T_target = the next-slowest (non-straggler) client's end-to-end time;
@@ -14,6 +14,7 @@ change at runtime (paper Fig. 4b).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -162,3 +163,56 @@ def plan_from_store(store, client_ids: Sequence[int],
                     gap_factor=gap_factor)
     return _plan_with(latencies,
                       detect_band(latencies, gap_factor=gap_factor), sizes)
+
+
+# ---------------------------------------------------------------------------
+# Arrival-process model (asynchronous rounds, fl/async_rounds.py)
+
+@dataclass
+class ArrivalModel:
+    """What happens to a dispatched client between "starts training" and
+    "its delta reaches the server": the arrival process of the async
+    buffered backend (fl/async_rounds.py).
+
+    The base latency comes from the client speed model
+    (``SimClient._sim_time``, with its own lognormal tail ``tail_sigma``, so
+    the synchronous baseline sees the same distribution). This model adds
+    the async-only failure modes:
+
+      * ``tail_sigma``: extra multiplicative lognormal spread on async
+        arrivals only;
+      * ``drop_prob``: per-dispatch probability the client falls off
+        mid-round; it reconnects after an Exp(reconnect_mean) pause and its
+        delta lands in a later buffer with higher staleness;
+      * ``max_drops``: cap on consecutive dropouts per dispatch.
+
+    Draws come from a private seeded ``RandomState``: the lognormal first,
+    then the drop loop. With everything at zero ``draw(t)`` returns
+    ``(t, 0)`` and consumes no randomness, which the zero-spread
+    fleet == async equivalence relies on."""
+    tail_sigma: float = 0.0
+    drop_prob: float = 0.0
+    reconnect_mean: float = 30.0
+    max_drops: int = 2
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.tail_sigma < 0.0:
+            raise ValueError(f"tail_sigma must be >= 0, got {self.tail_sigma}")
+        if not 0.0 <= self.drop_prob < 1.0:
+            raise ValueError(f"drop_prob must be in [0, 1), "
+                             f"got {self.drop_prob}")
+        self._rng = np.random.RandomState(self.seed)
+
+    def draw(self, base: float):
+        """(arrival latency, n_dropouts) for one dispatched job whose
+        compute+transfer time is ``base`` emulated seconds."""
+        lat = float(base)
+        if self.tail_sigma > 0.0:
+            lat *= math.exp(self.tail_sigma * float(self._rng.randn()))
+        drops = 0
+        while (self.drop_prob > 0.0 and drops < self.max_drops
+               and self._rng.rand() < self.drop_prob):
+            lat += float(self._rng.exponential(self.reconnect_mean))
+            drops += 1
+        return max(lat, 1e-6), drops

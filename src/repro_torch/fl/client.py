@@ -16,13 +16,13 @@ Two execution paths share the same data and speed model:
 Every client draws from its own ``np.random.RandomState`` in the
 reference's order — one permutation per local epoch (``_epoch_order``),
 then one noise draw for the round's time (``_sim_time``) — so a port round
-sees the same batches and the same times as the reference's.
-
-The async backend's lognormal latency tail (``tail_sigma``) waits for its
-slice (ROADMAP.md queue A).
+sees the same batches and the same times as the reference's. A lognormal
+latency tail (``tail_sigma > 0``, the population and async runs) draws one
+more normal after the noise.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
@@ -82,6 +82,7 @@ class SimClient:
     speed: float                     # seconds per epoch at r = 1.0
     comm_s_per_mparam: float = 0.05  # transfer seconds per 1e6 params (x2)
     noise: float = 0.03
+    tail_sigma: float = 0.0          # lognormal heavy-tail sigma (0 = off)
     batch_size: int = 20
     local_epochs: int = 1
     lr: float = 0.01
@@ -89,7 +90,8 @@ class SimClient:
     _rng: np.random.RandomState = field(init=False, repr=False)
 
     def __post_init__(self):
-        # the reference's seed derivation, kept in RandomState's [0, 2**32)
+        # the reference's seed derivation, kept in RandomState's [0, 2**32):
+        # the async backend's capacity pads carry negative ids
         self._rng = np.random.RandomState((self.seed + 1000 * self.id)
                                           % (2 ** 32))
 
@@ -108,10 +110,14 @@ class SimClient:
         return self._rng.permutation(self.n_samples)[:nb * bs]
 
     def _sim_time(self, rate: float, n_params: int) -> float:
-        """End-to-end emulated seconds (one RNG draw): linear in sub-model
-        size, plus transfer."""
+        """End-to-end emulated seconds (one RNG draw; a second when
+        tail_sigma > 0): linear in sub-model size, times a lognormal tail
+        draw, plus transfer. At tail_sigma 0 no extra draw is consumed, so
+        every seeded run without a tail is unchanged."""
         sim = (self.speed * self.local_epochs * rate
                * (1.0 + self.noise * self._rng.randn()))
+        if self.tail_sigma > 0.0:
+            sim *= math.exp(self.tail_sigma * float(self._rng.randn()))
         sim += 2 * self.comm_s_per_mparam * n_params / 1e6
         return max(sim, 1e-6)
 

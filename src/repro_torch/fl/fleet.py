@@ -65,30 +65,50 @@ class CohortResult:
     client_ids: List[int]
     sim_times: Dict[int, float]
     straggler_ids: frozenset
+    members: Optional[np.ndarray] = None   # (C,) bool; None = all real
+
+    def _is_member(self, i: int) -> bool:
+        return self.members is None or bool(self.members[i])
+
+    @functools.cached_property
+    def idx_host(self) -> List[int]:
+        """mask_idx on the host, read once."""
+        return self.mask_idx.cpu().tolist()
 
     def aggregate(self, global_params):
-        """Masked FedAvg of the cohort (== core.aggregate.aggregate)."""
+        """Masked FedAvg of the cohort (== core.aggregate.aggregate).
+        Padding slots (members[i] == False) carry zero weight and zero
+        deltas, so they cancel out of both sums."""
         return aggregate_stacked(global_params, self.deltas, self.weights,
                                  self.mask_bank, self.mask_idx)
 
     def non_straggler_stats(self, prev_params) -> List[Dict[str, torch.Tensor]]:
-        """Per-client invariant-neuron stats (fp32, on the host)."""
-        out = []
-        for i, cid in enumerate(self.client_ids):
-            if cid in self.straggler_ids:
-                continue
-            new = tree_map(lambda p, d: p + d[i], prev_params, self.deltas)
-            stats = inv.neuron_stats(prev_params, new, self.engine.unit_specs)
-            out.append({g: v.cpu() for g, v in stats.items()})
-        return out
+        """Per-client invariant-neuron stats of the real full-model clients
+        (fp32, on the host), computed batched over the selected clients on
+        the device (``neuron_stats`` of their stacked new trees, as the
+        reference vmaps it) and brought to the host in one copy per unit
+        group."""
+        sel = [i for i, cid in enumerate(self.client_ids)
+               if cid not in self.straggler_ids and self._is_member(i)]
+        if not sel:
+            return []
+        rows = torch.as_tensor(sel, device=self.mask_idx.device)
+        new = tree_map(lambda p, d: p + d.index_select(0, rows), prev_params,
+                       self.deltas)
+        stacked = inv.neuron_stats(prev_params, new, self.engine.unit_specs)
+        host = {g: v.cpu() for g, v in stacked.items()}
+        return [{g: v[j] for g, v in host.items()} for j in range(len(sel))]
 
     def updates(self) -> List[ClientUpdate]:
-        """Sequential-style ClientUpdates (tests / inspection)."""
+        """Sequential-style ClientUpdates of the real clients (tests /
+        inspection)."""
         out = []
         for i, cid in enumerate(self.client_ids):
+            if not self._is_member(i):
+                continue
             mask = None
             if cid in self.straggler_ids:
-                row = int(self.mask_idx[i])
+                row = self.idx_host[i]
                 mask = tree_map(lambda b: b[row], self.mask_bank)
             out.append(ClientUpdate(tree_map(lambda d: d[i], self.deltas),
                                     int(self.weights[i]), mask,
@@ -117,8 +137,10 @@ class FleetEngine:
                 f"{model_cls.__name__} does not")
         # batch dim pads to the cohort max; smaller shards get sample weights
         self.bs = max(c.eff_batch_size for c in self.clients)
-        self.steps = max(c.local_epochs * (c.n_samples // c.eff_batch_size)
-                         for c in self.clients)
+        self.client_steps = np.array(
+            [c.local_epochs * (c.n_samples // c.eff_batch_size)
+             for c in self.clients], np.int32)
+        self.steps = int(self.client_steps.max())
         self.lrs = np.array([c.lr for c in self.clients], np.float32)
         if self.use_kernels:
             self._loss = make_weighted_kernel_loss(model_cls)
@@ -131,11 +153,12 @@ class FleetEngine:
         self._bank_cache = None        # (fingerprint, bank, idx, n_by_row)
 
     # ------------------------------------------------------------- internals
-    def _stacked_data(self):
+    def _stacked_data(self, n_steps: Optional[np.ndarray] = None):
         """(xs, ys, sw) on the device: per-client epoch batches padded to
         (steps, bs); sw is 1.0 on real samples, 0.0 on batch/step padding.
         Built on the host, consuming each client's RNG as the reference
-        does, and moved to the device in one copy each."""
+        does, and moved to the device in one copy each. n_steps (C,) caps
+        each client's real SGD steps by zero-weighting the tail."""
         C = len(self.clients)
         feat = self.clients[0].x.shape[1:]
         xs = np.zeros((C, self.steps, self.bs, *feat),
@@ -148,6 +171,8 @@ class FleetEngine:
             xs[i, :s, :b] = x
             ys[i, :s, :b] = y
             sw[i, :s, :b] = 1.0
+            if n_steps is not None:
+                sw[i, int(n_steps[i]):] = 0.0
         to = functools.partial(torch.as_tensor, device=self.device)
         return to(xs), to(ys), to(sw)
 
@@ -200,25 +225,67 @@ class FleetEngine:
         with torch.no_grad():
             return tree_map(lambda a, b: a.detach() - b, w, w0)
 
+    def _execute(self, params, bank, idx, xs, ys, sw, lrs, weights):
+        """Run the cohort program. Returns (deltas, extra): extra is None
+        here; the sharded engine (fl/shard_fleet.py) returns its shards'
+        aggregation partials."""
+        return self._run(params, bank, idx, xs, ys, sw, lrs), None
+
+    def _wrap_result(self, extra, **kw) -> CohortResult:
+        return CohortResult(**kw)
+
     # ------------------------------------------------------------------- API
     def run_cohort(self, params, keep_maps: Dict[int, dict],
-                   rates: Optional[Dict[int, float]] = None) -> CohortResult:
+                   rates: Optional[Dict[int, float]] = None,
+                   lr=None, n_steps=None, members=None) -> CohortResult:
         """One FL round for the whole fleet: keep_maps/rates per straggler
-        client id (absent => full model). The reference's partial-cohort
-        and per-round (lr, n_steps) overrides serve its async backend and
-        wait with it."""
+        client id (absent => full model).
+
+        lr: optional scalar or (C,) array overriding the clients' learning
+        rates; n_steps: optional (C,) ints capping each client's real SGD
+        steps. Both are data: the program is the same.
+
+        members: optional (C,) bool marking which slots are real clients,
+        for callers that keep the cohort capacity-padded while dispatching
+        fewer (fl/async_rounds.py pads every dispatch group to buffer_k). A
+        padding slot runs 0 SGD steps (all its sample weights are zero, so
+        its delta is exactly zero), carries zero aggregation weight, draws
+        no sim time, and is left out of the stats and updates()."""
         rates = rates or {}
-        xs, ys, sw = self._stacked_data()
+        C = len(self.clients)
+        if lr is None:
+            lrs = self.lrs
+        else:
+            lrs = np.broadcast_to(np.asarray(lr, np.float32), (C,))
+        if n_steps is not None:
+            n_steps = np.asarray(n_steps, np.int32)
+            if n_steps.shape != (C,):
+                raise ValueError(f"n_steps must be ({C},), "
+                                 f"got {n_steps.shape}")
+        if members is not None:
+            members = np.asarray(members, bool)
+            if members.shape != (C,):
+                raise ValueError(f"members must be ({C},), "
+                                 f"got {members.shape}")
+            base_steps = self.client_steps if n_steps is None else n_steps
+            n_steps = np.where(members, base_steps, 0).astype(np.int32)
+        xs, ys, sw = self._stacked_data(n_steps)
         bank, idx, n_by_row = self._mask_bank(params, keep_maps)
-        weights = torch.tensor([float(c.n_samples) for c in self.clients],
-                               device=self.device)
-        deltas = self._run(params, bank, idx, xs, ys, sw,
-                           torch.as_tensor(self.lrs, device=self.device))
+        w_host = np.asarray([c.n_samples for c in self.clients], np.float32)
+        if members is not None:
+            w_host = np.where(members, w_host, 0.0).astype(np.float32)
+        weights = torch.as_tensor(w_host, device=self.device)
+        deltas, extra = self._execute(
+            params, bank, idx, xs, ys, sw,
+            torch.tensor(lrs, dtype=torch.float32, device=self.device),
+            weights)
         idx_host = idx.cpu().numpy()
         sim_times = {c.id: c.draw_sim_time(rates.get(c.id, 1.0),
                                            int(n_by_row[idx_host[i]]))
-                     for i, c in enumerate(self.clients)}
-        return CohortResult(
-            engine=self, deltas=deltas, weights=weights, mask_bank=bank,
-            mask_idx=idx, client_ids=[c.id for c in self.clients],
-            sim_times=sim_times, straggler_ids=frozenset(keep_maps))
+                     for i, c in enumerate(self.clients)
+                     if members is None or members[i]}
+        return self._wrap_result(
+            extra, engine=self, deltas=deltas, weights=weights,
+            mask_bank=bank, mask_idx=idx,
+            client_ids=[c.id for c in self.clients], sim_times=sim_times,
+            straggler_ids=frozenset(keep_maps), members=members)

@@ -11,23 +11,57 @@
 
 SequentialBackend is the numerical reference (one client at a time,
 physically extracted sub-models); FleetBackend trains the whole cohort as
-one batched program (fl/fleet.py), densely or through the kernels. They
-agree up to float summation order. The sharded_fleet and async backends,
-and the async ``EventLoop``, wait for a later slice (ROADMAP.md queue A).
+one batched program (fl/fleet.py), densely or through the kernels;
+ShardedFleetBackend runs that program shard by shard and reduces
+hierarchically (fl/shard_fleet.py). They agree up to float summation
+order. AsyncBufferedBackend (fl/async_rounds.py) drops the barrier:
+``run_round`` dispatches the cohort and drains the first K arrivals off
+the ``EventLoop`` below, a deterministic (time, push-order) heap, so a
+zero-latency-spread run resolves ties in dispatch order and the whole async
+schedule reproduces from the seeds alone.
 """
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass
-from typing import Dict, List, Protocol, Sequence
+from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 
 from repro_torch.core import invariant as inv
 from repro_torch.core import submodel as sub
 from repro_torch.core.aggregate import ClientUpdate, aggregate
 from repro_torch.core.tree import tree_map
 from repro_torch.fl.fleet import FleetEngine
+from repro_torch.fl.shard_fleet import ShardedFleetEngine
 
 BACKEND_NAMES = ("sequential", "fleet", "sharded_fleet", "async")
-PORTED_BACKENDS = ("sequential", "fleet")
+PORTED_BACKENDS = BACKEND_NAMES
+
+
+class EventLoop:
+    """Virtual-clock event queue for emulated asynchrony.
+
+    ``push(t, payload)`` schedules; ``pop()`` returns the earliest event
+    and advances ``now`` monotonically (a pop never rewinds the clock).
+    Ties on ``t`` break by push order, so with zero latency spread the
+    async backend drains arrivals in exactly the order it dispatched
+    them."""
+
+    def __init__(self):
+        self._heap: List[Tuple[float, int, object]] = []
+        self._seq = 0
+        self.now = 0.0
+
+    def push(self, t: float, payload) -> None:
+        heapq.heappush(self._heap, (float(t), self._seq, payload))
+        self._seq += 1
+
+    def pop(self):
+        t, _, payload = heapq.heappop(self._heap)
+        self.now = max(self.now, t)
+        return t, payload
+
+    def __len__(self) -> int:
+        return len(self._heap)
 
 
 class RoundResult(Protocol):
@@ -121,18 +155,41 @@ class FleetBackend:
         return self.engine.run_cohort(params, keep_maps, rates)
 
 
+class ShardedFleetBackend(FleetBackend):
+    """The fleet program shard by shard, with hierarchical aggregation."""
+    name = "sharded_fleet"
+
+
 def make_backend(name: str, model_cls, clients, unit_specs,
-                 use_kernels: bool = False, device="cuda") -> RoundBackend:
+                 use_kernels: bool = False, n_shards: Optional[int] = None,
+                 async_cfg=None, device="cuda") -> RoundBackend:
     """A RoundBackend for one cohort. The sequential backend trains on the
-    params' device; the fleet on ``device``."""
+    params' device; the others on ``device``.
+
+    sharded_fleet takes ``n_shards`` (default 1: one card is one device).
+    "async" builds an AsyncBufferedBackend with ``clients`` as its first
+    dispatch group. Unlike the synchronous backends it is stateful across
+    rounds (virtual clock, in-flight arrival heap, server version): reuse
+    the instance and re-point ``set_dispatch(...)`` each round, as
+    fl/async_rounds.AsyncPopulationSim does; a fresh one per round would
+    discard every client in flight."""
+    if name == "async":
+        from repro_torch.fl.async_rounds import (AsyncBufferedBackend,
+                                                 AsyncConfig)
+        backend = AsyncBufferedBackend(model_cls, unit_specs,
+                                       async_cfg or AsyncConfig(),
+                                       use_kernels=use_kernels,
+                                       device=device)
+        backend.set_dispatch(clients)
+        return backend
     if name == "sequential":
         return SequentialBackend(clients, unit_specs)
     if name == "fleet":
         return FleetBackend(FleetEngine(model_cls, clients, unit_specs,
                                         use_kernels=use_kernels,
                                         device=device))
-    if name in BACKEND_NAMES:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported yet (ROADMAP.md queue A); the "
-            f"port has {PORTED_BACKENDS}")
+    if name == "sharded_fleet":
+        return ShardedFleetBackend(ShardedFleetEngine(
+            model_cls, clients, unit_specs, n_shards=n_shards,
+            use_kernels=use_kernels, device=device))
     raise ValueError(f"backend must be one of {BACKEND_NAMES}, got {name!r}")

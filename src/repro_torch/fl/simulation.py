@@ -10,8 +10,9 @@ synchronous backends ``sequential`` (the default: one client at a time,
 stragglers on physically extracted sub-models) and ``fleet`` (the cohort
 as one batched program; dense by default, through the hand-written
 masked-FFN and head-masked kernels with ``use_kernels=True``, which only
-the two kernel workloads' models support). ``sharded_fleet`` raises
-``NotImplementedError`` until its slice (ROADMAP.md queue A).
+the two kernel workloads' models support), and on ``sharded_fleet`` (the
+fleet's program shard by shard, reduced hierarchically; fl/shard_fleet.py).
+``backend="async"`` is population-scale only (fl/population.py).
 
 ``device`` defaults to "cuda", and a config that asks for the card raises
 on a machine without one. With ``device="cpu"`` the cohort trains on the
@@ -38,7 +39,7 @@ from repro_torch.data.partition import partition_non_iid
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.fl.client import FleetClient, SimClient
 from repro_torch.fl.population import ClientStore
-from repro_torch.fl.rounds import BACKEND_NAMES, PORTED_BACKENDS, make_backend
+from repro_torch.fl.rounds import BACKEND_NAMES, make_backend
 from repro_torch.models.kernel_models import KERNEL_MODELS
 from repro_torch.models.small import MODELS
 
@@ -100,6 +101,7 @@ class SimulationConfig:
     fixed_rate: Optional[float] = None
     straggler_frac: Optional[float] = None
     use_kernels: bool = False     # fleet backend: masked matmuls through kernels
+    n_shards: Optional[int] = None  # sharded_fleet: logical shard count
     seed: int = 0
     device: str = "cuda"
 
@@ -117,17 +119,19 @@ class SimulationConfig:
             raise ValueError(f"workload must be one of "
                              f"{tuple(WORKLOADS)}, got {self.workload!r}")
         if self.backend == "async":
-            raise ValueError("backend='async' is population-scale only")
+            raise ValueError(
+                "backend='async' is population-scale only — use "
+                "build_population(PopulationConfig(backend='async', "
+                "async_cfg=AsyncConfig(...)))")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, "
                              f"got {self.backend!r}")
-        if self.backend not in PORTED_BACKENDS:
-            raise NotImplementedError(
-                f"backend {self.backend!r} is not ported yet (ROADMAP.md "
-                f"queue A); the port has {PORTED_BACKENDS}")
         if self.policy != "none" and self.policy not in available_policies():
             raise ValueError(f"unknown dropout policy {self.policy!r}; "
                              f"available: {available_policies()} or 'none'")
+        if self.n_shards is not None and self.backend != "sharded_fleet":
+            raise ValueError("n_shards only applies to backend="
+                             "'sharded_fleet'")
 
 
 @dataclass
@@ -210,7 +214,7 @@ def _build(cfg: SimulationConfig, params=None) -> Simulation:
                        straggler_frac=cfg.straggler_frac, seed=cfg.seed)
     backend = make_backend(cfg.backend, model_cls, clients,
                            model_cls.UNIT_SPECS, use_kernels=cfg.use_kernels,
-                           device=dev)
+                           n_shards=cfg.n_shards, device=dev)
     server = FluidServer(params, model_cls.UNIT_SPECS, backend, fcfg,
                          eval_fn=eval_fn, store=store)
     return Simulation(server, clients, model_cls, ds, cfg.backend)

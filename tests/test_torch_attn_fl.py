@@ -298,9 +298,11 @@ def test_femnist_attn_config_and_launches_on_cpu():
     sim, hist = t_simu.run_experiment(cfg, rounds=1)
     assert isinstance(sim.server.params["attn"]["wq"], torch.Tensor)
     assert set(ops.launch_counts().values()) == {0}     # plain versions only
-    with pytest.raises(NotImplementedError):
-        t_simu.SimulationConfig(workload="femnist_attn", backend="sharded_fleet",
-                                device="cpu")
+    cfg = t_simu.SimulationConfig(workload="femnist_attn", backend="sharded_fleet",
+                                  n_shards=2, device="cpu",
+                                  cohort=t_simu.CohortConfig(n_clients=2, n_data=60))
+    sim = t_simu.build_simulation(cfg)
+    assert sim.server.backend.engine.n_shards == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_simu.SimulationConfig(workload="femnist_attn", backend="fleet",

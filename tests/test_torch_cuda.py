@@ -10,6 +10,7 @@ Tolerances: fp32 inputs agree to 1e-4 relative (fp32 sums in another
 order); bf16 inputs to 1e-2 relative ∞-norm (the kernels round the masked
 hidden activation to bf16 where the plain version keeps fp32).
 """
+import itertools
 import math
 
 import numpy as np
@@ -904,3 +905,99 @@ def test_sequential_round_matches_dense_fleet_round(fp32_convs, workload):
                        zip(tree_leaves(a.mask), tree_leaves(b.mask)))
     for x, z in zip(tree_leaves(seq.aggregate(params)), tree_leaves(flt.aggregate(params))):
         assert float((x - z).abs().max()) <= 2e-5
+
+
+# ---------------------------------------------------------------------------
+# the population and async layer on the card
+
+def _pop_cfg(dev, **over):
+    from repro_torch.fl.population import PopulationConfig
+    kw = dict(n_clients=2000, cohort_size=16, workload="femnist_kernel",
+              backend="fleet", use_kernels=True, n_partitions=16,
+              samples_per_partition=40, straggler_frac_pop=0.2, seed=3,
+              device=str(dev))
+    kw.update(over)
+    return PopulationConfig(**kw)
+
+
+def test_zero_spread_async_equals_kernel_fleet_bitwise(dev):
+    """buffer_k = concurrency = cohort 16, pass-through arrivals, kernels
+    on: the async run is the kernel fleet's bit for bit (params, store,
+    plans), and each clock is the running sum of the barrier times."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl.async_rounds import AsyncConfig, build_async_population
+    from repro_torch.fl.population import build_population
+    ops.reset_launch_counts()
+    sync = build_population(_pop_cfg(dev))
+    sync.run(3)
+    asy = build_async_population(_pop_cfg(dev), AsyncConfig(buffer_k=16,
+                                                            concurrency=16))
+    asy.run(3)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["masked_ffn_dw"] == 4 * 3 * 2   # 4 steps a round, 2 runs
+    for a, b in zip(tree_leaves(sync.server.params), tree_leaves(asy.server.params)):
+        assert torch.equal(a, b)
+    for f in ("speed_ema", "speed_hist", "straggler_ema", "dropout_rate",
+              "rounds_participated", "in_flight"):
+        assert np.array_equal(getattr(sync.store, f), getattr(asy.store, f),
+                              equal_nan=True), f
+    hs, ha = sync.server.history, asy.server.history
+    assert [(h.stragglers, h.rates, h.round_time, h.threshold) for h in hs] == \
+        [(h.stragglers, h.rates, h.round_time, h.threshold) for h in ha]
+    assert any(h.stragglers for h in hs)
+    # each clock is the barrier times added left to right (Python's sum of
+    # floats compensates, so it can differ in the last place)
+    assert [h.clock for h in ha] == list(itertools.accumulate(h.round_time for h in hs))
+
+
+@pytest.mark.parametrize("workload", ["femnist_kernel", "femnist_attn"])
+def test_padded_async_group_kernels_match_plain(dev, workload):
+    """A dispatch group padded with 5 empty slots through the kernels: the
+    pads' deltas are exactly 0 and the real clients' deltas match the
+    plain versions' to 1e-4 relative."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.fl.population import build_population
+    from repro_torch.fl.fleet import FleetEngine
+    import dataclasses
+    sim = build_population(_pop_cfg(dev, workload=workload))
+    clients = sim._materialize(sim.cohort_ids())[:3]
+    chunk = clients + [dataclasses.replace(clients[0], id=-(j + 1)) for j in range(5)]
+    members = np.array([True] * 3 + [False] * 5)
+    keep = {clients[1].id: sim.server.policy.keep_map(0.5)}
+
+    def deltas(use_kernels):
+        eng = FleetEngine(sim.model_cls, [dataclasses.replace(c) for c in chunk],
+                          sim.model_cls.UNIT_SPECS, use_kernels=use_kernels,
+                          device=dev)
+        res = eng.run_cohort(sim.server.params, keep, {clients[1].id: 0.5},
+                             members=members)
+        return res, tree_leaves(res.deltas)
+    ops.reset_launch_counts()
+    res, got = deltas(True)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["masked_ffn_train_fwd"] == res.engine.steps
+    _, want = deltas(False)
+    assert sorted(res.sim_times) == sorted(c.id for c in clients)
+    for g, w in zip(got, want):
+        assert not bool(g[3:].any())
+        assert _rel_err(g[:3].cpu(), w[:3].cpu()) <= 1e-4
+
+
+def test_sharded_partials_sum_to_numerator_bitwise_on_the_card(dev):
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.fl.population import build_population
+    from repro_torch.fl.rounds import make_backend
+    sim = build_population(_pop_cfg(dev, backend="sharded_fleet", n_shards=4))
+    sim.run(2)
+    clients = sim._materialize(sim.cohort_ids())
+    ops.reset_launch_counts()
+    be = make_backend("sharded_fleet", sim.model_cls, clients,
+                      sim.model_cls.UNIT_SPECS, n_shards=4, use_kernels=True,
+                      device=dev)
+    res = be.run_round(sim.server.params, {}, {})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["masked_ffn_dx"] == 4 * be.engine.steps
+    pr_num, pr_w = res.shard_partials
+    num = tree_map(lambda a: ((a[0] + a[1]) + a[2]) + a[3], pr_num)
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(num), tree_leaves(res.num)))
+    assert torch.equal(((pr_w[0] + pr_w[1]) + pr_w[2]) + pr_w[3], res.w_per_mask)

@@ -385,9 +385,9 @@ def test_simulation_config_on_cuda_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(workload="femnist", backend="sharded_fleet"), NotImplementedError),
-    (dict(workload="femnist_kernel", backend="sharded_fleet"),
-     NotImplementedError),
+    (dict(workload="femnist", backend="fleet", n_shards=2), ValueError),
+    (dict(workload="femnist_kernel", backend="sharded_fleet",
+          use_kernels=True), ValueError),
     (dict(workload="femnist_attn", backend="async"), ValueError),
     (dict(workload="femnist_cnn"), ValueError),
     (dict(workload="femnist_kernel", backend="sequential", use_kernels=True),
