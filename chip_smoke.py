@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Prove the PyTorch port runs on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version at its path's shapes, serve
-StableLM-2-12B and RWKV-6-3B at full width, run FLuID training on both
-kernel workloads and on the paper's own workloads through
-``repro_torch``, and check the results.
+StableLM-2-12B, RWKV-6-3B, MiniCPM3-4B, RecurrentGemma-9B and
+Command-R-35B at full width, take a held decode step of Granite-20B, run
+FLuID training on both kernel workloads and on the paper's own workloads
+through ``repro_torch``, and check the results.
 
     python3 chip_smoke.py
 
@@ -31,8 +32,16 @@ the seconds the phase took (``phase_s``):
              equal; ``ms`` device time from a CUDA graph); invariant_stats
              at 1024 x 1024 fp32 and bf16 and at a 2560 x 8960 bf16
              channel-mix w_in (it is on no main path: its launches are
-             those of its checks here)
-  small      a smoke-size fp32 model, card vs CPU
+             those of its checks here); then the two serving kernels at
+             the zoo's decode shapes: masked_ffn_batch at MiniCPM3-4B's
+             (d 2560, F 6400, silu), RecurrentGemma-9B's (4096, 12288,
+             gelu gated) and Command-R-35B's (8192, 22528, silu) under the
+             same four masks, decode_gqa at Command-R's (64/8 heads) and
+             Granite-20B's (48/1, virtual head groups) on caches rotated
+             out of the L2 (the "zoo" entry of each kernel's row)
+  small      smoke-size fp32 models, card vs CPU: StableLM, MiniCPM3
+             (baseline and absorbed MLA decode), RecurrentGemma (past its
+             64-slot window, so the ring wraps), Command-R, Granite
   serve      24 mixed-rate requests at full width (serving's main path)
   step       every launch of a full-width decode step against its plain version
   profile    device time by kernel over a few decode steps
@@ -43,6 +52,28 @@ the seconds the phase took (``phase_s``):
              prefill's logits against the plain version's within a
              multiple of its 1e-7 noise floor; decode rate against its
              byte bound, busy share of 3 decode steps
+  serve_mla  MiniCPM3-4B at full width (62 layers, MLA with q-LoRA), the
+             serve phase's 24 requests: masked_ffn_batch launched 62 x
+             decode steps, decode_gqa never (MLA is plain torch, as in the
+             reference); one decode step with every launch held against
+             its plain version and the step against the plain step
+             (hidden, logits relative 2-norm <= 2e-2); the absorbed MLA
+             decode from the same caches within 2e-2 of the baseline's
+             logits; tok/s, ms a step against its byte bound (every
+             weight but the embedding), prefill ms, peak memory, busy share
+  serve_griffin RecurrentGemma-9B at full width (38 layers: RG-LRU, RG-LRU,
+             local attention x 12, then 2 RG-LRU), serve_rwkv's 16
+             requests of exactly 512 tokens: masked_ffn_batch 38 x steps
+             (gelu gated), decode_gqa never (windowed attention is plain);
+             held step and report as serve_mla
+  granite    Granite-20B at full width (d 6144, 48 query heads on one K/V
+             head): one decode step launches decode_gqa once a layer (its
+             biased FFN stays plain); every launch held, the step against
+             the plain step
+  serve_cmdr Command-R-35B at full width (40 parallel blocks, 64/8 heads,
+             64.8 GB of bf16 weights, every earlier model freed), the serve
+             phase's queue: masked_ffn_batch and decode_gqa 40 x steps;
+             held step and report as serve_mla
   train      6 FLuID rounds of femnist_kernel on the fleet backend (the
              FFN training path): each masked-FFN kernel launched once per
              SGD step; the same run with the plain versions must reach the
@@ -94,6 +125,7 @@ beside this script, it exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import subprocess
@@ -113,6 +145,27 @@ SFU_EXP_PER_S = 132 * 16 * 1.98e9
 FFN_SHAPE = dict(M=8, d=5120, F=13824)
 GQA_SHAPE = dict(B=8, H=32, KV=8, hd=128, C=576)
 GQA_ROTATIONS = 24         # distinct K/V caches a timing graph cycles over: 453 MB
+GQA_CACHE_BYTES = 2 * 8 * 576 * 8 * 128 * 2    # one of them, K and V in bf16
+# B1's serving form at the zoo's decode shapes (M 8, bf16): (d, F, act)
+ZOO_FFN_SHAPES = {"minicpm3-4b": (2560, 6400, "silu"),
+                  "recurrentgemma-9b": (4096, 12288, "gelu"),
+                  "command-r-35b": (8192, 22528, "silu")}
+# B11 at Command-R-35B's and Granite-20B's decode (Granite: 48 heads on one)
+ZOO_GQA_SHAPES = {"command-r-35b": dict(B=8, H=64, KV=8, hd=128, C=576),
+                  "granite-20b": dict(B=8, H=48, KV=1, hd=128, C=576)}
+# the serve phase's queue (StableLM-2-12B), also serve_mla's and serve_cmdr's
+SERVE_QUEUE = dict(batch=8, prompt_len=512, gen_len=64, n_requests=24,
+                   rates=(1.0, 0.5, 0.25))
+# the small phase's smoke configs, card against CPU: (arch, mla_absorb,
+# prompt, cache length, decode steps); RecurrentGemma's past its 64-slot window
+SMALL_CASES = (("stablelm-12b", False, 12, 14, 2), ("minicpm3-4b", False, 12, 14, 2),
+               ("minicpm3-4b", True, 12, 14, 2), ("recurrentgemma-9b", False, 60, 70, 8),
+               ("command-r-35b", False, 12, 14, 2), ("granite-20b", False, 12, 14, 2))
+GRANITE_LAYERS = 52            # Granite-20B's full depth, for its one held decode step
+# a zoo step's end-to-end gate: 2e-2, or, where the gap of the plain step
+# with masked_ffn_batch's fp32 sums in 2 and 4 pieces exceeds 2e-2 (no
+# kernel in either), this factor times that gap
+ZOO_NOISE_PARTS, STEP_NOISE_FACTOR = (2, 4), 1.5
 TRAIN_SHAPE = dict(M=10, d=64, F=1024)     # KernelMLP's FFN, batch 10
 # KernelAttnClassifier at batch 10: 490 rows a client, 4 heads of 16, FFN 256
 ATTN_SHAPE = dict(M=490, d=64, H=4, hd=16, F=256)
@@ -261,25 +314,13 @@ def gqa_length_sets(np, B, C):
             "full": np.full(B, C)}
 
 
-def phase_kernels(torch, np):
-    """masked_ffn_batch and decode_gqa at the serve's decode shapes, each
-    against its plain version (relative ∞-norm <= 1e-2, dropped rows
-    exactly 0) and against itself (two calls, the same bits). ``ms`` is
-    device time a call on a cold cache: calls captured in a CUDA graph,
-    timed by CUDA events around replays. decode_gqa's calls rotate over
-    GQA_ROTATIONS distinct caches (over the 50 MB L2 many times), as the
-    decode step reads each layer's cache after its weights have streamed
-    through; masked_ffn_batch's 425 MB of weights exceed the L2 already.
-    ``call_ms`` is the median single-call time between two CUDA events,
-    host path included (how these two kernels' rows were timed before)."""
-    from repro_torch.kernels import decode_gqa as gqa
+def ffn_cases(torch, g, M, d, F, act, dev):
+    """masked_ffn_batch at (M, d, F, act), bf16, under each of ffn_mixes:
+    held to its plain version (relative ∞-norm <= 1e-2, dropped rows
+    exactly 0) and to a second call's bits; device time from a CUDA graph,
+    one call's time, the plain version's, and the byte bound."""
     from repro_torch.kernels import masked_ffn as ffn
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    g = torch.Generator(device=dev).manual_seed(0)
-    out = []
-
-    # masked_ffn_batch at the decode shape: 8 slots, SwiGLU, bf16
-    M, d, F = FFN_SHAPE["M"], FFN_SHAPE["d"], FFN_SHAPE["F"]
+    bf = torch.bfloat16
     rnd = lambda *s, fan: (torch.randn(*s, generator=g, device=dev)
                            / fan ** 0.5).to(bf)
     x = rnd(M, d, fan=1)
@@ -287,16 +328,16 @@ def phase_kernels(torch, np):
     per_mix = {}
     for name, mask in ffn_mixes(torch, M, F, dev).items():
         run = lambda: ffn.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate,
-                                           act="silu")
-        plain = lambda: ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, "silu")
+                                           act=act)
+        plain = lambda: ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, act)
         got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
         err = rel_inf(got, want)
         dropped = mask.sum(1) == 0
-        check(err <= 1e-2, f"masked_ffn_batch[{name}] rel err {err}")
-        check(bool((got[dropped] == 0).all()),
-              f"masked_ffn_batch[{name}] dropped row not exactly 0")
-        check(torch.equal(got, again), f"masked_ffn_batch[{name}] two calls differ")
+        tag = f"masked_ffn_batch[d {d}, F {F}, {act}, {name}]"
+        check(err <= 1e-2, f"{tag} rel err {err}")
+        check(bool((got[dropped] == 0).all()), f"{tag} dropped row not exactly 0")
+        check(torch.equal(got, again), f"{tag} two calls differ")
         kept_blocks = int((mask.view(M, F // 128, 128).amax((0, 2)) > 0).sum())
         fk = kept_blocks * 128
         nbytes = 3 * d * fk * 2 + M * d * 2 * 2 + M * F * 4
@@ -307,23 +348,22 @@ def phase_kernels(torch, np):
             "ms": graph_ms(run, torch), "call_ms": time_ms(run, torch),
             "plain_ms": graph_ms(plain, torch, n=4),
             "bound_ms": b_ms, "bound_by": b_by}
-    head = per_mix["mixed1.0/0.5/0.25"]
-    out.append({"name": "masked_ffn_batch", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/masked_ffn.cu",
-                "replaces": "src/repro/kernels/masked_ffn.py:107",
-                "max_abs_err": max(v["max_abs_err"] for v in per_mix.values()),
-                "ms": head["ms"], "call_ms": head["call_ms"],
-                "plain_ms": head["plain_ms"],
-                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-                "library_ms": None, "shape": FFN_SHAPE, "mixes": per_mix})
-    del x, w_in, w_gate, w_out
+    return per_mix
 
-    # decode_gqa at the decode shape, cold caches, three sets of lengths
-    B, H, KV, hd, C = (GQA_SHAPE[k] for k in ("B", "H", "KV", "hd", "C"))
+
+def gqa_cases(torch, np, g, shape, dev, rotations=GQA_ROTATIONS):
+    """decode_gqa at ``shape`` (B, H, KV, hd, C), bf16, at each set of
+    gqa_length_sets: held to its plain version (relative ∞-norm <= 1e-2)
+    and to a second call's bits; device time on a cold cache from a CUDA
+    graph of calls rotating over ``rotations`` K/V caches, SDPA's the
+    same way, one call's time, the plain version's, and the byte bound."""
+    from repro_torch.kernels import decode_gqa as gqa
+    bf = torch.bfloat16
+    B, H, KV, hd, C = (shape[k] for k in ("B", "H", "KV", "hd", "C"))
     q = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
     caches = [(torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf),
                torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf))
-              for _ in range(GQA_ROTATIONS)]
+              for _ in range(rotations)]
     # library yardstick: SDPA over the same caches, never used by the port
     caches_t = [(k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
                 for k, v in caches]
@@ -339,9 +379,10 @@ def phase_kernels(torch, np):
         lib_out = sdpa(q4, *caches_t[0], attn_mask=amask, enable_gqa=True)[:, :, 0]
         torch.cuda.synchronize()
         err, lib_err = rel_inf(got, want), rel_inf(lib_out, want)
-        check(err <= 1e-2, f"decode_gqa[{name}] rel err {err}")
-        check(torch.equal(got, again), f"decode_gqa[{name}] two calls differ")
-        check(lib_err <= 1e-2, f"decode_gqa library yardstick disagrees: {lib_err}")
+        tag = f"decode_gqa[{H}/{KV} heads, {name}]"
+        check(err <= 1e-2, f"{tag} rel err {err}")
+        check(torch.equal(got, again), f"{tag} two calls differ")
+        check(lib_err <= 1e-2, f"{tag} library yardstick disagrees: {lib_err}")
         kern = rotating([lambda kv=kv: gqa.decode_gqa(q, *kv, lengths) for kv in caches])
         plain = rotating([lambda kv=kv: gqa.decode_gqa_plain(q, *kv, lengths)
                           for kv in caches])
@@ -353,13 +394,46 @@ def phase_kernels(torch, np):
         per_len[name] = {
             "lengths": lens_np.tolist(), "rel_err": err,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
-            "ms": graph_ms(kern, torch, n=GQA_ROTATIONS),
+            "ms": graph_ms(kern, torch, n=rotations),
             "call_ms": time_ms(lambda: gqa.decode_gqa(q, k, v, lengths), torch),
-            "plain_ms": graph_ms(plain, torch, n=GQA_ROTATIONS),
-            "library_ms": graph_ms(lib, torch, n=GQA_ROTATIONS),
+            "plain_ms": graph_ms(plain, torch, n=rotations),
+            "library_ms": graph_ms(lib, torch, n=rotations),
             "library_call_ms": time_ms(lambda: sdpa(q4, *caches_t[0], attn_mask=amask,
                                                     enable_gqa=True), torch),
             "bound_ms": b_ms, "bound_by": b_by}
+    return per_len
+
+
+def phase_kernels(torch, np):
+    """masked_ffn_batch and decode_gqa at the serve's decode shapes, each
+    against its plain version (relative ∞-norm <= 1e-2, dropped rows
+    exactly 0) and against itself (two calls, the same bits). ``ms`` is
+    device time a call on a cold cache: calls captured in a CUDA graph,
+    timed by CUDA events around replays. decode_gqa's calls rotate over
+    GQA_ROTATIONS distinct caches (over the 50 MB L2 many times), as the
+    decode step reads each layer's cache after its weights have streamed
+    through; masked_ffn_batch's 425 MB of weights exceed the L2 already.
+    ``call_ms`` is the median single-call time between two CUDA events,
+    host path included (how these two kernels' rows were timed before)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = []
+
+    # masked_ffn_batch at the decode shape: 8 slots, SwiGLU, bf16
+    M, d, F = FFN_SHAPE["M"], FFN_SHAPE["d"], FFN_SHAPE["F"]
+    per_mix = ffn_cases(torch, g, M, d, F, "silu", dev)
+    head = per_mix["mixed1.0/0.5/0.25"]
+    out.append({"name": "masked_ffn_batch", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/masked_ffn.cu",
+                "replaces": "src/repro/kernels/masked_ffn.py:107",
+                "max_abs_err": max(v["max_abs_err"] for v in per_mix.values()),
+                "ms": head["ms"], "call_ms": head["call_ms"],
+                "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": None, "shape": FFN_SHAPE, "mixes": per_mix})
+
+    # decode_gqa at the decode shape, cold caches, three sets of lengths
+    per_len = gqa_cases(torch, np, g, GQA_SHAPE, dev)
     head = per_len["kernels"]
     out.append({"name": "decode_gqa", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/decode_gqa.cu",
@@ -371,6 +445,27 @@ def phase_kernels(torch, np):
                 "library_call": "scaled_dot_product_attention(enable_gqa=True)",
                 "shape": GQA_SHAPE, "lengths": per_len})
     return out
+
+
+def phase_zoo_kernels(torch, np):
+    """The two serving kernels at the zoo's decode shapes, as phase_kernels
+    holds and times them at StableLM's: masked_ffn_batch at MiniCPM3-4B's,
+    RecurrentGemma-9B's (gelu gated) and Command-R-35B's FFN, decode_gqa at
+    Command-R's 64/8 heads and Granite-20B's 48/1 (virtual head groups).
+    decode_gqa's calls rotate over enough caches to read ~453 MB, as at
+    StableLM's shape. Returns {kernel name: {model: cases}}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    ffn_rows = {arch: {"shape": dict(M=8, d=d, F=F, act=act),
+                       "mixes": ffn_cases(torch, g, 8, d, F, act, dev)}
+                for arch, (d, F, act) in ZOO_FFN_SHAPES.items()}
+    gqa_rows = {}
+    for arch, shape in ZOO_GQA_SHAPES.items():
+        cache_bytes = 2 * shape["B"] * shape["C"] * shape["KV"] * shape["hd"] * 2
+        rotations = max(GQA_ROTATIONS, -(-GQA_ROTATIONS * GQA_CACHE_BYTES // cache_bytes))
+        gqa_rows[arch] = {"shape": shape, "rotations": rotations,
+                          "lengths": gqa_cases(torch, np, g, shape, dev, rotations)}
+    return {"masked_ffn_batch": ffn_rows, "decode_gqa": gqa_rows}
 
 
 def train_masks(torch, np, C, kind, dev, M=TRAIN_SHAPE["M"], F=TRAIN_SHAPE["F"]):
@@ -928,39 +1023,54 @@ def swap_in_plain(ops):
     return undo
 
 
-def phase_small(torch, np):
-    """Smoke-size fp32 model: two decode steps on the card (kernels) and on
-    the CPU (plain versions) from the same params, logits within 1e-3."""
+def small_case(torch, np, arch, absorb, S, C, steps):
+    """One smoke-size fp32 model: a prefill into a C-slot cache and
+    ``steps`` decode steps (per-row rate-0.5 masks) on the card (kernels)
+    and on the CPU (plain versions) from the same params; returns the
+    largest logit difference, which must be <= 1e-3."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.serving import rate_masks
     from repro_torch.models import model
-    cfg = dataclasses.replace(get_config("stablelm-12b").smoke(), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
     cpu = model.init_params(cfg, seed=0, device="cpu")
     gpu = tree_map(lambda t: t.cuda(), cpu)
-    B, S = 3, 12
+    B = 3
     toks = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (B, S)))
     masks = tree_map(lambda m: m[:, None, None, :].expand(-1, B, 1, -1).contiguous(),
                      rate_masks(cfg, 0.5, policy="random", seed=1))
-    errs = []
     res = {}
     for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
         _, caches, _ = model.forward_seq(params, cfg, {"tokens": toks.to(dev)},
-                                         want_cache=True, cache_len=S + 2)
+                                         want_cache=True, cache_len=C)
         tok, pos = toks[:, -1:].to(dev), torch.full((B,), S, device=dev)
-        steps = []
-        for _ in range(2):
+        out = []
+        for _ in range(steps):
             logits, caches = model.decode_step(params, cfg, caches, tok, pos,
-                                               masks=tree_map(lambda m: m.to(dev), masks))
-            steps.append(logits.float().cpu())
+                                               masks=tree_map(lambda m: m.to(dev), masks),
+                                               mla_absorb=absorb)
+            out.append(logits.float().cpu())
             tok, pos = torch.argmax(logits[:, -1], -1)[:, None], pos + 1
-        res[name] = steps
+        res[name] = out
+    errs = []
     for a, b in zip(res["cpu"], res["cuda"]):
-        check(bool(torch.isfinite(b).all()), "small: non-finite logits")
+        check(bool(torch.isfinite(b).all()), f"small[{arch}]: non-finite logits")
         errs.append(float((a - b).abs().max()))
-    check(max(errs) <= 1e-3, f"small: cuda vs cpu logits differ by {max(errs)}")
-    return {"max_abs_err": max(errs)}
+    return max(errs)
+
+
+def phase_small(torch, np):
+    """SMALL_CASES' smoke-size fp32 models, card against CPU, logits
+    within 1e-3: StableLM-2-12B, MiniCPM3-4B (baseline and absorbed MLA
+    decode), RecurrentGemma-9B (its local-attention ring wraps), Command-R-35B,
+    Granite-20B."""
+    per = {}
+    for arch, absorb, S, C, steps in SMALL_CASES:
+        key = arch + ("/absorb" if absorb else "")
+        per[key] = small_case(torch, np, arch, absorb, S, C, steps)
+        check(per[key] <= 1e-3, f"small[{key}]: cuda vs cpu logits differ by {per[key]}")
+    return {"max_abs_err": max(per.values()), "per_config": per}
 
 
 def phase_serve(torch, np):
@@ -979,9 +1089,8 @@ def phase_serve(torch, np):
 
     ops.reset_launch_counts()                  # main path starts here
     t0 = time.perf_counter()
-    results, summ = serve_engine(cfg, batch=8, prompt_len=512, gen_len=64,
-                                 n_requests=24, rates=(1.0, 0.5, 0.25), seed=0,
-                                 device="cuda", params=params)
+    results, summ = serve_engine(cfg, seed=0, device="cuda", params=params,
+                                 **SERVE_QUEUE)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = ops.launch_counts()               # main path ends here
@@ -1012,18 +1121,21 @@ def phase_serve(torch, np):
     return out, counts, params, cfg
 
 
-def hold_each_launch(ops, worst):
+def hold_each_launch(ops, worst, held=None):
     """Wrap the model's kernel calls so that each launch is also computed by
     its plain version on the same inputs; ``worst`` collects the largest
-    relative error per kernel. Returns undo."""
+    relative error per kernel and ``held``, if given, counts the calls per
+    kernel. Returns undo."""
     from repro_torch.kernels import decode_gqa as gqa
     from repro_torch.kernels import masked_ffn as ffn
     saved = ops.masked_ffn_batch, ops.decode_gqa
+    held = {} if held is None else held
 
     def ffn_both(x, wi, wo, m, w_gate=None, act="silu"):
         y = saved[0](x, wi, wo, m, w_gate=w_gate, act=act)
         ref = ffn.masked_ffn_batch_plain(x, wi, wo, m, w_gate, act)
         worst["masked_ffn_batch"] = max(worst["masked_ffn_batch"], rel_inf(y, ref))
+        held["masked_ffn_batch"] = held.get("masked_ffn_batch", 0) + 1
         check(bool((y[m.sum(1) == 0] == 0).all()), "step: dropped row not 0")
         return y
 
@@ -1031,6 +1143,7 @@ def hold_each_launch(ops, worst):
         y = saved[1](q, k, v, lengths)
         worst["decode_gqa"] = max(worst["decode_gqa"],
                                   rel_inf(y, gqa.decode_gqa_plain(q, k, v, lengths)))
+        held["decode_gqa"] = held.get("decode_gqa", 0) + 1
         return y
     ops.masked_ffn_batch, ops.decode_gqa = ffn_both, gqa_both
 
@@ -1047,16 +1160,17 @@ def step_state(torch, np, params, cfg):
     from repro_torch.launch.serving import rate_masks
     from repro_torch.models import model
     B, S, C = 8, 256, 576
-    toks = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (B, S))).cuda()
+    dev = params["final_norm"]["scale"].device
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (B, S))).to(dev)
     _, caches, _ = model.forward_seq(params, cfg, {"tokens": toks},
                                      want_cache=True, cache_len=C)
     rates = [(1.0, 0.5, 0.25)[i % 3] for i in range(B - 1)] + [0.0]
     rows = [rate_masks(cfg, r) if r > 0 else tree_map(torch.zeros_like,
                                                       rate_masks(cfg, 1.0))
             for r in rates]
-    masks = tree_map(lambda *ms: torch.stack(ms, 1)[:, :, None].cuda(), *rows)
-    pos = torch.tensor([S - 16 * i for i in range(B)], device="cuda")
-    tok = toks[torch.arange(B, device="cuda"), pos - 1][:, None]
+    masks = tree_map(lambda *ms: torch.stack(ms, 1)[:, :, None].to(dev), *rows)
+    pos = torch.tensor([S - 16 * i for i in range(B)], device=dev)
+    tok = toks[torch.arange(B, device=dev), pos - 1][:, None]
     return caches, tok, pos, masks, rates
 
 
@@ -1306,6 +1420,228 @@ def phase_serve_rwkv(torch, np, dev="cuda"):
                             "layer_out_rel_err_2": worst["layer_out"],
                             "launches": worst["launches"], **e2e},
            "profile": prof}
+    return out, counts
+
+
+def kernel_layers(cfg):
+    """(layers whose decode step launches masked_ffn_batch, layers that
+    launch decode_gqa): a dense FFN without biases (d_ff a multiple of
+    128) launches B1; a full (unwindowed) GQA attention, not MLA, launches
+    B11."""
+    from repro_torch.models import transformer
+    ffn = gqa = 0
+    for seg in transformer.build_segments(cfg):
+        for mixer, f in seg.unit:
+            ffn += seg.repeats * (f == "dense" and not cfg.use_bias
+                                  and cfg.d_ff % 128 == 0)
+            gqa += seg.repeats * (mixer == "attn" and not cfg.use_mla)
+    return ffn, gqa
+
+
+def param_bytes(leaves):
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def reordered_plain(parts):
+    """masked_ffn_batch_plain with each fp32 product summed over ``parts``
+    contiguous pieces of its inner axis: the same arithmetic in another
+    order, as a kernel sums."""
+    from repro_torch.kernels import masked_ffn as ffn
+
+    def mm(a, w):
+        k = -(-a.shape[1] // parts)
+        out = None
+        for i in range(0, a.shape[1], k):
+            t = a[:, i:i + k] @ w[i:i + k].float()
+            out = t if out is None else out + t
+        return out
+
+    def plain(x, wi, wo, m, w_gate=None, act="silu"):
+        xf = x.float()
+        h = mm(xf, wi)
+        h = ffn._ACTS[act](mm(xf, w_gate)) * h if w_gate is not None else ffn._ACTS[act](h)
+        h = (h * m.float()).to(x.dtype)
+        return mm(h.float(), wo).to(x.dtype)
+    return plain
+
+
+def zoo_step(torch, np, params, cfg):
+    """phase_step for a zoo model: one full-width decode step from a real
+    prefill (step_state), every kernel launch held against its plain
+    version (relative ∞-norm <= 1e-2, dropped rows exactly 0) and counted,
+    then the same step from the same caches (restored: RG-LRU's state and
+    every cache are updated in place) with the plain versions swapped in:
+    hidden and logits relative 2-norm <= 2e-2, phase_step's gate, unless
+    the model's own fp32-order noise floor is above it. That floor is the
+    largest gap between the plain step and the plain step with
+    masked_ffn_batch's fp32 sums taken in ZOO_NOISE_PARTS other orders (no
+    kernel in either); above 2e-2 the gate is STEP_NOISE_FACTOR x the floor
+    (RecurrentGemma-9B's random bf16 stack: 2.8e-2 with no kernel at all;
+    the others' floors are 1.4e-2 to 1.6e-2, under 2e-2). An MLA model also
+    takes the absorbed decode from the same caches: its logits within 2e-2
+    of the baseline step's. The caches are left as the step found them."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers, model
+    caches, tok, pos, masks, rates = step_state(torch, np, params, cfg)
+    saved = tree_map(lambda t: t.clone(), caches)
+
+    def restore():
+        tree_map(lambda c, s0: c.copy_(s0), caches, saved)
+    worst = {"masked_ffn_batch": 0.0, "decode_gqa": 0.0}
+    held = {"masked_ffn_batch": 0, "decode_gqa": 0}
+    undo = hold_each_launch(ops, worst, held)
+    try:
+        hk = model.decode_hidden(params, cfg, caches, tok, pos, masks=masks)
+    finally:
+        undo()
+    lk = layers.lm_logits(params["tok"], hk, cfg)
+    restore()
+    undo = swap_in_plain(ops)
+    try:
+        hp = model.decode_hidden(params, cfg, caches, tok, pos, masks=masks)
+        lp = layers.lm_logits(params["tok"], hp, cfg)
+        noise = []
+        for parts in ZOO_NOISE_PARTS:
+            restore()
+            ops.masked_ffn_batch = reordered_plain(parts)
+            hn = model.decode_hidden(params, cfg, caches, tok, pos, masks=masks)
+            noise.append(max(rel2(hn, hp), rel2(layers.lm_logits(params["tok"], hn, cfg), lp)))
+    finally:
+        undo()
+    restore()
+    torch.cuda.synchronize()
+    n_ffn, n_gqa = kernel_layers(cfg)
+    floor = max(noise)
+    limit = 2e-2 if floor <= 2e-2 else STEP_NOISE_FACTOR * floor
+    out = {"per_launch_rel_err": worst, "held_launches": held,
+           "hidden_rel_err_inf": rel_inf(hk, hp), "logits_rel_err_inf": rel_inf(lk, lp),
+           "hidden_rel_err_2": rel2(hk, hp), "logits_rel_err_2": rel2(lk, lp),
+           "greedy_agreement": float((lk.argmax(-1) == lp.argmax(-1)).float().mean()),
+           "plain_fp32_order_rel_err_2": dict(zip(ZOO_NOISE_PARTS, noise)),
+           "step_limit_rel_err_2": limit,
+           "positions": pos.tolist(), "rates": rates}
+    if cfg.use_mla:
+        la = model.decode_step(params, cfg, caches, tok, pos, masks=masks,
+                               mla_absorb=True)[0]
+        restore()
+        out["absorb_logits_rel_err_2"] = rel2(la, lk)
+        out["absorb_greedy_agreement"] = float((la.argmax(-1) == lk.argmax(-1))
+                                               .float().mean())
+        check(out["absorb_logits_rel_err_2"] <= 2e-2,
+              f"{cfg.name} step: absorbed vs baseline MLA decode {out}")
+    del saved
+    check(bool(torch.isfinite(lk).all()), f"{cfg.name} step: non-finite logits")
+    check(held == {"masked_ffn_batch": n_ffn, "decode_gqa": n_gqa},
+          f"{cfg.name} step: held {held} launches, expected {n_ffn} and {n_gqa}")
+    check(max(worst.values()) <= 1e-2, f"{cfg.name} step: per-launch kernel vs plain {worst}")
+    check(out["hidden_rel_err_2"] <= limit and out["logits_rel_err_2"] <= limit,
+          f"{cfg.name} step: kernel vs plain step {out}")
+    return out, (caches, tok, pos, masks)
+
+
+def phase_serve_zoo(torch, np, arch, queue, dev="cuda"):
+    """A zoo model at full width, bf16 weights from init_params (seed 0),
+    through serve_engine's queue: every request finishes with its gen
+    length of in-vocab tokens (a recurrent model's prompts exactly
+    prompt_len); masked_ffn_batch launched once a layer with a dense FFN a
+    decode step, decode_gqa once a full GQA attention layer a step (0 for
+    MLA and local attention); then zoo_step's held step and the profile of
+    3 decode steps. A decode step's byte bound is every weight but the
+    embedding table read once. Returns (line, main-path launch counts); the
+    model is freed on return."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_engine
+    from repro_torch.models import model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()                  # main path starts here
+    t0 = time.perf_counter()
+    results, summ = serve_engine(cfg, seed=0, device=dev, params=params, **queue)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()               # main path ends here
+    counts = {k: counts[k] for k in SERVE_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n, L, G = queue["n_requests"], queue["prompt_len"], queue["gen_len"]
+    recurrent = any(m in ("rglru", "rwkv") for m in cfg.layer_kinds())
+    check(len(results) == n, f"{arch}: {len(results)} of {n} requests finished")
+    rng = np.random.RandomState(0)             # serve_engine's draws, replayed
+    for rid in range(n):
+        Lr = L if recurrent else rng.randint(max(1, L // 2), L + 1)
+        rng.randint(0, 256, (Lr,), dtype=np.int32)
+        g = int(rng.randint(max(1, G // 2), G + 1))
+        toks = results[rid]
+        check(len(toks) == g, f"{arch}: request {rid} has {len(toks)} of {g} tokens")
+        check(bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+              f"{arch}: request {rid} has out-of-vocab tokens")
+    steps = summ["decode_steps"]
+    n_ffn, n_gqa = kernel_layers(cfg)
+    want = {"masked_ffn_batch": n_ffn * steps, "decode_gqa": n_gqa * steps}
+    check(counts == want, f"{arch}: launches {counts}, expected {want}")
+
+    step, state = zoo_step(torch, np, params, cfg)
+    prof = phase_profile(torch, params, cfg, state)
+    del state
+    embed = params["tok"]["embed"]
+    step_bytes = param_bytes(leaves) - embed.numel() * embed.element_size()
+    out = {"arch": arch, "params": sum(t.numel() for t in leaves),
+           "param_gb": param_bytes(leaves) / 1e9, "init_s": init_s, "wall_s": wall_s,
+           "layers": cfg.n_layers, "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "prefills": summ["prefills"], "prefill_s": summ["prefill_s"],
+           "prefill_ms_per_request": 1e3 * summ["prefill_s"] / summ["prefills"],
+           "decode_s": summ["decode_s"], "decode_steps": steps,
+           "decode_tokens": summ["decode_tokens"], "decode_tok_per_s": summ["tok_per_s"],
+           "decode_ms_per_step": 1e3 * summ["decode_s"] / max(steps, 1),
+           "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+           "decode_step_gb": step_bytes / 1e9,
+           "max_memory_allocated_gb": peak_gb, "allocated_before_serve_gb": base_gb,
+           "launches": counts, "step": step, "profile": prof}
+    return out, counts
+
+
+def phase_granite(torch, np, dev="cuda"):
+    """Granite-20B at full width (d 6144, 48 query heads on one K/V head,
+    d_ff 24576, GELU with biases), GRANITE_LAYERS deep, bf16 weights from
+    init_params: one decode step from step_state's prefill launches
+    decode_gqa once a layer (its FFN has biases, so it stays plain, as in
+    the reference); then zoo_step holds every launch of that step against
+    the plain version and the step against the plain step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    cfg = get_config("granite-20b").with_overrides(n_layers=GRANITE_LAYERS)
+    params = model.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    caches, tok, pos, masks, _ = step_state(torch, np, params, cfg)
+    ops.reset_launch_counts()                  # main path starts here
+    t0 = time.perf_counter()
+    logits, _ = model.decode_step(params, cfg, caches, tok, pos, masks=masks)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()               # main path ends here
+    counts = {k: counts[k] for k in SERVE_KERNELS}
+    check(bool(torch.isfinite(logits).all()), "granite: non-finite logits")
+    n_ffn, n_gqa = kernel_layers(cfg)
+    check(counts == {"masked_ffn_batch": n_ffn, "decode_gqa": n_gqa} and n_gqa == cfg.n_layers,
+          f"granite: launches {counts}, expected 0 and {cfg.n_layers}")
+    del caches, logits
+    step, _ = zoo_step(torch, np, params, cfg)
+    leaves = tree_leaves(params)
+    out = {"layers": cfg.n_layers, "cut_from": get_config("granite-20b").n_layers,
+           "params": sum(t.numel() for t in leaves), "param_gb": param_bytes(leaves) / 1e9,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "step_wall_ms": step_ms,
+           "launches": counts, "step": step}
     return out, counts
 
 
@@ -2354,6 +2690,10 @@ def main() -> int:
              ptxas=ptxas)
         kernels = (phase_kernels(torch, np) + phase_train_kernels(torch, np)
                    + phase_attn_kernels(torch, np) + phase_rwkv_kernels(torch, np))
+        zoo = phase_zoo_kernels(torch, np)
+        for kern in kernels:
+            if kern["name"] in zoo:
+                kern["zoo"] = zoo[kern["name"]]
         stats_launches = next(k["launches"] for k in kernels if k["name"] == "invariant_stats")
         emit("kernels", kernels=kernels)
         emit("small", **phase_small(torch, np))
@@ -2366,6 +2706,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         serve_rwkv, rwkv_counts = phase_serve_rwkv(torch, np)
         emit("serve_rwkv", **serve_rwkv)
+        torch.cuda.empty_cache()
+        # the zoo's other mixers at full width, one model on the card at a time
+        serving = {"serve": counts}
+        for phase, arch, queue in (("serve_mla", "minicpm3-4b", SERVE_QUEUE),
+                                   ("serve_griffin", "recurrentgemma-9b", RWKV_QUEUE)):
+            line, serving[phase] = phase_serve_zoo(torch, np, arch, queue)
+            emit(phase, **line)
+            gc.collect()
+            torch.cuda.empty_cache()
+        granite, serving["granite"] = phase_granite(torch, np)
+        emit("granite", **granite)
+        gc.collect()
+        torch.cuda.empty_cache()
+        line, serving["serve_cmdr"] = phase_serve_zoo(torch, np, "command-r-35b", SERVE_QUEUE)
+        emit("serve_cmdr", **line)
+        gc.collect()
         torch.cuda.empty_cache()
         train, train_counts, train_runs = phase_train(torch, np)
         emit("train", **train)
@@ -2390,11 +2746,13 @@ def main() -> int:
         emit("population", **phase_population(torch, np))
         torch.cuda.empty_cache()
         emit("async", **phase_async(torch, np))
-        # launches: serving's kernels from the serve phase, the chunked scan's
-        # from serve_rwkv, the FFN training kernels' from train, the
+        # launches: serving's kernels summed over the serve phases (StableLM,
+        # MiniCPM3, RecurrentGemma, Command-R) and Granite's step, the chunked
+        # scan's from serve_rwkv, the FFN training kernels' from train, the
         # head-masked kernels' from train_attn; invariant_stats is on no main
         # path, so its count is that of its checks in the kernels phase
-        launches = {**counts, **rwkv_counts,
+        launches = {**{k: sum(c[k] for c in serving.values()) for k in SERVE_KERNELS},
+                    **rwkv_counts,
                     **{k: train_counts[k] for k in TRAIN_KERNELS},
                     **{k: attn_counts[k] for k in ATTN_KERNELS},
                     "invariant_stats": stats_launches}
@@ -2403,10 +2761,13 @@ def main() -> int:
     except SmokeFailure as e:
         emit("failed", error=str(e))
         return 1
+    by_path = {k: {p: c[k] for p, c in serving.items()} for k in SERVE_KERNELS}
     summary = [{k: v for k, v in kern.items()
                 if k not in ("mixes", "shape", "lengths", "rel_err", "library_call",
-                             "block_mask_entry")}
-               | {"launches": launches[kern["name"]]} for kern in kernels]
+                             "block_mask_entry", "zoo")}
+               | {"launches": launches[kern["name"]]}
+               | ({"launches_by_path": by_path[kern["name"]]} if kern["name"] in by_path else {})
+               for kern in kernels]
     print(json.dumps({"kernels": summary}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

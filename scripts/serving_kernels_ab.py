@@ -41,6 +41,11 @@ under the training path's masks, at femnist_attn's M 490 (F 256) and
 femnist_kernel's M 10 (F 1024), each at C 5 and 64, beside the launch
 shape (``fwd_dx_launch_geometry``); ``--variants`` may set ``cover``
 (blocks wanted per SM) for B.
+
+``--set gqa_bits`` checks that decode_gqa gives the same bits in both
+checkouts at the group sizes G ∈ {1, 2, 4, 8} (fp32 and bf16, hd 64 and
+128, C 300, 576 and 4096, ragged lengths; inputs drawn with numpy from
+fixed seeds), and times each case; it exits 1 if any output differs.
 """
 from __future__ import annotations
 
@@ -161,6 +166,36 @@ def fwd_dx(torch, np, cs, ffn):
     return out
 
 
+GQA_BITS_CASES = [(dt, G, hd, C) for dt in ("float32", "bfloat16") for G in (1, 2, 4, 8)
+                  for hd in (64, 128) for C in (300, 576, 4096)]
+
+
+def gqa_bits(torch, np, cs, gqa):
+    """sha256 of decode_gqa's output bytes, and its device time, at each
+    of GQA_BITS_CASES: B 8, KV 2 (8 at the serve's shape), lengths from
+    numpy (first 1, last C)."""
+    import hashlib
+    dev = torch.device("cuda")
+    out = {}
+    for dt, G, hd, C in GQA_BITS_CASES:
+        KV = 8 if (G, hd, C) == (4, 128, 576) else 2
+        B = 8
+        rng = np.random.RandomState(G * 1000 + hd + C)
+        mk = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+            dev, getattr(torch, dt))
+        q, k, v = mk(B, KV * G, hd), mk(B, C, KV, hd), mk(B, C, KV, hd)
+        lens = rng.randint(1, C + 1, B)
+        lens[0], lens[-1] = 1, C
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        y = gqa.decode_gqa(q, k, v, lengths)
+        torch.cuda.synchronize()
+        raw = y.view(torch.int16 if dt == "bfloat16" else torch.int32).cpu().numpy().tobytes()
+        out[f"{dt}/G{G}/hd{hd}/C{C}"] = {
+            "digest": hashlib.sha256(raw).hexdigest()[:16],
+            "ms": cs.graph_ms(lambda: gqa.decode_gqa(q, k, v, lengths), torch)}
+    return out
+
+
 def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> dict:
     sys.path.insert(0, str(Path(src).resolve() / "src"))
     sys.path.insert(1, str(ROOT))
@@ -178,6 +213,11 @@ def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> 
         _build.build_all(["rwkv_chunk", "masked_ffn_train"])
         return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
                 "kernels": scan_dw(torch, np, cs)}
+    if which == "gqa_bits":
+        t0 = time.perf_counter()
+        _build.build_all(["decode_gqa"])
+        return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
+                "kernels": gqa_bits(torch, np, cs, gqa)}
     if which == "fwd_dx":
         if "cover" in tune:
             ffn.FD_COVER = tune["cover"]
@@ -297,7 +337,8 @@ def main() -> int:
     ap.add_argument("--variants", default="[]", help="JSON list of B's launch shapes")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out")
-    ap.add_argument("--set", default="serving", choices=("serving", "scan_dw", "fwd_dx"),
+    ap.add_argument("--set", default="serving",
+                    choices=("serving", "scan_dw", "fwd_dx", "gqa_bits"),
                     help="the kernels to time")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--tune", default="{}", help=argparse.SUPPRESS)
@@ -323,11 +364,15 @@ def main() -> int:
         for case, v in t["kernels"].items():
             summary.setdefault(key, {}).setdefault(case, []).append(v["ms"])
     line = {"summary_device_ms": summary}
+    if args.set == "gqa_bits":
+        digests = {json.dumps({c: v["digest"] for c, v in t["kernels"].items()},
+                              sort_keys=True) for t in turns}
+        line["bitwise_equal"] = len(digests) == 1
     print(json.dumps(line))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(json.dumps(t) for t in turns + [line]) + "\n")
-    return 0
+    return 0 if line.get("bitwise_equal", True) else 1
 
 
 if __name__ == "__main__":

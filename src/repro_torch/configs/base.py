@@ -1,8 +1,10 @@
 """Model configuration schema + registry (port of ``repro/configs/base.py``).
 
 The schema is the reference's field for field, so ``smoke()`` cuts every
-config to the same shapes in both packages. Only the architectures whose
-layer kinds the port implements are registered.
+config to the same shapes in both packages. Every architecture of the
+reference is registered; ``models.model.init_params`` raises
+NotImplementedError for the layer kinds the port does not implement yet
+(MoE, encoder-decoder; see ROADMAP.md queue A).
 """
 from __future__ import annotations
 
@@ -106,8 +108,17 @@ class ModelConfig:
         return self.moe_d_ff or self.d_ff
 
     @property
+    def lru_dim(self) -> int:
+        return self.lru_width or self.d_model
+
+    @property
     def rwkv_heads(self) -> int:
         return self.d_model // self.rwkv_head_size
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Expanded per-layer kind list of length n_layers (decoder side)."""
+        pat = self.block_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
 
     def ffn_kind_for_layer(self, i: int) -> str:
         """'dense' or 'moe' FFN for decoder layer i."""
@@ -153,7 +164,18 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Registry
 
-_ARCH_MODULES = ["stablelm_12b", "rwkv6_3b"]
+_ARCH_MODULES = [
+    "seamless_m4t_large_v2",
+    "rwkv6_3b",
+    "deepseek_v2_lite_16b",
+    "granite_20b",
+    "stablelm_12b",
+    "minicpm3_4b",
+    "recurrentgemma_9b",
+    "command_r_35b",
+    "arctic_480b",
+    "chameleon_34b",
+]
 
 ARCH_IDS = [m.replace("_", "-") for m in _ARCH_MODULES]
 
@@ -164,10 +186,12 @@ def get_config(arch_id: str) -> ModelConfig:
     """Look up an architecture config by its public id (e.g. 'stablelm-12b')."""
     key = arch_id.replace("-", "_")
     if key not in _ARCH_MODULES:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported to repro_torch yet; "
-            f"ported: {ARCH_IDS} (see ROADMAP.md queue A for the order)")
+        raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     if key not in _REGISTRY:
         mod = importlib.import_module(f"repro_torch.configs.{key}")
         _REGISTRY[key] = mod.CONFIG
     return _REGISTRY[key]
+
+
+def all_configs() -> dict:
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -12,19 +12,33 @@ import torch
 from repro_torch.core.tree import tree_map
 
 
+# per-head bias vectors (H, hd) of the attention projections: vectors,
+# though two-dimensional
+HEAD_BIASES = ("bq", "bk", "bv", "bo")
+
+
 def params_from_numpy(tree, device="cuda", dtype=None):
     """Nested dict of numpy arrays -> the same dict of tensors on
     ``device``. With ``dtype``, matrices are cast to it and vectors (norm
-    scales, biases, RWKV-6's mix_*, w_decay and w_u) keep their own type,
-    as ``init_params`` stores them. A model's layers sit under "stack" with
-    a leading repeat axis, so there a vector is (R, n)."""
-    def conv(a, lead):
+    scales, biases, the attention's per-head biases, RWKV-6's mix_*,
+    w_decay and w_u, MLA's q_norm and kv_norm, RG-LRU's a_param, w_a, b_a,
+    w_i, b_i and conv_b) keep their own type, as ``init_params`` stores
+    them. RG-LRU's conv_w (K, w) is a matrix in both: it is used in the
+    compute dtype, so storing it cast gives the same numbers. A model's
+    layers sit under "stack" with a leading repeat axis, so there a vector
+    is (R, n)."""
+    def conv(a, lead, name):
         t = torch.from_numpy(np.array(a)).to(device)
-        return t.to(dtype) if dtype is not None and t.ndim - lead >= 2 else t
+        matrix = t.ndim - lead >= 2 and name not in HEAD_BIASES
+        return t.to(dtype) if dtype is not None and matrix else t
+
+    def walk(sub, lead, name=None):
+        if isinstance(sub, dict):
+            return {k: walk(v, lead, k) for k, v in sub.items()}
+        return conv(sub, lead, name)
     if isinstance(tree, dict) and "stack" in tree:
-        return {k: tree_map(lambda a, lead=int(k == "stack"): conv(a, lead), sub)
-                for k, sub in tree.items()}
-    return tree_map(lambda a: conv(a, 0), tree)
+        return {k: walk(sub, int(k == "stack")) for k, sub in tree.items()}
+    return walk(tree, 0)
 
 
 def masks_from_numpy(tree):

@@ -14,8 +14,15 @@
 // the 50 MB L2. A block that walks a whole prefix alone waits on a chain of
 // memory round trips, and (KV, B) blocks leave most of the 132 SMs idle.
 //
+// Query heads a K/V head serves (G = H / KV) go to split blocks in virtual
+// groups of VG ∈ {1, 2, 4, 8} heads, the largest that divides G; a K/V head
+// then has REP = G / VG groups, each a block of its own that reads the same
+// K/V rows (Granite-20B's MQA, 48 heads on one: 6 groups of 8). A group of
+// at most 8 fills the n8 side of the score MMA. REP is 1 for G ≤ 8, and
+// those launches are the ones without virtual groups, bit for bit.
+//
 // Design: the cache axis is split across blocks, flash-decoding style.
-//   1. split: one block per (split of TS positions, kv head, batch row),
+//   1. split: one block per (split of TS positions, virtual group, batch row),
 //      TS chosen at launch so the grid covers the SMs several times. A
 //      block whose split starts at or past len_b returns. Otherwise it
 //      issues every 16-byte cp.async of its split's K rows (swizzled) and
@@ -105,14 +112,15 @@ __device__ __forceinline__ void load_cols(const T* p, T (&e)[N]) {
   }
 }
 
-// Partials: acc (B, KV, S, G, hd) then (m, l) pairs (B, KV, S, G, 2), fp32.
+// Partials: acc (B, KVV, S, G, hd) then (m, l) pairs (B, KVV, S, G, 2),
+// fp32, over the KVV = KV·rep virtual groups of G heads (gridDim.y).
 // A cache row is LPG 16-byte chunks (hd = LPG·16 / sizeof(T)).
 template <typename T, int G, int LPG>
 __global__ void __launch_bounds__(THREADS)
 gqa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ lengths,
                  float* __restrict__ part_acc, float* __restrict__ part_ml,
-                 int C, int KV, int ts, float scale) {
+                 int C, int KV, int rep, int ts, float scale) {
   constexpr int V = rt::Vec<T>::N;
   constexpr int HD = LPG * V;
   // bf16 scores on the tensor cores: products of bf16 values are exact in
@@ -121,7 +129,9 @@ gqa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int TPH = THREADS / G;                     // p·V threads a head
   constexpr int CPT = HD > TPH ? HD / TPH : 1;         // p·V columns a thread
   extern __shared__ __align__(16) char smem[];
-  const int s = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, S = gridDim.x;
+  // vg: this block's virtual group of G heads, all on K/V head kh
+  const int s = blockIdx.x, vg = blockIdx.y, b = blockIdx.z, S = gridDim.x;
+  const int KVV = gridDim.y, kh = vg / rep;
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");   // the merge may start
   const int len = min(lengths[b], C);
   const int t0 = s * ts;
@@ -145,7 +155,7 @@ gqa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < n * LPG; e += THREADS)
     cp_async16(sv + e * V, vb + (size_t)(e / LPG) * pos_stride + (e % LPG) * V);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  const T* qb = q + ((size_t)b * KV * G + kh * G) * HD;
+  const T* qb = q + ((size_t)b * KVV * G + vg * G) * HD;
 
   if constexpr (MMA) {
     // S^T (16 positions x 8 heads) = K tile (16 x hd) · Q^T (hd x 8, heads
@@ -230,7 +240,7 @@ gqa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int off = 16; off > 0; off >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
     if (lane == 0) {
-      float* ml = part_ml + ((((size_t)b * KV + kh) * S + s) * G + g) * 2;
+      float* ml = part_ml + ((((size_t)b * KVV + vg) * S + s) * G + g) * 2;
       ml[0] = mx;
       ml[1] = sum;
     }
@@ -254,14 +264,15 @@ gqa_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < CPT; ++i) acc[i] = fmaf(p, rt::to_f(e[i]), acc[i]);
   }
-  float* dst = part_acc + ((((size_t)b * KV + kh) * S + s) * G + g) * HD + c0;
+  float* dst = part_acc + ((((size_t)b * KVV + vg) * S + s) * G + g) * HD + c0;
 #pragma unroll
   for (int i = 0; i < CPT; ++i) dst[i] = acc[i];
 }
 
 // grid (H, B), max(hd, 32) threads: thread dd of block (h, b) writes
-// out[b, h, dd]. Launched as a programmatic dependent of the split kernel:
-// it waits for the split grid's writes at griddepcontrol.wait.
+// out[b, h, dd]; KV and G here are the virtual groups and their heads.
+// Launched as a programmatic dependent of the split kernel: it waits for
+// the split grid's writes at griddepcontrol.wait.
 template <typename T>
 __global__ void __launch_bounds__(MAX_MERGE_THREADS)
 gqa_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
@@ -312,10 +323,11 @@ gqa_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ p
 template <typename T, int G, int LPG>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* out, float* scratch, int B, int KV,
-                   int C, int hd, int ts, float scale, cudaStream_t s) {
+                   int rep, int C, int hd, int ts, float scale, cudaStream_t s) {
   const int S = (C + ts - 1) / ts;
+  const int KVV = KV * rep;                 // virtual groups of G heads
   float* part_acc = scratch;
-  float* part_ml = scratch + (size_t)B * KV * S * G * hd;
+  float* part_ml = scratch + (size_t)B * KVV * S * G * hd;
   const size_t smem = split_smem(ts, hd, G, sizeof(T));
   if (smem > MAX_SMEM || hd > MAX_MERGE_THREADS || ts % 16) return cudaErrorInvalidValue;
   static size_t allowed = STATIC_SMEM;      // per instance: raised once, kept
@@ -325,16 +337,16 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  gqa_split_kernel<T, G, LPG><<<dim3(S, KV, B), THREADS, smem, s>>>(
+  gqa_split_kernel<T, G, LPG><<<dim3(S, KVV, B), THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, part_acc, part_ml, C, KV, ts, scale);
+      static_cast<const T*>(v), lengths, part_acc, part_ml, C, KV, rep, ts, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(KV * G, B);
+  cfg.gridDim = dim3(KVV * G, B);
   cfg.blockDim = dim3(hd < 32 ? 32 : hd);
   cfg.dynamicSmemBytes = (size_t)2 * S * sizeof(float);
   cfg.stream = s;
@@ -342,42 +354,43 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, gqa_merge_kernel<T>, static_cast<const float*>(part_acc),
                            static_cast<const float*>(part_ml), lengths, static_cast<T*>(out),
-                           C, KV, G, hd, ts, S);
+                           C, KVV, G, hd, ts, S);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int G>
 cudaError_t dispatch_lanes(const void* q, const void* k, const void* v, const int* lengths,
-                           void* out, float* scratch, int B, int KV, int C, int hd, int ts,
-                           float scale, int lanes, cudaStream_t s) {
+                           void* out, float* scratch, int B, int KV, int rep, int C, int hd,
+                           int ts, float scale, int lanes, cudaStream_t s) {
   switch (lanes) {
-    case 1: return launch<T, G, 1>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, s);
-    case 2: return launch<T, G, 2>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, s);
-    case 4: return launch<T, G, 4>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, s);
-    case 8: return launch<T, G, 8>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, s);
-    case 16: return launch<T, G, 16>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, s);
-    case 32: return launch<T, G, 32>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, s);
+    case 1: return launch<T, G, 1>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, s);
+    case 2: return launch<T, G, 2>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, s);
+    case 4: return launch<T, G, 4>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, s);
+    case 8: return launch<T, G, 8>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, s);
+    case 16: return launch<T, G, 16>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, s);
+    case 32: return launch<T, G, 32>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// VG = G / rep heads a split block: 1, 2, 4 or 8
 template <typename T>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* lengths,
-                       void* out, float* scratch, int B, int KV, int C, int hd, int ts,
-                       float scale, int G, int lanes, cudaStream_t s) {
-  if (hd * (int)sizeof(T) != lanes * 16) return cudaErrorInvalidValue;
-  switch (G) {
-    case 1: return dispatch_lanes<T, 1>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, lanes, s);
-    case 2: return dispatch_lanes<T, 2>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, lanes, s);
-    case 4: return dispatch_lanes<T, 4>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, lanes, s);
-    case 8: return dispatch_lanes<T, 8>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, lanes, s);
+                       void* out, float* scratch, int B, int KV, int rep, int C, int hd,
+                       int ts, float scale, int G, int lanes, cudaStream_t s) {
+  if (hd * (int)sizeof(T) != lanes * 16 || rep < 1 || G % rep) return cudaErrorInvalidValue;
+  switch (G / rep) {
+    case 1: return dispatch_lanes<T, 1>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, lanes, s);
+    case 2: return dispatch_lanes<T, 2>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, lanes, s);
+    case 4: return dispatch_lanes<T, 4>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, lanes, s);
+    case 8: return dispatch_lanes<T, 8>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, lanes, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// fp32 scratch a call needs: (B, KV, ⌈C/ts⌉, G) partials of hd + 2 floats.
+// fp32 scratch a call needs: (B, H, ⌈C/ts⌉) partials of hd + 2 floats.
 extern "C" long long decode_gqa_scratch_floats(int B, int H, int KV, int C,
                                                int hd, int ts) {
   return (long long)B * H * ((C + ts - 1) / ts) * (hd + 2);
@@ -385,18 +398,19 @@ extern "C" long long decode_gqa_scratch_floats(int B, int H, int KV, int C,
 
 // q (B,H,hd), k/v (B,C,KV,hd), out (B,H,hd): type `dtype`, contiguous,
 // 16-byte aligned; lengths (B,) int32 in [1, C]; scratch of
-// decode_gqa_scratch_floats(...) fp32. Requires H = KV·G with G in
-// {1, 2, 4, 8}, hd / (16 / sizeof(dtype)) a power of two <= 32, and ts
-// (cache positions a split) >= 1. Two launches, split then merge, on
-// `stream`. Returns the first nonzero cudaGetLastError().
+// decode_gqa_scratch_floats(...) fp32. Requires H = KV·G with G = rep·VG,
+// VG in {1, 2, 4, 8} (rep virtual groups of VG heads a K/V head), hd /
+// (16 / sizeof(dtype)) a power of two <= 32, and ts (cache positions a
+// split) >= 1. Two launches, split then merge, on `stream`. Returns the
+// first nonzero cudaGetLastError().
 extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,
                                  const int* lengths, void* out, float* scratch,
-                                 int B, int H, int KV, int C, int hd, int ts,
+                                 int B, int H, int KV, int C, int hd, int ts, int rep,
                                  float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ts < 1) return cudaErrorInvalidValue;
+  if (ts < 1 || H % KV) return cudaErrorInvalidValue;
   RT_DISPATCH(dtype, T, {
-    return dispatch_g<T>(q, k, v, lengths, out, scratch, B, KV, C, hd, ts, scale, H / KV,
+    return dispatch_g<T>(q, k, v, lengths, out, scratch, B, KV, rep, C, hd, ts, scale, H / KV,
                          hd * (int)sizeof(T) / 16, s);
   });
   return cudaGetLastError();

@@ -8,7 +8,9 @@ version.
 
 The kernel splits the cache axis into splits of ``split_len(...)``
 positions, one block each, and merges the splits' softmax partials in
-split order (a launch of two kernels, counted once).
+split order (a launch of two kernels, counted once). The query heads of a
+K/V head go to split blocks in virtual groups (``head_groups``), so the
+kernel takes any H/KV, as the Pallas kernel does.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1e30
-GROUPS = (1, 2, 4, 8)          # query heads per K/V head the kernel takes
+GROUPS = (1, 2, 4, 8)          # query heads a split block may take
 SPLITS = (128, 64, 32)         # cache positions a split block may take
 COVER = 4                      # split blocks wanted per SM, at full lengths
 
@@ -44,11 +46,19 @@ def decode_gqa_plain(q, k, v, lengths):
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def head_groups(G):
+    """(VG, rep): the G query heads of a K/V head go to ``rep`` split blocks
+    of VG heads each, VG the largest of ``GROUPS`` that divides G (a G of
+    ``GROUPS`` takes one block of all G; Granite-20B's 48 take 6 of 8)."""
+    vg = max(g for g in GROUPS if G % g == 0)
+    return vg, G // vg
+
+
 def split_len(B, KV, C, n_sm):
     """Cache positions a split block takes: the longest of ``SPLITS`` whose
-    grid of B·KV·⌈C/TS⌉ blocks still covers the ``n_sm`` SMs ``COVER``
-    times over, else the shortest. Decided from C, not from the lengths,
-    which lie on the card."""
+    grid of B·KV·⌈C/TS⌉ blocks (KV counting each head's virtual groups)
+    still covers the ``n_sm`` SMs ``COVER`` times over, else the shortest.
+    Decided from C, not from the lengths, which lie on the card."""
     for ts in SPLITS:
         if B * KV * -(-C // ts) >= COVER * n_sm:
             return ts
@@ -59,7 +69,7 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.decode_gqa_scratch_floats.argtypes = [i] * 6
     lib.decode_gqa_scratch_floats.restype = ctypes.c_longlong
-    lib.decode_gqa_launch.argtypes = ([p] * 6 + [i] * 6
+    lib.decode_gqa_launch.argtypes = ([p] * 6 + [i] * 7
                                       + [ctypes.c_float, i, p])
     lib.decode_gqa_launch.restype = i
 
@@ -73,8 +83,6 @@ def _launch(q, k, v, lengths):
     dtype, dev = q.dtype, q.device
     if dtype not in _build.DTYPE_CODE:
         raise ValueError(f"decode_gqa kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
-    if H // KV not in GROUPS:
-        raise ValueError(f"decode_gqa kernel takes H/KV in {GROUPS}, got {H // KV}")
     lanes = hd * q.element_size() // 16
     if hd * q.element_size() % 16 or lanes > 32 or lanes & (lanes - 1):
         raise ValueError(f"decode_gqa kernel needs hd·{q.element_size()} B to be "
@@ -83,13 +91,14 @@ def _launch(q, k, v, lengths):
         _build.check_operand(name, t, dtype, dev)
     _build.check_operand("lengths", lengths, torch.int32, dev)
     lib = _build.load("decode_gqa")
-    ts = split_len(B, KV, C, _build.sm_count(dev))
+    _, rep = head_groups(H // KV)
+    ts = split_len(B, KV * rep, C, _build.sm_count(dev))
     out = torch.empty_like(q)
     scratch = torch.empty((lib.decode_gqa_scratch_floats(B, H, KV, C, hd, ts),),
                           dtype=torch.float32, device=dev)
     err = lib.decode_gqa_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), scratch.data_ptr(), B, H, KV, C, hd, ts,
+        out.data_ptr(), scratch.data_ptr(), B, H, KV, C, hd, ts, rep,
         1.0 / math.sqrt(hd), _build.DTYPE_CODE[dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

@@ -7,6 +7,9 @@ exactly ``--prompt-len`` tokens for a recurrent model) through one
     python -m repro_torch.launch.serve --full-config    # StableLM-2-12B, bf16 weights
     python -m repro_torch.launch.serve --device cpu     # smoke config on the CPU
     python -m repro_torch.launch.serve --arch rwkv6-3b --full-config   # RWKV-6-3B
+    python -m repro_torch.launch.serve --arch minicpm3-4b --full-config --mla-absorb
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --full-config
+    python -m repro_torch.launch.serve --arch command-r-35b --full-config
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ from repro_torch.models.layers import cdtype
 
 
 def serve_engine(cfg, batch=4, prompt_len=16, gen_len=16, n_requests=None,
-                 rates=(1.0, 0.5), seed=0, device="cuda", params=None):
+                 rates=(1.0, 0.5), mla_absorb=False, seed=0, device="cuda",
+                 params=None):
     """Queue n_requests with cycling dropout rates (ordered masks) and
     ragged prompt/gen lengths drawn from ``np.random.RandomState(seed)``
     (prompts of exactly prompt_len for a recurrent model) through one
@@ -31,7 +35,7 @@ def serve_engine(cfg, batch=4, prompt_len=16, gen_len=16, n_requests=None,
         params = model_lib.init_params(cfg, seed, device, dtype=cdtype(cfg))
     eng = ServeEngine(cfg, params, batch_size=batch,
                       max_prompt_len=prompt_len, max_gen_len=gen_len,
-                      device=device)
+                      mla_absorb=mla_absorb, device=device)
     rng = np.random.RandomState(seed)
     mask_of = {r: (None if r >= 1.0 else rate_masks(cfg, r, seed=seed))
                for r in rates}
@@ -57,6 +61,7 @@ def main(argv=None):
     ap.add_argument("--rates", default="1.0,0.5",
                     help="comma-separated sub-model sizes cycled across "
                     "requests (1.0 = full model)")
+    ap.add_argument("--mla-absorb", action="store_true")
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -67,7 +72,8 @@ def main(argv=None):
     rates = tuple(float(r) for r in args.rates.split(","))
     results, summary = serve_engine(
         cfg, args.batch, args.prompt_len, args.gen_len,
-        n_requests=args.n_requests, rates=rates, device=args.device)
+        n_requests=args.n_requests, rates=rates, mla_absorb=args.mla_absorb,
+        device=args.device)
     for rid in sorted(results):
         print(f"request {rid}: {results[rid].tolist()}")
     print({k: (round(v, 3) if isinstance(v, float) else v)

@@ -9,12 +9,15 @@ Continuous batching at chunk granularity: between chunks the host retires
 finished slots and admits queued requests (batch-1 right-padded prefill +
 cache splice into the slot); a chunk is a Python loop of ``chunk`` greedy
 decode steps over the whole slot batch with one host sync at its end. On
-the card every attention decode layer runs the masked-FFN kernel (per-slot
-masks) and the GQA flash-decode kernel; every RWKV-6 layer of a prefill
-runs the chunked WKV kernel. Right padding is exact for attention: a padded
+the card every decode layer with a dense FFN runs the masked-FFN kernel
+(per-slot masks), every full (unwindowed) GQA attention decode layer the
+GQA flash-decode kernel, and every RWKV-6 layer of a prefill the chunked
+WKV kernel; MLA, local attention and RG-LRU are plain torch, as they are
+plain jnp in the reference. Right padding is exact for attention: a padded
 position's K/V slot lies past the row's attended prefix until decode
 overwrites it. A recurrent mixer would fold padding into its state, so a
-recurrent engine takes prompts of exactly ``max_prompt_len`` tokens.
+recurrent engine (RWKV-6, RG-LRU) takes prompts of exactly
+``max_prompt_len`` tokens.
 
 Masking the FFN hidden activation equals serving the extracted sub-model
 (act(0) = 0 for every supported activation): ``apply_masks_to_params`` is
@@ -153,13 +156,15 @@ class ServeRequest:
 
 class ServeEngine:
     """Continuous-batching greedy decoder over personalized sub-models.
+    ``mla_absorb`` decodes MLA layers in latent space, as the reference's.
 
     ``device`` defaults to "cuda" and raises when no card is present; the
     CPU is used only when the caller passes device="cpu"."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch_size: int = 4,
                  max_prompt_len: int = 16, max_gen_len: int = 16,
-                 chunk: int = 8, bank_size: int = 8, device="cuda"):
+                 chunk: int = 8, bank_size: int = 8, mla_absorb: bool = False,
+                 device="cuda"):
         if cfg.is_encdec:
             raise NotImplementedError(
                 "ServeEngine covers decoder-only stacks; encoder-decoder "
@@ -170,6 +175,7 @@ class ServeEngine:
                                "device; pass device='cpu' to run on the CPU")
         self.cfg = cfg
         self.params = params
+        self.mla_absorb = mla_absorb
         self.recurrent = any(mixer in ("rglru", "rwkv")
                              for seg in transformer.build_segments(cfg)
                              for mixer, _ in seg.unit)
@@ -207,7 +213,9 @@ class ServeEngine:
     def _insert(self, new, slot: int):
         """Splice a batch-1 prefill cache into ``slot``: every leaf has the
         batch axis second, (R, 1, ...) — K/V (R, 1, C, KV, hd), and the
-        RWKV state S (R, 1, H, N, N) and token shifts (R, 1, d)."""
+        RWKV state S (R, 1, H, N, N) and token shifts (R, 1, d), MLA's
+        c_kv and k_rope (R, 1, C, ·), RG-LRU's h (R, 1, w) and conv history
+        (R, 1, K-1, w)."""
         tree_map(lambda c, n: c[:, slot].copy_(n[:, 0]), self.caches, new)
 
     def _decode_chunk(self):
@@ -223,7 +231,8 @@ class ServeEngine:
         for _ in range(self.chunk):
             logits, _ = model_lib.decode_step(self.params, self.cfg,
                                               self.caches, tok, pos,
-                                              masks=masks)
+                                              masks=masks,
+                                              mla_absorb=self.mla_absorb)
             tok = torch.argmax(logits[:, -1], -1)[:, None]
             toks.append(tok)
             pos = pos + 1

@@ -1,11 +1,14 @@
-"""GQA/MQA attention with a KV cache (port of ``repro/models/attention.py``).
+"""GQA/MQA attention with sliding-window support and a ring-buffer KV
+cache (port of ``repro/models/attention.py``).
 
   attn_seq(...)     -- full sequence (prefill), plain torch ops as in the
                        reference (which computes it in plain jnp)
-  attn_decode(...)  -- one new token per row against the cache, through
-                       the flash-decode kernel (kernels/decode_gqa.py)
+  attn_decode(...)  -- one new token per row against the cache: through
+                       the flash-decode kernel (kernels/decode_gqa.py), or,
+                       for a windowed layer, the plain windowed attention
 Cache layout per layer: k, v (B, C, KV, hd). The reference also carries
-per-slot positions; the port does not need them (see ``attn_decode``).
+per-slot positions; the port derives them from the decode position (see
+``slot_positions``).
 """
 from __future__ import annotations
 
@@ -70,37 +73,63 @@ def _expand_kv(k, n_heads):
     return torch.repeat_interleave(k, n_heads // KV, dim=2)
 
 
-def _sdpa(q, k, v, q_pos, kv_pos, scale):
-    """q:(B,Sq,H,hd) k,v:(B,T,H,hd); causal mask from absolute positions
-    kv_pos (T,) and q_pos (Sq,)."""
+def _sdpa(q, k, v, q_pos, kv_pos, scale, window=None):
+    """q:(B,Sq,H,hd) k,v:(B,T,H,hd); causal (and window) mask from absolute
+    positions kv_pos (T,) or (B,T), -1 an empty slot, and q_pos (Sq,) or
+    (B,Sq). A key is kept where 0 <= kv <= q and q - kv < window."""
     scores = torch.einsum("bqhk,bthk->bhqt", q, k).float() * scale
-    mask = kv_pos[None, None, None, :] <= q_pos[None, None, :, None]
+    kv_b = kv_pos[None, None, None, :] if kv_pos.ndim == 1 else kv_pos[:, None, None, :]
+    q_b = q_pos[None, None, :, None] if q_pos.ndim == 1 else q_pos[:, None, :, None]
+    mask = (kv_b >= 0) & (kv_b <= q_b)
+    if window is not None:
+        mask &= (q_b - kv_b) < window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG))
     w = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqt,bthk->bqhk", w.to(v.dtype), v)
 
 
-def attn_seq(p, x, cfg: ModelConfig, positions):
-    """Full-sequence self-attention. Returns (out, (k, v)) for the cache."""
+def attn_seq(p, x, cfg: ModelConfig, positions, window=None):
+    """Full-sequence self-attention, windowed when ``window`` is given.
+    Returns (out, (k, v)) for the cache."""
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
     q, k, v = _qkv(p, x, cfg, positions)
     kf = _expand_kv(k, cfg.n_heads)
     vf = _expand_kv(v, cfg.n_heads)
     if S <= Q_CHUNK:
-        out = _sdpa(q, kf, vf, positions, positions, scale)
+        out = _sdpa(q, kf, vf, positions, positions, scale, window)
     else:
         if S % Q_CHUNK:
             raise ValueError(f"sequence length {S} must be a multiple of "
                              f"{Q_CHUNK} above {Q_CHUNK}")
         out = torch.cat([
             _sdpa(q[:, i:i + Q_CHUNK], kf, vf, positions[i:i + Q_CHUNK],
-                  positions, scale)
+                  positions, scale, window)
             for i in range(0, S, Q_CHUNK)], dim=1)
     return _out(p, out, cfg), (k, v)
 
 
-def attn_decode(p, x, cfg: ModelConfig, cache, pos):
+def slot_positions(pos, C):
+    """(B, C) position each ring slot holds once position ``pos`` (B,) is
+    written, -1 where a slot holds none: slot s holds the latest p <= pos
+    with p % C == s. Prefill and decode write every position from 0 on, so
+    this is the reference's per-slot position record."""
+    s = torch.arange(C, device=pos.device)[None, :]
+    held = pos[:, None] - torch.remainder(pos[:, None] - s, C)
+    return torch.where(held >= 0, held, torch.full_like(held, -1))
+
+
+def write_slot(cache, pos, new):
+    """Write each row's new entry (B, ...) into slot pos % C of the ring
+    caches, in place. cache, new: dicts of tensors (B, C, ...), (B, ...)."""
+    first = next(iter(cache.values()))
+    rows = torch.arange(first.shape[0], device=first.device)
+    idx = (pos % first.shape[1]).long()
+    for name, t in new.items():
+        cache[name].index_put_((rows, idx), t)
+
+
+def attn_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
     """One-token decode. x: (B,1,d); cache: {'k','v'} (B,C,KV,hd), updated
     IN PLACE (the reference returns a rewritten cache); pos: (B,) int.
     Returns y (B,1,d).
@@ -109,14 +138,18 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos):
     min(pos+1, C) positions in its first min(pos+1, C) slots: contiguously
     from slot 0 until the ring wraps, and in every slot after. Attention is
     order-free over the keys, so lengths = min(pos+1, C) selects exactly the
-    slots the reference's per-slot position mask keeps."""
-    B = x.shape[0]
+    slots the reference's per-slot position mask keeps. A windowed layer
+    takes the plain windowed attention over ``slot_positions``, as the
+    reference keeps it off the flash-decode kernel."""
     C = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None])
-    rows = torch.arange(B, device=x.device)
-    idx = (pos % C).long()
-    cache["k"].index_put_((rows, idx), k_new[:, 0])
-    cache["v"].index_put_((rows, idx), v_new[:, 0])
+    write_slot(cache, pos, {"k": k_new[:, 0], "v": v_new[:, 0]})
+    if window is not None:
+        out = _sdpa(q, _expand_kv(cache["k"], cfg.n_heads),
+                    _expand_kv(cache["v"], cfg.n_heads), pos[:, None],
+                    slot_positions(pos, C), 1.0 / math.sqrt(cfg.head_dim),
+                    window)
+        return _out(p, out, cfg)
     lengths = torch.clamp(pos + 1, max=C).to(torch.int32)
     out = ops.decode_gqa(q[:, 0], cache["k"], cache["v"], lengths)
     return _out(p, out[:, None], cfg)
@@ -126,3 +159,8 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int):
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": TensorSpec(shape, cdtype(cfg)),
             "v": TensorSpec(shape, cdtype(cfg))}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in cache_spec(cfg, batch, cache_len).items()}

@@ -40,16 +40,23 @@ class TensorSpec:
 # ---------------------------------------------------------------------------
 # init helpers
 
+DRAW_CHUNK = 1 << 30           # elements of one fp32 draw at most: 4 GiB
+
 def dense_init(gen: torch.Generator, fan_in, *shape, dtype, device,
                repeats=None):
     """normal * 1/sqrt(fan_in), drawn in fp32 and cast to ``dtype``. With
     ``repeats`` the result is stacked (repeats, *shape) and drawn one repeat
-    at a time, so the fp32 draw never holds more than one layer's matrix."""
+    at a time, so the fp32 draw never holds more than one layer's matrix;
+    a matrix of more than DRAW_CHUNK elements (Command-R-35B's 256000-row
+    vocab tables) is drawn DRAW_CHUNK elements of leading rows at a time."""
     scale = 1.0 / math.sqrt(fan_in)
     lead = (repeats,) if repeats else ()
     out = torch.empty(lead + shape, dtype=dtype, device=device)
     for sub in (out if repeats else [out]):
-        sub.copy_(torch.randn(sub.shape, generator=gen, device=device) * scale)
+        rows = sub.shape[0] if sub.numel() <= DRAW_CHUNK else max(
+            1, DRAW_CHUNK // (sub.numel() // sub.shape[0]))
+        for part in sub.split(rows):
+            part.copy_(torch.randn(part.shape, generator=gen, device=device).mul_(scale))
     return out
 
 
@@ -93,12 +100,14 @@ def _rope_freqs_on(dim: int, theta: float, device: torch.device):
     return torch.from_numpy(rope_freqs(dim, theta)).to(device)
 
 
-def apply_rope(x, positions, theta: float):
-    """Split-halves RoPE. x: (..., S, H, hd); positions: (..., S)."""
+def apply_rope(x, positions, theta: float, has_heads: bool = True):
+    """Split-halves RoPE. x: (..., S, H, hd) if has_heads else (..., S, hd);
+    positions: (..., S)."""
     hd = x.shape[-1]
     freqs = _rope_freqs_on(hd, theta, x.device)
     ang = positions[..., None].float() * freqs          # (..., S, hd/2)
-    ang = ang[..., None, :]                              # heads axis
+    if has_heads:
+        ang = ang[..., None, :]                          # heads axis
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -1,4 +1,6 @@
-"""Model API (port of ``repro/models/model.py``), decoder-only stacks.
+"""Model API (port of ``repro/models/model.py``), decoder-only stacks:
+GQA/MQA, MLA, local attention, RG-LRU and RWKV-6 mixers, sequential or
+parallel blocks, dense FFNs.
 
   init_params(cfg, seed, device, dtype)        -> params dict
   forward_seq(params, cfg, batch, ...)         -> (logits, caches, aux)
@@ -27,7 +29,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     normal * 1/sqrt(fan_in) per matrix from a torch.Generator on ``device``
     seeded with ``seed``. Matrices are stored in ``dtype`` (default
     cfg.param_dtype), cast one layer at a time as they are drawn; vectors
-    (norm scales, RWKV-6's mixing, decay and bonus vectors) stay in
+    (norm scales, biases, RWKV-6's mixing, decay and bonus vectors,
+    RG-LRU's gate vectors and a_param) stay in
     cfg.param_dtype. The numbers differ from the reference's
     jax.random init: to compare the two packages, convert the reference's
     params with ``repro_torch.interop.params_from_numpy``."""
@@ -66,21 +69,24 @@ def forward_seq(params, cfg: ModelConfig, batch, masks=None,
     return logits, (caches if want_cache else None), aux
 
 
-def decode_hidden(params, cfg: ModelConfig, caches, token, pos, masks=None):
+def decode_hidden(params, cfg: ModelConfig, caches, token, pos, masks=None,
+                  mla_absorb=False):
     """The final-normed hidden state (B,1,d) of one decode step; the caches
-    are updated in place."""
+    are updated in place. mla_absorb: MLA layers attend in latent space."""
     _check_decoder_only(cfg)
     x = embed_tokens(params["tok"], token, cfg)
     seg_params, segs = _seg_list(params, cfg)
     x = transformer.run_stack_decode(seg_params, segs, caches, x, cfg, pos,
-                                     masks=masks)
+                                     masks=masks, mla_absorb=mla_absorb)
     return apply_norm(params["final_norm"], x, cfg)
 
 
-def decode_step(params, cfg: ModelConfig, caches, token, pos, masks=None):
+def decode_step(params, cfg: ModelConfig, caches, token, pos, masks=None,
+                mla_absorb=False):
     """token: (B,1) int; pos: (B,) int. Returns (logits, caches); unlike
     the reference the caches are updated in place and returned as given."""
-    x = decode_hidden(params, cfg, caches, token, pos, masks=masks)
+    x = decode_hidden(params, cfg, caches, token, pos, masks=masks,
+                      mla_absorb=mla_absorb)
     return lm_logits(params["tok"], x, cfg), caches
 
 

@@ -3,9 +3,14 @@
 A model is a list of *segments*: (unit_pattern, repeats). Params of a
 segment are stacked over repeats with a leading axis R, as in the
 reference, and the reference's ``lax.scan`` over repeats is a Python loop
-over r here. The ("attn", "dense") and ("rwkv", "cmix") layer kinds are
-ported; the other mixers and FFN kinds raise NotImplementedError (see
-ROADMAP.md queue A). Decode updates the caches in place.
+over r here. Mixed-pattern archs (RecurrentGemma's 2:1) decompose into a
+few segments.
+
+Layer kinds:  attn | local_attn (MLA or GQA) | rglru | rwkv    (mixer)
+              dense | cmix                                    (ffn)
+A parallel block (Command-R) sums mixer and FFN of one norm. MoE FFNs
+raise NotImplementedError (see ROADMAP.md queue A). Decode updates the
+caches in place.
 """
 from __future__ import annotations
 
@@ -15,13 +20,15 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, rwkv6
+from repro_torch.models import attention, mla, rglru, rwkv6
 from repro_torch.models.layers import (TensorSpec, apply_ffn, apply_norm,
                                        cdtype, init_ffn, init_norm)
 
 LayerSpec = Tuple[str, str]        # (mixer, ffn)
 
-PORTED = (("attn", "dense"), ("rwkv", "cmix"))
+PORTED = (("attn", "dense"), ("local_attn", "dense"), ("rglru", "dense"),
+          ("rwkv", "cmix"))
+ATTN_MIXERS = ("attn", "local_attn")
 
 
 @dataclass(frozen=True)
@@ -63,11 +70,14 @@ def build_segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
 
 
 def _check_ported(spec: LayerSpec, cfg: ModelConfig):
-    if spec not in PORTED or cfg.use_mla or cfg.parallel_block:
+    if spec not in PORTED:
         raise NotImplementedError(
-            f"layer kind {spec} (use_mla={cfg.use_mla}, parallel_block="
-            f"{cfg.parallel_block}) is not ported to repro_torch yet; only "
-            f"{PORTED} are (see ROADMAP.md queue A)")
+            f"layer kind {spec} of {cfg.name} is not ported to repro_torch "
+            f"yet; only {PORTED} are (see ROADMAP.md queue A)")
+
+
+def _layer_window(mixer: str, cfg: ModelConfig):
+    return cfg.window if mixer == "local_attn" else None
 
 
 def _at(tree, r):
@@ -83,20 +93,29 @@ def _at(tree, r):
 def init_segment(gen, seg: Segment, cfg: ModelConfig, device, dtype):
     out = {}
     for i, spec in enumerate(seg.unit):
-        _check_ported(spec, cfg)
-        R = seg.repeats
-        if spec[0] == "rwkv":
-            mixer = {"rwkv": rwkv6.init_tmix(gen, cfg, device, dtype, repeats=R)}
-            ffn = {"cmix": rwkv6.init_cmix(gen, cfg, device, dtype, repeats=R)}
+        kw = dict(device=device, dtype=dtype, repeats=seg.repeats)
+        p = {"norm1": init_norm(cfg, device, repeats=seg.repeats)}
+        if spec[0] in ATTN_MIXERS and cfg.use_mla:
+            p["mla"] = mla.init_mla(gen, cfg, **kw)
+        elif spec[0] in ATTN_MIXERS:
+            p["attn"] = attention.init_attention(gen, cfg, **kw)
+        elif spec[0] == "rglru":
+            p["rglru"] = rglru.init_rglru(gen, cfg, **kw)
         else:
-            mixer = {"attn": attention.init_attention(gen, cfg, device, dtype, repeats=R)}
-            ffn = {"ffn": init_ffn(gen, cfg, device, dtype, repeats=R)}
-        out[f"l{i}"] = {"norm1": init_norm(cfg, device, repeats=R), **mixer,
-                        "norm2": init_norm(cfg, device, repeats=R), **ffn}
+            p["rwkv"] = rwkv6.init_tmix(gen, cfg, **kw)
+        if not cfg.parallel_block:
+            p["norm2"] = init_norm(cfg, device, repeats=seg.repeats)
+        if spec[1] == "cmix":
+            p["cmix"] = rwkv6.init_cmix(gen, cfg, **kw)
+        else:
+            p["ffn"] = init_ffn(gen, cfg, **kw)
+        out[f"l{i}"] = p
     return out
 
 
 def init_stack(gen, cfg: ModelConfig, device, dtype):
+    for spec in layer_specs(cfg):          # raise before drawing anything
+        _check_ported(spec, cfg)
     segs = build_segments(cfg)
     return [init_segment(gen, s, cfg, device, dtype) for s in segs], segs
 
@@ -110,11 +129,14 @@ def _m(masks, key):
     return masks.get(key)
 
 
-def _ring_from_seq(tensors, positions, cache_len=None):
-    """Fold full-sequence K/V (B,S,...) into a cache of C = cache_len slots;
-    position p lands in slot p % C. cache_len > S leaves decode headroom."""
+def _ring_from_seq(tensors, positions, window=None, cache_len=None):
+    """Fold full-sequence K/V (B,S,...) into a ring cache of C slots,
+    C = cache_len (default S), or min(window, cache_len) for a windowed
+    layer; the last min(C, S) positions p land in slot p % C. cache_len > S
+    leaves decode headroom."""
     S = positions.shape[-1]
-    C = cache_len or S
+    cap = cache_len or S
+    C = cap if window is None else min(window, cap)
     out = {}
     for name, t in tensors.items():
         if C == S:
@@ -133,8 +155,9 @@ def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
                      want_cache, cache_len=None):
     """Returns (x, cache_entry)."""
     _check_ported(spec, cfg)
+    mixer = spec[0]
     h = apply_norm(p["norm1"], x, cfg)
-    if spec[0] == "rwkv":
+    if mixer == "rwkv":
         y, last_tm, state = rwkv6.tmix_seq(p["rwkv"], h, cfg)
         x = x + y
         h2 = apply_norm(p["norm2"], x, cfg)
@@ -143,9 +166,24 @@ def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
         cache = ({"rwkv": {"S": state, "shift_tm": last_tm, "shift_cm": last_cm}}
                  if want_cache else {})
         return x + y, cache
-    y, (k, v) = attention.attn_seq(p["attn"], h, cfg, positions)
-    cache = ({"attn": _ring_from_seq({"k": k, "v": v}, positions, cache_len)}
-             if want_cache else {})
+    cache = {}
+    if mixer == "rglru":
+        y, cache["rglru"] = rglru.rglru_seq(p["rglru"], h, cfg)
+    elif cfg.use_mla:
+        y, (c_kv, k_rope) = mla.mla_seq(p["mla"], h, cfg, positions)
+        cache["mla"] = {"c_kv": c_kv, "k_rope": k_rope}
+    else:
+        y, (k, v) = attention.attn_seq(p["attn"], h, cfg, positions,
+                                       window=_layer_window(mixer, cfg))
+        cache["attn"] = {"k": k, "v": v}
+    if not want_cache:
+        cache = {}
+    elif mixer in ATTN_MIXERS:
+        cache = {name: _ring_from_seq(c, positions, _layer_window(mixer, cfg),
+                                      cache_len)
+                 for name, c in cache.items()}
+    if cfg.parallel_block:
+        return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn")), cache
     x = x + y
     h2 = apply_norm(p["norm2"], x, cfg)
     return x + apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn")), cache
@@ -182,10 +220,12 @@ def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
 # ---------------------------------------------------------------------------
 # decode pass
 
-def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks):
+def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
+                        mla_absorb=False):
     _check_ported(spec, cfg)
+    mixer = spec[0]
     h = apply_norm(p["norm1"], x, cfg)
-    if spec[0] == "rwkv":
+    if mixer == "rwkv":
         c = cache["rwkv"]
         y, last_tm, S1 = rwkv6.tmix_decode(p["rwkv"], h, cfg, c["shift_tm"], c["S"])
         c["S"].copy_(S1)
@@ -196,13 +236,22 @@ def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks):
                                        neuron_mask=_m(masks, "ffn"))
         c["shift_cm"].copy_(last_cm)
         return x + y
-    x = x + attention.attn_decode(p["attn"], h, cfg, cache["attn"], pos)
+    if mixer == "rglru":
+        y = rglru.rglru_decode(p["rglru"], h, cfg, cache["rglru"])
+    elif cfg.use_mla:
+        y = mla.mla_decode(p["mla"], h, cfg, cache["mla"], pos, absorb=mla_absorb)
+    else:
+        y = attention.attn_decode(p["attn"], h, cfg, cache["attn"], pos,
+                                  window=_layer_window(mixer, cfg))
+    if cfg.parallel_block:
+        return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn"))
+    x = x + y
     h2 = apply_norm(p["norm2"], x, cfg)
     return x + apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn"))
 
 
 def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
-                     masks=None):
+                     masks=None, mla_absorb=False):
     """x: (B,1,d). Returns x; the caches are updated in place."""
     for si, (seg, sp) in enumerate(zip(segs, seg_params)):
         smasks = masks[si] if masks is not None else None
@@ -211,7 +260,7 @@ def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
                 lm = _at(smasks[f"l{i}"], r) if smasks is not None else None
                 x = _apply_layer_decode(spec, _at(sp[f"l{i}"], r), x,
                                         _at(caches[si][f"l{i}"], r), cfg, pos,
-                                        lm)
+                                        lm, mla_absorb)
     return x
 
 
@@ -220,18 +269,28 @@ def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
 
 def _layer_cache_spec(spec, cfg: ModelConfig, batch, seq_len):
     _check_ported(spec, cfg)
-    if spec[0] == "rwkv":
+    mixer = spec[0]
+    if mixer == "rwkv":
         H, N = cfg.rwkv_heads, cfg.rwkv_head_size
         shift = TensorSpec((batch, cfg.d_model), cdtype(cfg))
         return {"rwkv": {"S": TensorSpec((batch, H, N, N), torch.float32),
                          "shift_tm": shift, "shift_cm": shift}}
-    return {"attn": attention.cache_spec(cfg, batch, seq_len)}
+    if mixer == "rglru":
+        return {"rglru": rglru.state_spec(cfg, batch)}
+    win = _layer_window(mixer, cfg)
+    C = seq_len if win is None else min(win, seq_len)
+    if cfg.use_mla:
+        return {"mla": mla.cache_spec(cfg, batch, C)}
+    return {"attn": attention.cache_spec(cfg, batch, C)}
 
 
 def stack_cache_specs(cfg: ModelConfig, batch, seq_len):
     """Per segment, {'l<i>': {'attn': {'k','v': TensorSpec (R, B, C, KV, hd)}}}
-    or, for an RWKV layer, {'l<i>': {'rwkv': {'S': (R, B, H, N, N) fp32,
-    'shift_tm', 'shift_cm': (R, B, d)}}}."""
+    (C = min(window, seq_len) for a local_attn layer); for an MLA layer
+    {'mla': {'c_kv': (R, B, C, lora), 'k_rope': (R, B, C, rope)}}; for an
+    RG-LRU layer {'rglru': {'h': (R, B, w) fp32, 'conv': (R, B, K-1, w)}};
+    for an RWKV layer {'rwkv': {'S': (R, B, H, N, N) fp32, 'shift_tm',
+    'shift_cm': (R, B, d)}}."""
     out = []
     for seg in build_segments(cfg):
         unit = {}

@@ -222,10 +222,91 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         ops.masked_ffn_batch(x, w.T.contiguous().T, wo, m)
     with pytest.raises(ValueError, match="on cpu"):
         ops.masked_ffn_batch(x, w.cpu(), wo, m)
-    q = torch.zeros(2, 48, 64, device=dev)
-    k = torch.zeros(2, 8, 3, 64, device=dev)
-    with pytest.raises(ValueError, match="H/KV"):
+    # any H/KV is taken (virtual head groups); a head of 48 fp32 values is
+    # 12 16-byte chunks, which no power-of-two lane count covers
+    q = torch.zeros(2, 48, 48, device=dev)
+    k = torch.zeros(2, 8, 3, 48, device=dev)
+    with pytest.raises(ValueError, match="hd"):
         ops.decode_gqa(q, k, k, torch.ones(2, dtype=torch.int32, device=dev))
+
+
+# B1's serving form at the zoo's decode shapes (M 8, bf16): MiniCPM3-4B,
+# RecurrentGemma-9B (gelu gated), Command-R-35B
+ZOO_FFN = [(2560, 6400, "silu"), (4096, 12288, "gelu"), (8192, 22528, "silu")]
+
+
+def _zoo_ffn_masks(M, F, dev):
+    """Ordered keep-maps: every row at 1.0, at 0.5, the serve's 1.0/0.5/0.25
+    cycle, and the cycle with its last row dropped."""
+    def ordered(rates):
+        m = torch.zeros(M, F, device=dev)
+        for i, r in enumerate(rates):
+            m[i, :int(F * r) // 128 * 128 if r < 1 else F] = 1.0
+        return m
+    cyc = [(1.0, 0.5, 0.25)[i % 3] for i in range(M)]
+    return [ordered([1.0] * M), ordered([0.5] * M), ordered(cyc),
+            ordered(cyc[:-1] + [0.0])]
+
+
+@pytest.mark.parametrize("d,F,act", ZOO_FFN)
+def test_masked_ffn_batch_at_zoo_decode_shapes(dev, d, F, act):
+    """Against the plain version (1e-2 relative ∞-norm), dropped rows
+    exactly 0, a second call the same bits, one launch a call."""
+    M, bf = 8, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(d + F)
+    r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev) / math.sqrt(fan)).to(bf)
+    x = r(M, d, fan=1)
+    w_in, w_gate, w_out = r(d, F, fan=d), r(d, F, fan=d), r(F, d, fan=F)
+    for mask in _zoo_ffn_masks(M, F, dev):
+        before = ffn.launches.n
+        got = ops.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate, act=act)
+        again = ops.masked_ffn_batch(x, w_in, w_out, mask, w_gate=w_gate, act=act)
+        torch.cuda.synchronize()
+        assert ffn.launches.n == before + 2
+        want = ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, act)
+        assert _rel_err(got, want) <= 1e-2
+        assert (got[mask.sum(1) == 0] == 0).all()
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [3, 6, 12, 16, 48])
+@pytest.mark.parametrize("KV,hd,C", [(1, 128, 576), (2, 64, 300)])
+def test_decode_gqa_virtual_head_groups_match_plain(dev, dtype, G, KV, hd, C):
+    """H/KV outside (1, 2, 4, 8) goes to virtual groups of at most 8 heads
+    (decode_gqa.head_groups): against the plain version, ragged lengths,
+    a second call the same bits, one launch a call."""
+    B = 6
+    rng = np.random.RandomState(G * hd + KV)
+    mk = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev, dtype)
+    q, k, v = mk(B, KV * G, hd), mk(B, C, KV, hd), mk(B, C, KV, hd)
+    lengths = torch.tensor(np.r_[1, C, rng.randint(1, C + 1, B - 2)],
+                           dtype=torch.int32, device=dev)
+    before = gqa.launches.n
+    got = ops.decode_gqa(q, k, v, lengths)
+    again = ops.decode_gqa(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert gqa.launches.n == before + 2
+    want = gqa.decode_gqa_plain(q, k, v, lengths)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel_err(got, want) <= _tol(dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("H,KV", [(64, 8), (48, 1)])
+def test_decode_gqa_at_zoo_decode_shapes(dev, H, KV):
+    """Command-R-35B's decode (64 heads on 8) and Granite-20B's (48 on 1),
+    B 8, hd 128, C 576, bf16, at the step's lengths 256 − 16i."""
+    B, hd, C, bf = 8, 128, 576, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(H + KV)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
+    k = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
+    v = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
+    lengths = torch.tensor([256 - 16 * i for i in range(B)], dtype=torch.int32, device=dev)
+    got, again = ops.decode_gqa(q, k, v, lengths), ops.decode_gqa(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert _rel_err(got, gqa.decode_gqa_plain(q, k, v, lengths)) <= 1e-2
+    assert torch.equal(got, again)
 
 
 def _train_masks(C, M, F, g, dev):

@@ -27,12 +27,13 @@ from repro_torch.kernels import decode_gqa as gqa  # noqa: E402
 from repro_torch.kernels import masked_ffn as ffn  # noqa: E402
 
 TOL = dict(rtol=1e-6, atol=1e-6)
-KV, HD = 2, 32
+KV, HD = 2, 32                     # _inputs' K/V heads and head dim
 
 
 def split_merge(q, k, v, lengths, ts):
     """The split kernel's partials and the merge kernel's in-order sum."""
     B, H, hd = q.shape
+    KV = k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
     out = torch.zeros_like(q)
@@ -85,6 +86,40 @@ def test_split_and_ordered_merge_match_pallas_and_plain(ts, G):
     np.testing.assert_allclose(got, plain, **TOL)
 
 
+@pytest.mark.parametrize("G", [1, 3, 6, 8, 12, 16, 48, 64])
+def test_head_groups_split_any_group_into_blocks_of_at_most_8(G):
+    """G query heads a K/V head go to rep split blocks of VG heads, VG the
+    largest of GROUPS dividing G; rep is 1 exactly for the G the kernel
+    took before virtual groups (its launches unchanged)."""
+    vg, rep = gqa.head_groups(G)
+    assert vg in gqa.GROUPS and vg * rep == G
+    assert all(G % g for g in gqa.GROUPS if g > vg)
+    assert (rep == 1) == (G in gqa.GROUPS)
+    assert gqa.head_groups(48) == (8, 6)
+
+
+@pytest.mark.parametrize("G", [6, 12, 48])
+@pytest.mark.parametrize("ts", gqa.SPLITS)
+def test_virtual_head_groups_match_pallas_and_plain(ts, G):
+    """The kernel's virtual groups: each of a K/V head's rep groups is a
+    split block reading that head's rows, so the split and merge run on
+    K/V repeated rep times over KV·rep groups of VG heads. One K/V head, as
+    Granite-20B's MQA, against the Pallas kernel (which takes any H/KV) and
+    the plain version."""
+    q, k, v, lens = _inputs(G, ts, seed=ts + G)
+    q = np.ascontiguousarray(q[:, :G])                # KV 1: the first G heads
+    k, v = k[:, :, :1].copy(), v[:, :, :1].copy()
+    _, rep = gqa.head_groups(G)
+    t = torch.from_numpy
+    got = split_merge(t(q), t(k).repeat_interleave(rep, dim=2),
+                      t(v).repeat_interleave(rep, dim=2), t(lens), ts).numpy()
+    pallas = np.asarray(jax_decode_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                       jnp.asarray(lens), interpret=True))
+    plain = gqa.decode_gqa_plain(t(q), t(k), t(v), t(lens)).numpy()
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, plain, **TOL)
+
+
 @pytest.mark.parametrize("ts", gqa.SPLITS)
 def test_single_position_row_is_its_value_row(ts):
     """A row of one valid position gets exactly v[0] of its head: the one
@@ -112,7 +147,8 @@ def test_split_len_covers_the_sms(B, KV_, C, n_sm):
 
 
 @pytest.mark.parametrize("M,d,F", [(8, 5120, 13824), (13, 512, 1024), (1, 64, 128),
-                                   (16, 2560, 8960 // 128 * 128)])
+                                   (16, 2560, 8960 // 128 * 128),
+                                   (8, 2560, 6400), (8, 4096, 12288), (8, 8192, 22528)])
 def test_ffn_geometry_is_a_portable_cluster_covering_the_sms(M, d, F):
     n_sm = 132
     ks, fs = ffn.ffn_geometry(M, d, F, n_sm)

@@ -21,10 +21,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from repro.configs import ARCH_IDS as jax_arch_ids  # noqa: E402
+from repro.configs import all_configs as jax_all_configs  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.launch import serving as jax_serving  # noqa: E402
 from repro.models import model as jax_model  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, all_configs, get_config  # noqa: E402
 from repro_torch.core.tree import tree_leaves  # noqa: E402
 from repro_torch.interop import masks_from_numpy, params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -68,25 +70,65 @@ def _flat(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
+def _dtypes(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_dtypes(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree.dtype}
+
+
 def test_config_schema_matches_reference():
+    """Every registered config, full and smoke, equals the reference's
+    field for field; the ones whose layer kinds are not ported (MoE,
+    encoder-decoder) are registered, and their init_params raises."""
     jcfg, tcfg = _cfgs()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("recurrentgemma-9b")
+    assert ARCH_IDS == jax_arch_ids
+    assert list(all_configs()) == list(jax_all_configs())
+    for arch in ARCH_IDS:
+        want, got = jax_get_config(arch), get_config(arch)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), arch
+        assert dataclasses.asdict(got.smoke()) == dataclasses.asdict(want.smoke()), arch
+        assert got.lru_dim == want.lru_dim
+        assert got.layer_kinds() == want.layer_kinds(), arch
+    for arch in ("deepseek-v2-lite-16b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tq_model.init_params(get_config(arch).smoke(), device="cpu")
+
+
+ZOO = ("minicpm3-4b", "recurrentgemma-9b", "command-r-35b", "granite-20b")
+# leaves init_params stores in fp32 under a bf16 dtype, though not 1-D
+FP32_2D = ("bq", "bk", "bv", "bo")
 
 
 def test_params_from_numpy_round_trip(setup):
-    _, _, jparams, tparams = setup
-    want = _flat(jax.tree.map(np.asarray, jparams))
-    got = {k: v for k, v in _flat(tparams).items()}
-    assert sorted(got) == sorted(want)
-    for k in want:
-        assert got[k].shape == want[k].shape, k
-        np.testing.assert_array_equal(got[k], want[k])
-    bf = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu",
-                           dtype=torch.bfloat16)
-    assert bf["stack"]["seg0"]["l0"]["ffn"]["w_in"].dtype == torch.bfloat16
-    assert bf["final_norm"]["scale"].dtype == torch.float32
+    """The reference's params through numpy keep keys, shapes and values;
+    with a bf16 dtype the matrices are cast and the vectors (norm scales,
+    biases, MLA's q_norm/kv_norm, RG-LRU's gate vectors, a_param and
+    conv_b; RG-LRU's conv_w is a matrix) keep fp32, as init_params
+    stores them. StableLM's smoke params, then each of ZOO's."""
+    for arch in ("stablelm-12b",) + ZOO:
+        if arch == "stablelm-12b":
+            jparams = setup[2]
+        else:
+            cfg = dataclasses.replace(jax_get_config(arch).smoke(), dtype="float32")
+            jparams = jax_model.init_params(cfg, jax.random.PRNGKey(0))
+        tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+        want = _flat(jax.tree.map(np.asarray, jparams))
+        got = _flat(tparams)
+        assert sorted(got) == sorted(want), arch
+        for k in want:
+            assert got[k].shape == want[k].shape, (arch, k)
+            np.testing.assert_array_equal(got[k], want[k])
+        bf = _dtypes(params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu",
+                                       dtype=torch.bfloat16))
+        for k, w in want.items():
+            lead = int(k.startswith("/stack"))
+            matrix = w.ndim - lead >= 2 and k.rsplit("/", 1)[1] not in FP32_2D
+            assert bf[k] == (torch.bfloat16 if matrix else torch.float32), (arch, k)
+        assert bf["/final_norm/scale"] == torch.float32
 
 
 @pytest.mark.parametrize("rate", [1.0, 0.5])
