@@ -2,9 +2,11 @@
 """Prove the PyTorch port runs on one NVIDIA GPU: build its CUDA kernels,
 hold each against its plain PyTorch version at its path's shapes, serve
 StableLM-2-12B, RWKV-6-3B, MiniCPM3-4B, RecurrentGemma-9B and
-Command-R-35B at full width, take a held decode step of Granite-20B, run
-FLuID training on both kernel workloads and on the paper's own workloads
-through ``repro_torch``, and check the results.
+Command-R-35B at full width, take a held decode step of Granite-20B,
+serve DeepSeek-V2-Lite-16B, Arctic-480B (2 of its 35 layers) and
+SeamlessM4T-Large v2 at full width through the reference's static-batch
+``serve``, run FLuID training on both kernel workloads and on the paper's
+own workloads through ``repro_torch``, and check the results.
 
     python3 chip_smoke.py
 
@@ -36,12 +38,16 @@ the seconds the phase took (``phase_s``):
              the zoo's decode shapes: masked_ffn_batch at MiniCPM3-4B's
              (d 2560, F 6400, silu), RecurrentGemma-9B's (4096, 12288,
              gelu gated) and Command-R-35B's (8192, 22528, silu) under the
-             same four masks, decode_gqa at Command-R's (64/8 heads) and
-             Granite-20B's (48/1, virtual head groups) on caches rotated
-             out of the L2 (the "zoo" entry of each kernel's row)
+             same four masks, decode_gqa at Command-R's (64/8 heads),
+             Granite-20B's (48/1, virtual head groups), SeamlessM4T's
+             decoder (16/16 heads of 64) and Arctic-480B's (56/8: 7
+             virtual groups of 1) on caches rotated out of the L2 (the
+             "zoo" entry of each kernel's row)
   small      smoke-size fp32 models, card vs CPU: StableLM, MiniCPM3
              (baseline and absorbed MLA decode), RecurrentGemma (past its
-             64-slot window, so the ring wraps), Command-R, Granite
+             64-slot window, so the ring wraps), Command-R, Granite,
+             DeepSeek-V2-Lite (under FLuID's MoE masks from build_masks),
+             Arctic, SeamlessM4T (frames through the encoder)
   serve      24 mixed-rate requests at full width (serving's main path)
   step       every launch of a full-width decode step against its plain version
   profile    device time by kernel over a few decode steps
@@ -74,6 +80,31 @@ the seconds the phase took (``phase_s``):
              64.8 GB of bf16 weights, every earlier model freed), the serve
              phase's queue: masked_ffn_batch and decode_gqa 40 x steps;
              held step and report as serve_mla
+  serve_moe  DeepSeek-V2-Lite-16B at full width (27 layers, 26 of them
+             MoE: 64 routed experts of 1408, top-6, 2 shared; MLA) through
+             launch.serve.serve's static batch (8 prompts of 512, 64
+             greedy steps): no kernel launched (as in the reference); a
+             second run the same tokens, its routing recorded: the
+             (token, expert) assignments lost a decode step to capacity
+             and to the slot cap − 1 overwrite; the first and the last MoE
+             layer held card against CPU in fp32 at the real inputs of
+             the prefill (T 4096), a decode step (T 8) and a 5 x 2048
+             forward (T 10240, five chunks): identical routing but for
+             reported near ties (k-th and (k+1)-th probabilities within
+             1e-5), outputs within 1e-4; two decode steps from the same
+             caches bitwise equal; tok/s, ms a step against its byte
+             bound, prefill ms, peak memory, busy share
+  serve_arctic Arctic-480B at full width on 2 of its 35 layers (56/8
+             heads, 128 experts of 4864, top-2, a dense residual FFN;
+             54.4 GB of bf16 weights), serve_moe's static batch:
+             decode_gqa launched 2 x steps; zoo_step's held step; two
+             decode steps bitwise equal; report as serve_moe
+  serve_seamless SeamlessM4T-Large v2 at full width (24 + 24 layers,
+             16 heads of 64, biased ReLU FFN 8192, LayerNorm), 512 frames
+             and 512-token prompts, 64 steps: decode_gqa launched 24 x
+             steps (the decoder's self-attention); encoder and decoder
+             prefill ms apart; held step, bitwise steps and report as
+             serve_arctic
   train      6 FLuID rounds of femnist_kernel on the fleet backend (the
              FFN training path): each masked-FFN kernel launched once per
              SGD step; the same run with the plain versions must reach the
@@ -150,9 +181,13 @@ GQA_CACHE_BYTES = 2 * 8 * 576 * 8 * 128 * 2    # one of them, K and V in bf16
 ZOO_FFN_SHAPES = {"minicpm3-4b": (2560, 6400, "silu"),
                   "recurrentgemma-9b": (4096, 12288, "gelu"),
                   "command-r-35b": (8192, 22528, "silu")}
-# B11 at Command-R-35B's and Granite-20B's decode (Granite: 48 heads on one)
+# B11 at Command-R-35B's, Granite-20B's (48 heads on one), SeamlessM4T-Large
+# v2's decoder (16 heads of 64 on 16) and Arctic-480B's (56 on 8: 7 virtual
+# groups of 1) decode
 ZOO_GQA_SHAPES = {"command-r-35b": dict(B=8, H=64, KV=8, hd=128, C=576),
-                  "granite-20b": dict(B=8, H=48, KV=1, hd=128, C=576)}
+                  "granite-20b": dict(B=8, H=48, KV=1, hd=128, C=576),
+                  "seamless-m4t-large-v2": dict(B=8, H=16, KV=16, hd=64, C=576),
+                  "arctic-480b": dict(B=8, H=56, KV=8, hd=128, C=576)}
 # the serve phase's queue (StableLM-2-12B), also serve_mla's and serve_cmdr's
 SERVE_QUEUE = dict(batch=8, prompt_len=512, gen_len=64, n_requests=24,
                    rates=(1.0, 0.5, 0.25))
@@ -160,7 +195,20 @@ SERVE_QUEUE = dict(batch=8, prompt_len=512, gen_len=64, n_requests=24,
 # prompt, cache length, decode steps); RecurrentGemma's past its 64-slot window
 SMALL_CASES = (("stablelm-12b", False, 12, 14, 2), ("minicpm3-4b", False, 12, 14, 2),
                ("minicpm3-4b", True, 12, 14, 2), ("recurrentgemma-9b", False, 60, 70, 8),
-               ("command-r-35b", False, 12, 14, 2), ("granite-20b", False, 12, 14, 2))
+               ("command-r-35b", False, 12, 14, 2), ("granite-20b", False, 12, 14, 2),
+               ("deepseek-v2-lite-16b", False, 12, 14, 2), ("arctic-480b", False, 12, 14, 2),
+               ("seamless-m4t-large-v2", False, 12, 14, 2))
+# the small MoE case under FLuID's masks from build_masks (r 0.5, whole experts dropped)
+SMALL_MOE_MASKED = "deepseek-v2-lite-16b"
+# serve()'s static batch, the reference's --baseline path: serve_moe,
+# serve_arctic and serve_seamless (SeamlessM4T's frames are prompt_len long)
+BASELINE_QUEUE = dict(batch=8, prompt_len=512, gen_len=64)
+ARCTIC_LAYERS = 2              # of 35: 2 full-width layers are 54.4 GB of bf16 weights
+# serve_moe holds DeepSeek's first and last MoE layer at the prefill's and a
+# decode step's real inputs, and at T 10240 (B 5 x S 2048: five chunks of 2048)
+MOE_LONG = (5, 2048)
+MOE_TIE = 1e-5                 # a pick may differ where k-th and (k+1)-th probs are this close
+MOE_LAYER_TOL = 1e-4           # card vs CPU, fp32, relative ∞-norm
 GRANITE_LAYERS = 52            # Granite-20B's full depth, for its one held decode step
 # a zoo step's end-to-end gate: 2e-2, or, where the gap of the plain step
 # with masked_ffn_batch's fp32 sums in 2 and 4 pieces exceeds 2e-2 (no
@@ -451,7 +499,8 @@ def phase_zoo_kernels(torch, np):
     """The two serving kernels at the zoo's decode shapes, as phase_kernels
     holds and times them at StableLM's: masked_ffn_batch at MiniCPM3-4B's,
     RecurrentGemma-9B's (gelu gated) and Command-R-35B's FFN, decode_gqa at
-    Command-R's 64/8 heads and Granite-20B's 48/1 (virtual head groups).
+    Command-R's 64/8 heads, Granite-20B's 48/1 (virtual head groups),
+    SeamlessM4T-Large v2's 16/16 of 64 and Arctic-480B's 56/8 (7 groups).
     decode_gqa's calls rotate over enough caches to read ~453 MB, as at
     StableLM's shape. Returns {kernel name: {model: cases}}."""
     dev = torch.device("cuda")
@@ -1023,33 +1072,58 @@ def swap_in_plain(ops):
     return undo
 
 
+def small_masks(torch, cfg, params, B):
+    """(prefill masks, decode masks) of a small case: a decoder with dense
+    FFNs decodes under per-row rate-0.5 masks (the serving layout);
+    SMALL_MOE_MASKED runs under FLuID's layer masks from build_masks (r
+    0.5 over expert units, whole experts dropped; stats against a second
+    init) in both; the others under none."""
+    from repro_torch.core import transformer_hooks as hooks
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.serving import rate_masks
+    from repro_torch.models import model
+    if cfg.name == SMALL_MOE_MASKED:
+        other = model.init_params(cfg, seed=1, device="cpu")
+        m = hooks.build_masks(hooks.ffn_unit_stats(params, other, cfg), cfg, 0.5,
+                              block128=False, drop_experts=True)
+        return m, m
+    if cfg.n_experts or cfg.is_encdec:
+        return None, None
+    return None, tree_map(lambda m: m[:, None, None, :].expand(-1, B, 1, -1).contiguous(),
+                          rate_masks(cfg, 0.5, policy="random", seed=1))
+
+
 def small_case(torch, np, arch, absorb, S, C, steps):
-    """One smoke-size fp32 model: a prefill into a C-slot cache and
-    ``steps`` decode steps (per-row rate-0.5 masks) on the card (kernels)
-    and on the CPU (plain versions) from the same params; returns the
-    largest logit difference, which must be <= 1e-3."""
+    """One smoke-size fp32 model: a prefill into a C-slot cache (frames of
+    S positions for an encoder-decoder) and ``steps`` decode steps, under
+    small_masks, on the card (kernels) and on the CPU (plain versions) from
+    the same params; returns the largest logit difference, which must be
+    <= 1e-3."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_map
-    from repro_torch.launch.serving import rate_masks
     from repro_torch.models import model
     cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
     cpu = model.init_params(cfg, seed=0, device="cpu")
     gpu = tree_map(lambda t: t.cuda(), cpu)
     B = 3
-    toks = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (B, S)))
-    masks = tree_map(lambda m: m[:, None, None, :].expand(-1, B, 1, -1).contiguous(),
-                     rate_masks(cfg, 0.5, policy="random", seed=1))
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, 256, (B, S)))
+    frames = torch.from_numpy((rng.randn(B, S, cfg.d_model) * 0.1).astype(np.float32))
+    seq_masks, masks = small_masks(torch, cfg, cpu, B)
+    on = lambda m, dev: None if m is None else tree_map(lambda t: t.to(dev), m)
     res = {}
     for name, params, dev in (("cpu", cpu, "cpu"), ("cuda", gpu, "cuda")):
-        _, caches, _ = model.forward_seq(params, cfg, {"tokens": toks.to(dev)},
+        batch = {"tokens": toks.to(dev)}
+        if cfg.is_encdec:
+            batch["frames"] = frames.to(dev)
+        _, caches, _ = model.forward_seq(params, cfg, batch, masks=on(seq_masks, dev),
                                          want_cache=True, cache_len=C)
         tok, pos = toks[:, -1:].to(dev), torch.full((B,), S, device=dev)
         out = []
         for _ in range(steps):
             logits, caches = model.decode_step(params, cfg, caches, tok, pos,
-                                               masks=tree_map(lambda m: m.to(dev), masks),
-                                               mla_absorb=absorb)
+                                               masks=on(masks, dev), mla_absorb=absorb)
             out.append(logits.float().cpu())
             tok, pos = torch.argmax(logits[:, -1], -1)[:, None], pos + 1
         res[name] = out
@@ -1064,7 +1138,8 @@ def phase_small(torch, np):
     """SMALL_CASES' smoke-size fp32 models, card against CPU, logits
     within 1e-3: StableLM-2-12B, MiniCPM3-4B (baseline and absorbed MLA
     decode), RecurrentGemma-9B (its local-attention ring wraps), Command-R-35B,
-    Granite-20B."""
+    Granite-20B, DeepSeek-V2-Lite-16B (under FLuID's MoE masks), Arctic-480B
+    and SeamlessM4T-Large v2."""
     per = {}
     for arch, absorb, S, C, steps in SMALL_CASES:
         key = arch + ("/absorb" if absorb else "")
@@ -1155,22 +1230,32 @@ def hold_each_launch(ops, worst, held=None):
 def step_state(torch, np, params, cfg):
     """A full-width decode step's inputs from a real prefill: 8 rows of a
     576-slot cache filled to 256 − 16i, rates cycling 1.0/0.5/0.25 and the
-    last row dropped. Returns (caches, tok, pos, masks, rates)."""
+    last row dropped. An MoE or encoder-decoder model, which serve()
+    serves with no masks, takes none (rates None); an encoder-decoder's
+    prefill reads 256 frames of randn · 0.1, as serve() draws them.
+    Returns (caches, tok, pos, masks, rates)."""
     from repro_torch.core.tree import tree_map
     from repro_torch.launch.serving import rate_masks
     from repro_torch.models import model
+    from repro_torch.models.layers import cdtype
     B, S, C = 8, 256, 576
     dev = params["final_norm"]["scale"].device
-    toks = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (B, S))).to(dev)
-    _, caches, _ = model.forward_seq(params, cfg, {"tokens": toks},
-                                     want_cache=True, cache_len=C)
+    rng = np.random.RandomState(2)
+    toks = torch.from_numpy(rng.randint(0, 256, (B, S))).to(dev)
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        frames = rng.randn(B, S, cfg.d_model).astype(np.float32) * 0.1
+        batch["frames"] = torch.from_numpy(frames).to(dev, cdtype(cfg))
+    _, caches, _ = model.forward_seq(params, cfg, batch, want_cache=True, cache_len=C)
+    pos = torch.tensor([S - 16 * i for i in range(B)], device=dev)
+    tok = toks[torch.arange(B, device=dev), pos - 1][:, None]
+    if cfg.n_experts or cfg.is_encdec:
+        return caches, tok, pos, None, None
     rates = [(1.0, 0.5, 0.25)[i % 3] for i in range(B - 1)] + [0.0]
     rows = [rate_masks(cfg, r) if r > 0 else tree_map(torch.zeros_like,
                                                       rate_masks(cfg, 1.0))
             for r in rates]
     masks = tree_map(lambda *ms: torch.stack(ms, 1)[:, :, None].to(dev), *rows)
-    pos = torch.tensor([S - 16 * i for i in range(B)], device=dev)
-    tok = toks[torch.arange(B, device=dev), pos - 1][:, None]
     return caches, tok, pos, masks, rates
 
 
@@ -1643,6 +1728,356 @@ def phase_granite(torch, np, dev="cuda"):
            "heads": [cfg.n_heads, cfg.n_kv_heads], "step_wall_ms": step_ms,
            "launches": counts, "step": step}
     return out, counts
+
+
+# ---------------------------------------------------------------------------
+# serve(): the reference's static batch, the path of the MoE models and the
+# encoder-decoder
+
+class RouteRecorder:
+    """While active, wraps moe._route (which _moe_tokens calls through the
+    module): keeps each call's token count and picks per expert, a device
+    copy read after the run."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self._moe, self._saved = [], moe, moe._route
+
+        def route(p, x2d, cfg, expert_mask):
+            out = self._saved(p, x2d, cfg, expert_mask)
+            self.calls.append((x2d.shape[0], out[2].clone()))
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._saved
+
+
+class StageTimer:
+    """While active, wraps encdec.run_encoder and run_decoder_seq (which
+    model.forward_seq calls through the module) with a synchronize on each
+    side: the seconds of each call by stage."""
+
+    def __init__(self, torch):
+        self.torch, self.s = torch, {"encoder": [], "decoder": []}
+
+    def __enter__(self):
+        from repro_torch.models import encdec
+        self._mod = encdec
+        self._saved = {n: getattr(encdec, n) for n in ("run_encoder", "run_decoder_seq")}
+        for stage, n in (("encoder", "run_encoder"), ("decoder", "run_decoder_seq")):
+            setattr(encdec, n, self._timed(stage, self._saved[n]))
+        return self
+
+    def _timed(self, stage, fn):
+        def run(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.s[stage].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for n, fn in self._saved.items():
+            setattr(self._mod, n, fn)
+
+
+def moe_layers(cfg):
+    from repro_torch.models import transformer
+    return sum(seg.repeats for seg in transformer.build_segments(cfg)
+               for _, ffn in seg.unit if ffn == "moe")
+
+
+def capacity_losses(cfg, calls, q):
+    """(token, expert) assignments that get no expert output, from a
+    serve() run's recorded routing: those ranked at or past their expert's
+    capacity, and, apart from them, those lost to the slot cap − 1
+    overwrite (an overflowing expert's pick kept at rank cap − 1). The
+    prefill's totals, and each decode step's summed over the MoE layers."""
+    from repro_torch.models import moe
+    n_moe = moe_layers(cfg)
+    T = q["batch"] * q["prompt_len"]
+    n_pre = n_moe * (T // moe.token_chunk(T, cfg))
+    check(len(calls) == n_pre + n_moe * q["gen_len"],
+          f"{cfg.name}: {len(calls)} routing calls, expected {n_pre} + {n_moe} x {q['gen_len']}")
+    lost = []
+    for t, gs in calls:
+        cap, g = moe.capacity(t, cfg), gs.cpu()
+        lost.append((int((g - cap).clamp_min(0).sum()), int((g > cap).sum())))
+    steps = [lost[n_pre + i * n_moe:n_pre + (i + 1) * n_moe] for i in range(q["gen_len"])]
+    per_step = [[sum(c for c, _ in s), sum(o for _, o in s)] for s in steps]
+    return {"assignments_per_step": q["batch"] * cfg.top_k * n_moe,
+            "cap_per_step": moe.capacity(q["batch"], cfg),
+            "prefill_lost_to_capacity": sum(c for c, _ in lost[:n_pre]),
+            "prefill_lost_to_overwrite": sum(o for _, o in lost[:n_pre]),
+            "prefill_assignments": T * cfg.top_k * n_moe,
+            "decode_lost_to_capacity_mean": sum(c for c, _ in per_step) / len(per_step),
+            "decode_lost_to_overwrite_mean": sum(o for _, o in per_step) / len(per_step),
+            "per_step_capacity_overwrite": per_step}
+
+
+def serve_prompts(np, cfg, q, seed=0):
+    """serve()'s prompts, and an encoder-decoder's frames, replayed."""
+    rng = np.random.RandomState(seed)
+    toks = rng.randint(0, min(cfg.vocab_size, 256), (q["batch"], q["prompt_len"]),
+                       dtype=np.int32)
+    frames = (rng.randn(q["batch"], q["prompt_len"], cfg.d_model).astype(np.float32) * 0.1
+              if cfg.is_encdec else None)
+    return toks, frames
+
+
+def serve_state(torch, np, params, cfg, q):
+    """serve()'s prefill again (its prompts, caches of prompt + gen slots)
+    and its first decode step's token and positions: (caches, tok, pos,
+    masks None), the state of phase_profile and step_twice."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.layers import cdtype
+    dev = params["final_norm"]["scale"].device
+    toks, frames = serve_prompts(np, cfg, q)
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames).to(dev, cdtype(cfg))
+    logits, caches = make_prefill_step(cfg, cache_len=q["prompt_len"] + q["gen_len"])(
+        params, batch)
+    tok = torch.argmax(logits, -1)[:, None]
+    return caches, tok, torch.full((q["batch"],), q["prompt_len"], device=dev), None
+
+
+def step_twice(torch, params, cfg, state):
+    """Two bf16 decode steps from the same caches: bitwise equal logits?
+    The caches are left as found."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model
+    caches, tok, pos, masks = state
+    saved = tree_map(lambda t: t.clone(), caches)
+    out = []
+    for _ in range(2):
+        out.append(model.decode_step(params, cfg, caches, tok, pos, masks=masks)[0])
+        tree_map(lambda c, s0: c.copy_(s0), caches, saved)
+    return bool(torch.equal(*out))
+
+
+def decode_bytes(cfg, params, q):
+    """Bytes a decode step must read: every weight but the embedding table.
+    For an encoder-decoder, the decoder's weights less the cross-attention
+    K/V projections (their outputs are cached at prefill), the output
+    table, and the cross K/V caches and the self K/V caches at the
+    decode's mean length."""
+    from repro_torch.core.tree import tree_leaves
+    embed = params["tok"]["embed"]
+    if not cfg.is_encdec:
+        return param_bytes(tree_leaves(params)) - embed.numel() * embed.element_size()
+    dec = params["stack"]["dec"]
+    cross_kv = [dec["cross"][k] for k in ("wk", "wv", "bk", "bv") if k in dec["cross"]]
+    head = params["tok"].get("lm_head", embed)
+    kv = 2 * cfg.n_layers * q["batch"] * cfg.n_kv_heads * cfg.head_dim * embed.element_size()
+    mean_len = q["prompt_len"] + (q["gen_len"] + 1) / 2
+    return (param_bytes(tree_leaves(dec)) - param_bytes(cross_kv)
+            + param_bytes(tree_leaves(params["final_norm"])) + param_bytes([head])
+            + kv * (q["prompt_len"] + mean_len))
+
+
+def baseline_serve(torch, np, cfg, name, dev="cuda"):
+    """``cfg`` at full width, bf16 weights from init_params (seed 0; an MoE
+    router in fp32), through launch.serve.serve's static batch
+    (BASELINE_QUEUE): the main path, its launch counts read on either side.
+    Its tokens in the vocabulary; then a second run gives the same tokens,
+    with an MoE model's routing recorded (capacity_losses) and an
+    encoder-decoder's prefill timed by stage. Returns (line, params,
+    launch counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model
+    from repro_torch.models.layers import cdtype
+    q = BASELINE_QUEUE
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev, dtype=cdtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launch_counts()                  # main path starts here
+    t0 = time.perf_counter()
+    gen, stats = serve(cfg, seed=0, device=dev, params=params, **q)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = ops.launch_counts()               # main path ends here
+    counts = {k: counts[k] for k in SERVE_KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(gen.shape == (q["batch"], q["gen_len"]), f"{name}: generated {gen.shape}")
+    check(bool(((gen >= 0) & (gen < cfg.padded_vocab)).all()), f"{name}: out-of-vocab tokens")
+
+    extra = {}
+    with RouteRecorder() as routes, StageTimer(torch) as stages:
+        again, _ = serve(cfg, seed=0, device=dev, params=params, **q)
+    check(bool((again == gen).all()), f"{name}: a second serve() gave other tokens")
+    if cfg.n_experts:
+        extra["capacity"] = capacity_losses(cfg, routes.calls, q)
+    if cfg.is_encdec:
+        extra["prefill_encoder_ms"] = 1e3 * sum(stages.s["encoder"])
+        extra["prefill_decoder_ms"] = 1e3 * sum(stages.s["decoder"])
+    step_bytes = decode_bytes(cfg, params, q)
+    line = {"arch": cfg.name, "layers": cfg.n_layers,
+            "cut_from": get_config(cfg.name).n_layers, "d_model": cfg.d_model,
+            "params": sum(t.numel() for t in leaves), "param_gb": param_bytes(leaves) / 1e9,
+            "init_s": init_s, "wall_s": wall_s, **q,
+            "prefill_ms": 1e3 * stats["prefill_s"], "decode_s": stats["decode_s"],
+            "decode_tok_per_s": stats["tok_per_s"],
+            "decode_ms_per_step": 1e3 * stats["decode_s"] / q["gen_len"],
+            "decode_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_step_gb": step_bytes / 1e9,
+            "max_memory_allocated_gb": peak_gb, "allocated_before_serve_gb": base_gb,
+            "second_run_same_tokens": True, "launches": counts, **extra}
+    return line, params, counts
+
+
+def capture_moe_inputs(run, picks):
+    """Run ``run()`` with moe.apply_moe wrapped (the stack calls it through
+    the module). Returns (the (layer params, input) of the MoE calls
+    numbered in ``picks``, in call order from 0; run's result)."""
+    from repro_torch.models import moe
+    saved, got, n = moe.apply_moe, {}, [0]
+
+    def wrapped(p, x, cfg, neuron_mask=None, expert_mask=None):
+        if n[0] in picks:
+            got[n[0]] = (p, x.detach().clone())
+        n[0] += 1
+        return saved(p, x, cfg, neuron_mask=neuron_mask, expert_mask=expert_mask)
+    moe.apply_moe = wrapped
+    try:
+        out = run()
+    finally:
+        moe.apply_moe = saved
+    return got, out
+
+
+def _picks(moe, route, cap, n):
+    """Per token (n, k): each pick's expert and whether it is served (kept,
+    and not at rank cap − 1 of an overflowing expert)."""
+    order, _, gs, _, row_e = route[:5]
+    rank = moe.rank_in_expert(gs, row_e)
+    served = (rank < cap) & ~((rank == cap - 1) & (gs[row_e] > cap))
+    e, s = row_e.clone(), served.clone()
+    e[order], s[order] = row_e, served
+    return e.view(n, -1), s.view(n, -1)
+
+
+def hold_moe_layer(torch, cfg, p, x):
+    """One MoE layer at its real input x (B, S, d), on the card against the
+    CPU port in fp32 (the layer's weights cast to fp32, TF32 off), token
+    chunk by chunk as _moe_local runs it. The routing must be identical:
+    sorted order, picks per expert, kept picks, and the experts whose slot
+    cap − 1 is overwritten; a token's picks may differ only where its k-th
+    and (k+1)-th router probabilities (CPU) are within MOE_TIE, and such
+    tokens are reported. The output (shared experts included) must agree
+    within MOE_LAYER_TOL (relative ∞-norm) on the tokens whose picks and
+    served picks agree."""
+    import dataclasses
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import moe
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    pg = tree_map(lambda t: t.float(), p)
+    pc = tree_map(lambda t: t.cpu(), pg)
+    T, k = x.shape[0] * x.shape[1], cfg.top_k
+    xg = x.float().reshape(T, -1)
+    xc = xg.cpu()
+    ck = moe.token_chunk(T, cfg)
+    cap = moe.capacity(ck, cfg)
+    same = torch.ones(T, dtype=torch.bool)
+    identical, ties = True, []
+    for i in range(0, T, ck):
+        rg = [t.cpu() for t in moe._route(pg, xg[i:i + ck], c32, None)[:5]]
+        rc = moe._route(pc, xc[i:i + ck], c32, None)[:5]
+        eg, sg = _picks(moe, rg, cap, ck)
+        ec, sc = _picks(moe, rc, cap, ck)
+        agree = (eg == ec).all(1) & (sg == sc).all(1)
+        same[i:i + ck] = agree
+        flipped = torch.nonzero(~(eg.sort(1).values == ec.sort(1).values).all(1))[:, 0]
+        if len(flipped):
+            probs = torch.softmax(xc[i:i + ck][flipped] @ pc["router"], -1)
+            top = probs.sort(-1, descending=True).values
+            ties += [float(g) for g in top[:, k - 1] - top[:, k]]
+        identical &= all(torch.equal(a, b) for a, b in zip(rg[:3], rc[:3])) and bool(agree.all())
+    check(all(g <= MOE_TIE for g in ties),
+          f"{cfg.name}: routing differs beyond near ties (k-th - (k+1)-th gaps {ties})")
+    yg, aux_g = moe.apply_moe(pg, xg.view(x.shape), c32)
+    yc, aux_c = moe.apply_moe(pc, xc.view(x.shape), c32)
+    yg = yg.cpu().reshape(T, -1)
+    err = rel_inf(yg[same], yc.reshape(T, -1)[same])
+    check(err <= MOE_LAYER_TOL, f"{cfg.name}: MoE layer card vs CPU {err} at T {T}")
+    del pg, pc
+    return {"T": T, "chunks": T // ck, "cap": cap, "routing_identical": identical,
+            "near_tie_tokens": len(ties), "near_tie_gaps": ties,
+            "tokens_compared": int(same.sum()), "rel_err_inf": err,
+            "aux_abs_err": abs(float(aux_g) - float(aux_c))}
+
+
+def phase_serve_moe(torch, np, dev="cuda"):
+    """DeepSeek-V2-Lite-16B at full width (27 layers: MLA without q-LoRA,
+    a dense first layer, then 26 MoE layers of 64 routed experts of 1408,
+    top-6, and 2 shared; vocab 102400), bf16 weights, through serve()'s
+    static batch. No hand-written kernel is on this path, as in the
+    reference: its dense d_ff 10944 is not a multiple of 128, serve()
+    passes no masks, and MLA and the MoE are plain torch. Then the first
+    and the last MoE layer held (hold_moe_layer) at the real inputs of
+    serve()'s prefill (T 4096), of its first decode step (T 8) and of a
+    forward of MOE_LONG tokens (T 10240, five chunks of 2048); two decode
+    steps from the same caches bitwise equal; busy share of 3 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import model
+    cfg = get_config("deepseek-v2-lite-16b")
+    line, params, counts = baseline_serve(torch, np, cfg, "serve_moe", dev)
+    check(set(counts.values()) == {0}, f"serve_moe: launched a kernel: {counts}")
+    n_moe = moe_layers(cfg)
+    picks = (0, n_moe - 1)
+    holds = {}
+    got, state = capture_moe_inputs(
+        lambda: serve_state(torch, np, params, cfg, BASELINE_QUEUE), picks)
+    holds["prefill"] = {f"moe_layer_{i}": hold_moe_layer(torch, cfg, *got[i]) for i in picks}
+    caches, tok, pos, _ = state
+    got, _ = capture_moe_inputs(lambda: make_serve_step(cfg)(params, caches, tok, pos), picks)
+    holds["decode"] = {f"moe_layer_{i}": hold_moe_layer(torch, cfg, *got[i]) for i in picks}
+    B, S = MOE_LONG
+    toks = torch.from_numpy(np.random.RandomState(3).randint(0, 256, (B, S))).to(dev)
+    got, _ = capture_moe_inputs(lambda: model.forward_seq(params, cfg, {"tokens": toks}), picks)
+    holds["long"] = {f"moe_layer_{i}": hold_moe_layer(torch, cfg, *got[i]) for i in picks}
+    del got
+    # from serve()'s prefill caches (the held step rewrote slot 512 with the
+    # same values) and its first step's input
+    line["two_steps_bitwise_equal"] = step_twice(torch, params, cfg, state)
+    check(line["two_steps_bitwise_equal"], "serve_moe: two decode steps differ")
+    line["profile"] = phase_profile(torch, params, cfg, state)
+    line["held_moe_layers"] = holds
+    del params, state, caches
+    return line, counts
+
+
+def phase_serve_static(torch, np, cfg, name, dev="cuda"):
+    """An attention model on serve()'s static batch: baseline_serve, with
+    decode_gqa launched once a full GQA attention layer a decode step and
+    masked_ffn_batch never (no masks on this path, and SeamlessM4T's FFN has
+    biases); then zoo_step's held step (every launch against its plain
+    version, the step against the plain step), two decode steps from
+    serve()'s caches bitwise equal, and the busy share of 3 decode steps."""
+    line, params, counts = baseline_serve(torch, np, cfg, name, dev)
+    n_ffn, n_gqa = kernel_layers(cfg)
+    want = {"masked_ffn_batch": 0, "decode_gqa": n_gqa * BASELINE_QUEUE["gen_len"]}
+    check(n_ffn == 0 and counts == want, f"{name}: launches {counts}, expected {want}")
+    line["step"], _ = zoo_step(torch, np, params, cfg)
+    state = serve_state(torch, np, params, cfg, BASELINE_QUEUE)
+    line["two_steps_bitwise_equal"] = step_twice(torch, params, cfg, state)
+    check(line["two_steps_bitwise_equal"], f"{name}: two decode steps differ")
+    line["profile"] = phase_profile(torch, params, cfg, state)
+    del params, state
+    return line, counts
 
 
 class RoundRecorder:
@@ -2674,6 +3109,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
 
     try:
@@ -2723,6 +3159,18 @@ def main() -> int:
         emit("serve_cmdr", **line)
         gc.collect()
         torch.cuda.empty_cache()
+        # the MoE models and the encoder-decoder on serve()'s static batch
+        line, _ = phase_serve_moe(torch, np)
+        emit("serve_moe", **line)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for phase, cfg in (("serve_arctic", get_config("arctic-480b").with_overrides(
+                               n_layers=ARCTIC_LAYERS)),
+                           ("serve_seamless", get_config("seamless-m4t-large-v2"))):
+            line, serving[phase] = phase_serve_static(torch, np, cfg, phase)
+            emit(phase, **line)
+            gc.collect()
+            torch.cuda.empty_cache()
         train, train_counts, train_runs = phase_train(torch, np)
         emit("train", **train)
         train_attn, attn_counts, attn_runs = phase_train_attn(torch, np)
@@ -2747,7 +3195,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit("async", **phase_async(torch, np))
         # launches: serving's kernels summed over the serve phases (StableLM,
-        # MiniCPM3, RecurrentGemma, Command-R) and Granite's step, the chunked
+        # MiniCPM3, RecurrentGemma, Command-R, Arctic, SeamlessM4T; DeepSeek's
+        # launches none) and Granite's step, the chunked
         # scan's from serve_rwkv, the FFN training kernels' from train, the
         # head-masked kernels' from train_attn; invariant_stats is on no main
         # path, so its count is that of its checks in the kernels phase

@@ -2,9 +2,7 @@
 
 The schema is the reference's field for field, so ``smoke()`` cuts every
 config to the same shapes in both packages. Every architecture of the
-reference is registered; ``models.model.init_params`` raises
-NotImplementedError for the layer kinds the port does not implement yet
-(MoE, encoder-decoder; see ROADMAP.md queue A).
+reference is registered, and ``models.model`` builds and runs each.
 """
 from __future__ import annotations
 

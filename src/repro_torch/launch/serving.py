@@ -168,7 +168,13 @@ class ServeEngine:
         if cfg.is_encdec:
             raise NotImplementedError(
                 "ServeEngine covers decoder-only stacks; encoder-decoder "
-                "models are not ported to repro_torch yet")
+                "serving still goes through launch.serve.serve()")
+        if cfg.n_experts:
+            raise ValueError(
+                f"ServeEngine does not serve the MoE model {cfg.name}: its "
+                "per-slot (B, 1, f) FFN masks are not the (E, f) expert-unit "
+                "mask moe.apply_moe takes, and the reference's engine fails "
+                "on them; serve MoE models through launch.serve.serve()")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServeEngine(device='cuda') needs a CUDA "

@@ -1,8 +1,9 @@
 """GQA/MQA attention with sliding-window support and a ring-buffer KV
 cache (port of ``repro/models/attention.py``).
 
-  attn_seq(...)     -- full sequence (prefill), plain torch ops as in the
-                       reference (which computes it in plain jnp)
+  attn_seq(...)     -- full sequence (prefill), causal or bidirectional, or
+                       cross-attention over given K/V; plain torch ops as
+                       in the reference (which computes it in plain jnp)
   attn_decode(...)  -- one new token per row against the cache: through
                        the flash-decode kernel (kernels/decode_gqa.py), or,
                        for a windowed layer, the plain windowed attention
@@ -73,14 +74,17 @@ def _expand_kv(k, n_heads):
     return torch.repeat_interleave(k, n_heads // KV, dim=2)
 
 
-def _sdpa(q, k, v, q_pos, kv_pos, scale, window=None):
+def _sdpa(q, k, v, q_pos, kv_pos, scale, window=None, causal=True):
     """q:(B,Sq,H,hd) k,v:(B,T,H,hd); causal (and window) mask from absolute
     positions kv_pos (T,) or (B,T), -1 an empty slot, and q_pos (Sq,) or
-    (B,Sq). A key is kept where 0 <= kv <= q and q - kv < window."""
+    (B,Sq). A key is kept where 0 <= kv, kv <= q if causal, and
+    q - kv < window."""
     scores = torch.einsum("bqhk,bthk->bhqt", q, k).float() * scale
     kv_b = kv_pos[None, None, None, :] if kv_pos.ndim == 1 else kv_pos[:, None, None, :]
     q_b = q_pos[None, None, :, None] if q_pos.ndim == 1 else q_pos[:, None, :, None]
-    mask = (kv_b >= 0) & (kv_b <= q_b)
+    mask = kv_b >= 0
+    if causal:
+        mask = mask & (kv_b <= q_b)
     if window is not None:
         mask &= (q_b - kv_b) < window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG))
@@ -88,23 +92,35 @@ def _sdpa(q, k, v, q_pos, kv_pos, scale, window=None):
     return torch.einsum("bhqt,bthk->bqhk", w.to(v.dtype), v)
 
 
-def attn_seq(p, x, cfg: ModelConfig, positions, window=None):
-    """Full-sequence self-attention, windowed when ``window`` is given.
-    Returns (out, (k, v)) for the cache."""
+def attn_seq(p, x, cfg: ModelConfig, positions, window=None, kv_override=None,
+             kv_positions=None, causal=True):
+    """Full-sequence attention, windowed when ``window`` is given,
+    bidirectional when not ``causal``. kv_override: (k, v) (B,T,KV,hd) for
+    cross-attention, at ``kv_positions`` (T,); q then takes its projection
+    and bias but no rope. Returns (out, (k, v)) for the cache."""
     B, S, _ = x.shape
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    q, k, v = _qkv(p, x, cfg, positions)
+    if kv_override is None:
+        q, k, v = _qkv(p, x, cfg, positions)
+        kv_pos = positions
+    else:
+        dt = cdtype(cfg)
+        q = _proj(x, p["wq"], dt)
+        if "bq" in p:
+            q = q + p["bq"].to(dt)
+        k, v = kv_override
+        kv_pos = kv_positions
     kf = _expand_kv(k, cfg.n_heads)
     vf = _expand_kv(v, cfg.n_heads)
     if S <= Q_CHUNK:
-        out = _sdpa(q, kf, vf, positions, positions, scale, window)
+        out = _sdpa(q, kf, vf, positions, kv_pos, scale, window, causal)
     else:
         if S % Q_CHUNK:
             raise ValueError(f"sequence length {S} must be a multiple of "
                              f"{Q_CHUNK} above {Q_CHUNK}")
         out = torch.cat([
             _sdpa(q[:, i:i + Q_CHUNK], kf, vf, positions[i:i + Q_CHUNK],
-                  positions, scale, window)
+                  kv_pos, scale, window, causal)
             for i in range(0, S, Q_CHUNK)], dim=1)
     return _out(p, out, cfg), (k, v)
 

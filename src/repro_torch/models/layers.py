@@ -149,8 +149,8 @@ def lm_logits(p, x, cfg: ModelConfig):
 GATED = {"swiglu", "gelu_gated"}
 
 
-def init_ffn(gen, cfg: ModelConfig, device, dtype, repeats=None):
-    d, f = cfg.d_model, cfg.d_ff
+def init_ffn(gen, cfg: ModelConfig, device, dtype, repeats=None, d_ff=None):
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
     kw = dict(dtype=dtype, device=device, repeats=repeats)
     p = {"w_in": dense_init(gen, d, d, f, **kw),
          "w_out": dense_init(gen, f, f, d, **kw)}

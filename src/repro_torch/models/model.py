@@ -1,6 +1,7 @@
-"""Model API (port of ``repro/models/model.py``), decoder-only stacks:
-GQA/MQA, MLA, local attention, RG-LRU and RWKV-6 mixers, sequential or
-parallel blocks, dense FFNs.
+"""Model API (port of ``repro/models/model.py``) over every registered
+architecture: decoder stacks (GQA/MQA, MLA, local attention, RG-LRU and
+RWKV-6 mixers, sequential or parallel blocks, dense or MoE FFNs) and the
+encoder–decoder (SeamlessM4T).
 
   init_params(cfg, seed, device, dtype)        -> params dict
   forward_seq(params, cfg, batch, ...)         -> (logits, caches, aux)
@@ -12,16 +13,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (apply_norm, embed_tokens, init_embed,
                                        init_norm, lm_logits, pdtype)
 
-
-def _check_decoder_only(cfg: ModelConfig):
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported to repro_torch yet "
-            "(see ROADMAP.md queue A)")
+ENC_MEM_LEN = 4096      # encoder memory length of the decode-shape caches
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
@@ -30,15 +26,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     seeded with ``seed``. Matrices are stored in ``dtype`` (default
     cfg.param_dtype), cast one layer at a time as they are drawn; vectors
     (norm scales, biases, RWKV-6's mixing, decay and bonus vectors,
-    RG-LRU's gate vectors and a_param) stay in
-    cfg.param_dtype. The numbers differ from the reference's
-    jax.random init: to compare the two packages, convert the reference's
-    params with ``repro_torch.interop.params_from_numpy``."""
-    _check_decoder_only(cfg)
+    RG-LRU's gate vectors and a_param) stay in cfg.param_dtype, and an MoE
+    router stays in fp32, as the reference keeps it. The numbers differ
+    from the reference's jax.random init: to compare the two packages,
+    convert the reference's params with
+    ``repro_torch.interop.params_from_numpy``."""
     device = torch.device(device)
     dtype = dtype or pdtype(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if cfg.is_encdec:
+        stack = encdec.init_encdec_stack(gen, cfg, device, dtype)
+        return {"tok": init_embed(gen, cfg, device, dtype),
+                "final_norm": init_norm(cfg, device), "stack": stack,
+                "enc_norm": init_norm(cfg, device)}
     seg_params, _ = transformer.init_stack(gen, cfg, device, dtype)
     return {"tok": init_embed(gen, cfg, device, dtype),
             "final_norm": init_norm(cfg, device),
@@ -52,20 +53,30 @@ def _seg_list(params, cfg):
 
 def forward_seq(params, cfg: ModelConfig, batch, masks=None,
                 want_cache=False, cache_len=None):
-    """batch: {'tokens': (B,S) int}. Returns (logits, caches, aux); aux is
-    the MoE router loss of the reference, 0 for the ported dense stacks."""
-    _check_decoder_only(cfg)
+    """batch: {'tokens': (B,S) int}, and for an encoder–decoder 'frames'
+    (B,M,d) with masks {'enc': ..., 'dec': ...}. Returns (logits, caches,
+    aux); aux is the MoE router loss summed over layers (0 without MoE)."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = embed_tokens(params["tok"], tokens, cfg)
-    seg_params, segs = _seg_list(params, cfg)
-    x, caches = transformer.run_stack_seq(
-        seg_params, segs, x, cfg, positions, masks=masks,
-        want_cache=want_cache, cache_len=cache_len)
+    if cfg.is_encdec:
+        mem = encdec.run_encoder(params["stack"], batch["frames"], cfg,
+                                 masks=masks["enc"] if masks else None)
+        mem = apply_norm(params["enc_norm"], mem, cfg)
+        x, caches = encdec.run_decoder_seq(
+            params["stack"], x, mem, cfg, positions,
+            masks=masks["dec"] if masks else None, want_cache=want_cache,
+            cache_len=cache_len)
+        caches = [caches]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        seg_params, segs = _seg_list(params, cfg)
+        x, caches, aux = transformer.run_stack_seq(
+            seg_params, segs, x, cfg, positions, masks=masks,
+            want_cache=want_cache, cache_len=cache_len)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["tok"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, (caches if want_cache else None), aux
 
 
@@ -73,11 +84,14 @@ def decode_hidden(params, cfg: ModelConfig, caches, token, pos, masks=None,
                   mla_absorb=False):
     """The final-normed hidden state (B,1,d) of one decode step; the caches
     are updated in place. mla_absorb: MLA layers attend in latent space."""
-    _check_decoder_only(cfg)
     x = embed_tokens(params["tok"], token, cfg)
-    seg_params, segs = _seg_list(params, cfg)
-    x = transformer.run_stack_decode(seg_params, segs, caches, x, cfg, pos,
-                                     masks=masks, mla_absorb=mla_absorb)
+    if cfg.is_encdec:
+        x = encdec.run_decoder_decode(params["stack"], caches[0], x, cfg, pos,
+                                      masks=masks["dec"] if masks else None)
+    else:
+        seg_params, segs = _seg_list(params, cfg)
+        x = transformer.run_stack_decode(seg_params, segs, caches, x, cfg, pos,
+                                         masks=masks, mla_absorb=mla_absorb)
     return apply_norm(params["final_norm"], x, cfg)
 
 
@@ -91,7 +105,8 @@ def decode_step(params, cfg: ModelConfig, caches, token, pos, masks=None,
 
 
 def cache_specs(cfg: ModelConfig, batch, seq_len):
-    _check_decoder_only(cfg)
+    if cfg.is_encdec:
+        return [encdec.dec_cache_specs(cfg, batch, seq_len, ENC_MEM_LEN)]
     return transformer.stack_cache_specs(cfg, batch, seq_len)
 
 

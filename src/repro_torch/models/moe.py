@@ -1,0 +1,221 @@
+"""Mixture-of-Experts FFN: top-k router and grouped expert matmuls (port of
+``repro/models/moe.py``, its mesh-less branch).
+
+Invariant-Dropout hooks:
+  expert_mask  (E,)   -- 0 drops a whole expert (router logit -> -1e30)
+  neuron_mask  (E, f) -- 0 drops an expert-hidden unit
+
+Two forms of the expert matmuls, as in the reference. "capacity" (the
+default) scatters the routed rows into per-expert buckets of
+cap = ceil(T·k/E · capacity_factor) rows and runs one (E, cap, d) batched
+matmul, every expert's weights read whether a row reached it or not;
+"ragged" runs each expert's contiguous group of sorted rows through its
+own matmuls. The reference computes both in XLA ops, not in a Pallas
+kernel, and so does the port, in plain torch ops.
+
+Two results of the reference are kept as they are (see ROADMAP.md, C):
+
+- The capacity scatter writes a dropped row as zeros to slot cap − 1 of
+  its expert, after the kept rows, so an expert that overflows loses the
+  row it kept at rank cap − 1 as well. The port writes the kept rows, then
+  zeros slot cap − 1 of every expert with more than cap rows.
+- ``jax.lax.top_k`` puts the lower expert first among equal probabilities
+  (masked experts tie at exactly 0); the port takes its top k from a stable
+  descending sort, which does the same.
+
+The weighted combine sums each token's k rows in the reference's order
+(sorted by expert) one after the other, never by atomics, so two runs on
+the card give the same bits.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import GATED, apply_ffn, cdtype, dense_init, init_ffn
+
+
+def init_moe(gen, cfg: ModelConfig, device, dtype, repeats=None):
+    """Router (d, E), always fp32; experts' w_in, w_gate (E, d, f) and
+    w_out (E, f, d) in ``dtype``; the shared experts (one FFN of
+    n_shared_experts · f) and Arctic's dense residual FFN (d_ff)."""
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_ff
+    kw = dict(dtype=dtype, device=device, repeats=repeats)
+    p = {"router": dense_init(gen, d, d, E, dtype=torch.float32, device=device,
+                              repeats=repeats),
+         "w_in": dense_init(gen, d, E, d, f, **kw),
+         "w_out": dense_init(gen, f, E, f, d, **kw)}
+    if cfg.ffn_kind in GATED:
+        p["w_gate"] = dense_init(gen, d, E, d, f, **kw)
+    if cfg.n_shared_experts:
+        p["shared"] = init_ffn(gen, cfg, d_ff=cfg.n_shared_experts * f, **kw)
+    if cfg.dense_ff_residual:
+        p["dense"] = init_ffn(gen, cfg, d_ff=cfg.d_ff, **kw)
+    return p
+
+
+def _route(p, x2d, cfg: ModelConfig, expert_mask):
+    """Top-k routing of x2d (T, d). Returns (order, tok, gs, w, row_e,
+    aux): the (T·k) picks sorted by expert (stable), each pick's token, the
+    picks per expert, each sorted pick's normalised weight and expert, and
+    the Switch-style load-balance loss."""
+    T = x2d.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    logits = x2d.float() @ p["router"].float()
+    if expert_mask is not None:
+        logits = torch.where(expert_mask[None, :] > 0, logits,
+                             torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)                      # (T, E)
+    # jax.lax.top_k: largest first, the lower index first among equals
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    flat_e = topi.reshape(T * k)
+    order = torch.argsort(flat_e, stable=True)
+    tok = order // k
+    gs = torch.bincount(flat_e, minlength=E).to(torch.int32)
+    w = topv.reshape(T * k)[order]
+    frac = gs.float() / max(T * k, 1)
+    aux = E * torch.sum(frac * probs.mean(dim=0))
+    return order, tok, gs, w, flat_e[order], aux
+
+
+def _expert_act(h, g):
+    if g is not None:
+        return F.silu(g) * h
+    return F.gelu(h, approximate="tanh")          # jax.nn.gelu's default
+
+
+def capacity(T: int, cfg: ModelConfig) -> int:
+    """Rows an expert's bucket holds for T tokens (the reference's cap)."""
+    return max(int(math.ceil(T * cfg.top_k / cfg.n_experts
+                             * cfg.moe_capacity_factor)), 1)
+
+
+def rank_in_expert(gs, row_e):
+    """Each sorted pick's rank within its expert's group (kept where <
+    capacity)."""
+    offsets = torch.cumsum(gs, 0) - gs                         # (E,)
+    return torch.arange(row_e.numel(), device=row_e.device) - offsets[row_e]
+
+
+def token_chunk(T: int, cfg: ModelConfig) -> int:
+    """Tokens a chunk of ``_moe_local`` takes: T up to moe_token_chunk,
+    else moe_token_chunk halved until it divides T."""
+    ck = cfg.moe_token_chunk
+    if T <= ck:
+        return T
+    while T % ck:
+        ck //= 2
+    return ck
+
+
+def _combine(out, w, order, T, k, dt):
+    """y (T, d): each token's k weighted rows summed in sorted order (by
+    expert), as the reference's scatter-add visits them, one add at a time
+    in ``dt``."""
+    contrib = out * w[:, None].to(dt)                          # (T·k, d) sorted
+    at = torch.empty_like(order)
+    at[order] = torch.arange(order.numel(), device=order.device)
+    rows = torch.sort(at.view(T, k), dim=1).values             # sorted positions
+    y = contrib[rows[:, 0]]
+    for j in range(1, k):
+        y = y + contrib[rows[:, j]]
+    return y
+
+
+def _expert_matmul(buckets, wi, wg, wo, nm, dt):
+    """(E', cap, d) buckets through E' experts: (E', cap, d)."""
+    h = torch.bmm(buckets, wi.to(dt))
+    g = torch.bmm(buckets, wg.to(dt)) if wg is not None else None
+    h = _expert_act(h, g)
+    if nm is not None:
+        h = h * nm[:, None, :].to(dt)
+    return torch.bmm(h, wo.to(dt))
+
+
+def _moe_tokens(p, x2d, cfg: ModelConfig, neuron_mask, expert_mask):
+    """The routed experts over flat tokens x2d (T, d). Returns (y, aux)."""
+    dt = cdtype(cfg)
+    T, d = x2d.shape
+    E, k = cfg.n_experts, cfg.top_k
+    order, tok, gs, w, row_e, aux = _route(p, x2d, cfg, expert_mask)
+    xs = x2d[tok]                                              # (T·k, d)
+
+    if cfg.moe_impl == "ragged":
+        out = torch.empty((T * k, d), dtype=dt, device=x2d.device)
+        start = 0
+        for e, n in enumerate(gs.tolist()):
+            if n:
+                rows = xs[start:start + n]
+                g = rows @ p["w_gate"][e].to(dt) if "w_gate" in p else None
+                h = _expert_act(rows @ p["w_in"][e].to(dt), g)
+                if neuron_mask is not None:
+                    h = h * neuron_mask[e].to(dt)
+                out[start:start + n] = h @ p["w_out"][e].to(dt)
+            start += n
+        return _combine(out, w, order, T, k, dt), aux
+
+    cap = capacity(T, cfg)
+    rank = rank_in_expert(gs, row_e)
+    keep = rank < cap
+    # kept rows to their (expert, rank) slot, each slot written once;
+    # dropped rows to one spare row past the buckets, thrown away (no
+    # boolean indexing: its host sync would stall every decode layer)
+    dst = torch.where(keep, row_e * cap + rank, torch.full_like(rank, E * cap))
+    flat = torch.zeros((E * cap + 1, d), dtype=dt, device=x2d.device)
+    flat[dst] = xs.to(dt)
+    buckets = flat[:E * cap].view(E, cap, d)
+    # the reference writes each dropped row's zeros to slot cap - 1 after
+    # the kept rows: an overflowing expert's slot cap - 1 ends up 0
+    buckets[:, cap - 1].masked_fill_((gs > cap)[:, None], 0)
+
+    wg = p.get("w_gate")
+    ec = cfg.moe_expert_chunk
+    if ec and E > ec and E % ec == 0:
+        # expert chunks bound the working set to ec experts at a time
+        parts = []
+        for s in range(0, E, ec):
+            sl = slice(s, s + ec)
+            parts.append(_expert_matmul(
+                buckets[sl], p["w_in"][sl], wg[sl] if wg is not None else None,
+                p["w_out"][sl], neuron_mask[sl] if neuron_mask is not None else None,
+                dt))
+        out_b = torch.cat(parts)
+    else:
+        out_b = _expert_matmul(buckets, p["w_in"], wg, p["w_out"], neuron_mask, dt)
+    out = out_b[row_e, torch.clamp(rank, 0, cap - 1)]          # (T·k, d)
+    out = torch.where(keep[:, None], out, torch.zeros_like(out))
+    return _combine(out, w, order, T, k, dt), aux
+
+
+def _moe_local(p, x, neuron_mask, expert_mask, cfg: ModelConfig):
+    """x (B, S, d): the routed experts over token chunks of at most
+    moe_token_chunk (halved until it divides T; capacity per chunk, aux the
+    mean over chunks), then the shared and dense FFNs added."""
+    B, S, d = x.shape
+    T = B * S
+    x2d = x.reshape(T, d)
+    ck = token_chunk(T, cfg)
+    if ck == T:
+        y, aux = _moe_tokens(p, x2d, cfg, neuron_mask, expert_mask)
+    else:
+        ys, auxs = zip(*(_moe_tokens(p, x2d[i:i + ck], cfg, neuron_mask, expert_mask)
+                         for i in range(0, T, ck)))
+        y, aux = torch.cat(ys), torch.stack(auxs).mean()
+    y = y.reshape(B, S, d)
+    if "shared" in p:
+        y = y + apply_ffn(p["shared"], x, cfg)
+    if "dense" in p:
+        y = y + apply_ffn(p["dense"], x, cfg)
+    return y, aux
+
+
+def apply_moe(p, x, cfg: ModelConfig, neuron_mask=None, expert_mask=None):
+    """x: (B,S,d). Returns (y, aux_loss). The reference's mesh branch
+    (shard_map over experts' hidden units, weight streaming) is not ported
+    (ROADMAP.md, A.5)."""
+    return _moe_local(p, x, neuron_mask, expert_mask, cfg)

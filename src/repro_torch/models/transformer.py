@@ -7,10 +7,11 @@ over r here. Mixed-pattern archs (RecurrentGemma's 2:1) decompose into a
 few segments.
 
 Layer kinds:  attn | local_attn (MLA or GQA) | rglru | rwkv    (mixer)
-              dense | cmix                                    (ffn)
-A parallel block (Command-R) sums mixer and FFN of one norm. MoE FFNs
-raise NotImplementedError (see ROADMAP.md queue A). Decode updates the
-caches in place.
+              dense | moe | cmix                              (ffn)
+A parallel block (Command-R) sums mixer and FFN of one norm. An MoE FFN
+(models/moe.py) takes the layer's (E, f) expert-unit mask and (E,) expert
+mask, and its router loss is summed over layers. Decode updates the caches
+in place.
 """
 from __future__ import annotations
 
@@ -20,14 +21,14 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, mla, rglru, rwkv6
+from repro_torch.models import attention, mla, moe, rglru, rwkv6
 from repro_torch.models.layers import (TensorSpec, apply_ffn, apply_norm,
                                        cdtype, init_ffn, init_norm)
 
 LayerSpec = Tuple[str, str]        # (mixer, ffn)
 
-PORTED = (("attn", "dense"), ("local_attn", "dense"), ("rglru", "dense"),
-          ("rwkv", "cmix"))
+PORTED = (("attn", "dense"), ("attn", "moe"), ("local_attn", "dense"),
+          ("rglru", "dense"), ("rwkv", "cmix"))
 ATTN_MIXERS = ("attn", "local_attn")
 
 
@@ -107,6 +108,8 @@ def init_segment(gen, seg: Segment, cfg: ModelConfig, device, dtype):
             p["norm2"] = init_norm(cfg, device, repeats=seg.repeats)
         if spec[1] == "cmix":
             p["cmix"] = rwkv6.init_cmix(gen, cfg, **kw)
+        elif spec[1] == "moe":
+            p["moe"] = moe.init_moe(gen, cfg, **kw)
         else:
             p["ffn"] = init_ffn(gen, cfg, **kw)
         out[f"l{i}"] = p
@@ -151,9 +154,17 @@ def _ring_from_seq(tensors, positions, window=None, cache_len=None):
     return out
 
 
+def _apply_ffn_or_moe(spec, p, h2, cfg: ModelConfig, masks):
+    """The layer's FFN on the normed h2: (y, aux), aux 0 for a dense FFN."""
+    if spec[1] == "moe":
+        return moe.apply_moe(p["moe"], h2, cfg, neuron_mask=_m(masks, "moe"),
+                             expert_mask=_m(masks, "experts"))
+    return apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn")), 0.0
+
+
 def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
                      want_cache, cache_len=None):
-    """Returns (x, cache_entry)."""
+    """Returns (x, cache_entry, aux)."""
     _check_ported(spec, cfg)
     mixer = spec[0]
     h = apply_norm(p["norm1"], x, cfg)
@@ -165,7 +176,7 @@ def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
                                     neuron_mask=_m(masks, "ffn"))
         cache = ({"rwkv": {"S": state, "shift_tm": last_tm, "shift_cm": last_cm}}
                  if want_cache else {})
-        return x + y, cache
+        return x + y, cache, 0.0
     cache = {}
     if mixer == "rglru":
         y, cache["rglru"] = rglru.rglru_seq(p["rglru"], h, cfg)
@@ -183,10 +194,10 @@ def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
                                       cache_len)
                  for name, c in cache.items()}
     if cfg.parallel_block:
-        return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn")), cache
+        return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn")), cache, 0.0
     x = x + y
-    h2 = apply_norm(p["norm2"], x, cfg)
-    return x + apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn")), cache
+    f, aux = _apply_ffn_or_moe(spec, p, apply_norm(p["norm2"], x, cfg), cfg, masks)
+    return x + f, cache, aux
 
 
 def _stack_caches(per_repeat):
@@ -199,9 +210,11 @@ def _stack_caches(per_repeat):
 
 def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
                   masks=None, want_cache=False, cache_len=None):
-    """x: (B,S,d). Returns (x, caches). masks: list per segment of per-unit
-    dicts with stacked (R, ...) leaves, or None."""
+    """x: (B,S,d). Returns (x, caches, aux): aux the MoE router losses
+    summed in layer order (0 without an MoE layer). masks: list per segment
+    of per-unit dicts with stacked (R, ...) leaves, or None."""
     caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (seg, sp) in enumerate(zip(segs, seg_params)):
         smasks = masks[si] if masks is not None else None
         per_repeat = []
@@ -209,12 +222,13 @@ def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
             cache_u = {}
             for i, spec in enumerate(seg.unit):
                 lm = _at(smasks[f"l{i}"], r) if smasks is not None else None
-                x, cache_u[f"l{i}"] = _apply_layer_seq(
+                x, cache_u[f"l{i}"], aux = _apply_layer_seq(
                     spec, _at(sp[f"l{i}"], r), x, cfg, positions, lm,
                     want_cache, cache_len)
+                aux_total = aux_total + aux
             per_repeat.append(cache_u)
         caches.append(_stack_caches(per_repeat) if want_cache else None)
-    return x, caches
+    return x, caches, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -246,8 +260,7 @@ def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
     if cfg.parallel_block:
         return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn"))
     x = x + y
-    h2 = apply_norm(p["norm2"], x, cfg)
-    return x + apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn"))
+    return x + _apply_ffn_or_moe(spec, p, apply_norm(p["norm2"], x, cfg), cfg, masks)[0]
 
 
 def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,

@@ -309,6 +309,24 @@ def test_decode_gqa_at_zoo_decode_shapes(dev, H, KV):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("H,KV,hd", [(16, 16, 64), (56, 8, 128)])
+def test_decode_gqa_at_seamless_and_arctic_decode_shapes(dev, H, KV, hd):
+    """SeamlessM4T-Large v2's decoder self-attention (16 heads of 64 on 16,
+    G 1) and Arctic-480B's (56 on 8, G 7: 7 virtual groups of 1), B 8,
+    C 576, bf16, at the step's lengths 256 − 16i: against the plain
+    version, a second call the same bits."""
+    B, C, bf = 8, 576, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(H + KV)
+    q = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
+    k = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
+    v = torch.randn(B, C, KV, hd, generator=g, device=dev).to(bf)
+    lengths = torch.tensor([256 - 16 * i for i in range(B)], dtype=torch.int32, device=dev)
+    got, again = ops.decode_gqa(q, k, v, lengths), ops.decode_gqa(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert _rel_err(got, gqa.decode_gqa_plain(q, k, v, lengths)) <= 1e-2
+    assert torch.equal(got, again)
+
+
 def _train_masks(C, M, F, g, dev):
     """Per-client row masks: all kept, ordered rate 0.5 (whole blocks
     dropped), scattered neurons at 0.75, one all-zero row, all dropped."""
@@ -1082,3 +1100,89 @@ def test_sharded_partials_sum_to_numerator_bitwise_on_the_card(dev):
     num = tree_map(lambda a: ((a[0] + a[1]) + a[2]) + a[3], pr_num)
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(num), tree_leaves(res.num)))
     assert torch.equal(((pr_w[0] + pr_w[1]) + pr_w[2]) + pr_w[3], res.w_per_mask)
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN and the encoder-decoder (plain torch, as in the reference)
+
+def _moe_case(cfg, T, seed):
+    """A DeepSeek-V2-Lite smoke MoE layer's params and T tokens whose
+    router favours expert 0, so it overflows its capacity."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(seed)
+    p = moe.init_moe(g, cfg, "cpu", torch.float32)
+    p["router"][:, 0] += 0.5
+    x = torch.randn(T, cfg.d_model, generator=g).abs() * 0.5
+    return p, x
+
+
+@pytest.mark.parametrize("case", ["overflow", "expert_mask_ties"])
+def test_moe_tokens_card_matches_cpu(dev, case):
+    """_moe_tokens on the card against the CPU port, fp32 with TF32 off:
+    the same routing (picks per expert, sorted order; ties at probability 0
+    under an expert mask broken by the lower expert) and outputs within
+    1e-5; two calls on the card give the same bits."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b").smoke(), dtype="float32")
+    p, x = _moe_case(cfg, 40, seed=7)
+    em = torch.tensor([1.0, 0.0, 0.0, 0.0]) if case == "expert_mask_ties" else None
+    nm = (torch.rand(cfg.n_experts, cfg.moe_ff, generator=torch.Generator().manual_seed(1))
+          > 0.3).float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pd = {k: v.to(dev) for k, v in p.items() if k != "shared"}
+        want = moe._moe_tokens(p, x, cfg, nm, em)
+        got = moe._moe_tokens(pd, x.to(dev), cfg, nm.to(dev), None if em is None else em.to(dev))
+        again = moe._moe_tokens(pd, x.to(dev), cfg, nm.to(dev), None if em is None else em.to(dev))
+        r_cpu = moe._route(p, x, cfg, em)
+        r_dev = moe._route(pd, x.to(dev), cfg, None if em is None else em.to(dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert int(r_cpu[2].max()) > moe.capacity(40, cfg)
+    for a, b in zip(r_cpu[:3], r_dev[:3]):
+        assert torch.equal(a, b.cpu())
+    assert _rel_err(got[0].cpu(), want[0]) <= 1e-5
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "seamless-m4t-large-v2"])
+def test_moe_and_encdec_prefill_then_decode_card_matches_cpu(dev, arch):
+    """The smoke model in fp32 (TF32 off) on the card against the CPU: a
+    prefill into a 14-slot cache (SeamlessM4T with frames) and two greedy
+    decode steps (SeamlessM4T's self-attention through the GQA kernel),
+    logits within 1e-3."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
+    cpu = model.init_params(cfg, seed=0, device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    rng = np.random.RandomState(0)
+    B, S = 3, 12
+    toks = torch.from_numpy(rng.randint(0, 256, (B, S)))
+    frames = torch.from_numpy((rng.randn(B, S, cfg.d_model) * 0.1).astype(np.float32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res = {}
+        for name, params, d in (("cpu", cpu, "cpu"), ("cuda", gpu, dev)):
+            batch = {"tokens": toks.to(d)}
+            if cfg.is_encdec:
+                batch["frames"] = frames.to(d)
+            _, caches, _ = model.forward_seq(params, cfg, batch, want_cache=True, cache_len=14)
+            tok, pos = toks[:, -1:].to(d), torch.full((B,), S, device=d)
+            out = []
+            for _ in range(2):
+                logits, caches = model.decode_step(params, cfg, caches, tok, pos)
+                out.append(logits.float().cpu())
+                tok, pos = torch.argmax(logits[:, -1], -1)[:, None], pos + 1
+            res[name] = out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(res["cpu"], res["cuda"]):
+        assert bool(torch.isfinite(b).all())
+        assert float((a - b).abs().max()) <= 1e-3

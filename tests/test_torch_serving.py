@@ -70,6 +70,16 @@ def _flat(tree, prefix=""):
     return {prefix: np.asarray(tree)}
 
 
+def _flat_shapes(tree, prefix=""):
+    """Leaves (anything with a .shape) by path."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_shapes(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
 def _dtypes(tree, prefix=""):
     if isinstance(tree, dict):
         out = {}
@@ -81,8 +91,8 @@ def _dtypes(tree, prefix=""):
 
 def test_config_schema_matches_reference():
     """Every registered config, full and smoke, equals the reference's
-    field for field; the ones whose layer kinds are not ported (MoE,
-    encoder-decoder) are registered, and their init_params raises."""
+    field for field; the MoE and encoder-decoder ones build at smoke size
+    on the CPU with the reference's param keys and shapes."""
     jcfg, tcfg = _cfgs()
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     assert ARCH_IDS == jax_arch_ids
@@ -94,8 +104,11 @@ def test_config_schema_matches_reference():
         assert got.lru_dim == want.lru_dim
         assert got.layer_kinds() == want.layer_kinds(), arch
     for arch in ("deepseek-v2-lite-16b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tq_model.init_params(get_config(arch).smoke(), device="cpu")
+        want = jax.eval_shape(lambda k: jax_model.init_params(jax_get_config(arch).smoke(), k),
+                              jax.random.PRNGKey(0))
+        want = {k: tuple(v.shape) for k, v in _flat_shapes(want).items()}
+        got = _flat_shapes(tq_model.init_params(get_config(arch).smoke(), device="cpu"))
+        assert {k: tuple(v.shape) for k, v in got.items()} == want, arch
 
 
 ZOO = ("minicpm3-4b", "recurrentgemma-9b", "command-r-35b", "granite-20b")
@@ -265,6 +278,8 @@ def test_engine_on_cuda_raises_without_a_card(setup):
 
 def test_port_imports_no_jax_at_run_time():
     code = ("import sys, repro_torch.launch.serve, repro_torch.fl.simulation\n"
+            "import repro_torch.models.moe, repro_torch.models.encdec\n"
+            "import repro_torch.launch.steps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
