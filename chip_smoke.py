@@ -5,8 +5,10 @@ StableLM-2-12B, RWKV-6-3B, MiniCPM3-4B, RecurrentGemma-9B and
 Command-R-35B at full width, take a held decode step of Granite-20B,
 serve DeepSeek-V2-Lite-16B, Arctic-480B (2 of its 35 layers) and
 SeamlessM4T-Large v2 at full width through the reference's static-batch
-``serve``, run FLuID training on both kernel workloads and on the paper's
-own workloads through ``repro_torch``, and check the results.
+``serve``, train StableLM-2-12B at full width (8 of its 40 layers) with
+its masked FFN through the training kernels, run FLuID training on both
+kernel workloads and on the paper's own workloads through ``repro_torch``,
+and check the results.
 
     python3 chip_smoke.py
 
@@ -105,6 +107,27 @@ the seconds the phase took (``phase_s``):
              steps (the decoder's self-attention); encoder and decoder
              prefill ms apart; held step, bitwise steps and report as
              serve_arctic
+  train_zoo  StableLM-2-12B at full width on 8 of its 40 layers (3.15B
+             params; fp32 params, grads and AdamW moments reckoned at 50.3
+             GB, printed before anything is allocated on the train_zoo_plan
+             line), bf16 compute, block remat, the reference's synthetic
+             batches of 4 x 256: 2 full steps, the FFN's invariant unit
+             statistics against a snapshot (all > 0) and build_masks at
+             pick_rate(1.3) = 0.75 (81 of 108 blocks a layer); one masked
+             step's loss and gradients through the kernels against the
+             dense route (loss 1e-2, each layer's FFN gradients 2e-2
+             relative 2-norm, dropped blocks' gradients exactly 0 in both);
+             3 masked steps through B1's training form, B2 and B3 (16, 8 and
+             8 launches a step: the forward twice a layer under remat), the
+             first with every launch held against its plain version (1e-2),
+             the last profiled (busy share); 2 dense masked steps (no
+             launch), the last with AdamW timed alone; loss falling, every
+             param finite, peak memory; B1-B3 at this shape (C 1, M 1024)
+             against their bounds, plain versions and the dense route's
+             cuBLAS forward and backward; launch.train.run_fluid (6 steps,
+             calibrated every 3: statistics > 0, 81 blocks kept, no
+             launch) and run_plain's checkpoint at smoke size reloaded
+             bitwise
   train      6 FLuID rounds of femnist_kernel on the fleet backend (the
              FFN training path): each masked-FFN kernel launched once per
              SGD step; the same run with the plain versions must reach the
@@ -149,7 +172,8 @@ the seconds the phase took (``phase_s``):
              flash crowd of 20, 3 buffers) held the same two ways. Then
              buffers a second with nothing wrapped, ms a dispatch group
 
-Any failure exits non-zero. The last three lines are the per-kernel
+Any failure exits non-zero. Before the last three lines a ``total`` line
+gives the seconds of the whole run. The last three lines are the per-kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the repo
 beside this script, it exits 2 and prints no result.
@@ -210,6 +234,16 @@ MOE_LONG = (5, 2048)
 MOE_TIE = 1e-5                 # a pick may differ where k-th and (k+1)-th probs are this close
 MOE_LAYER_TOL = 1e-4           # card vs CPU, fp32, relative ∞-norm
 GRANITE_LAYERS = 52            # Granite-20B's full depth, for its one held decode step
+# train_zoo: StableLM-2-12B at full width on 8 of its 40 layers (3.15B
+# params: params, grads and AdamW's m and v in fp32 are 50.3 GB), fp32
+# params, bf16 compute, block remat, batch 4 x 256 (M 1024 rows)
+ZOO_TRAIN = dict(arch="stablelm-12b", layers=8, batch=4, seq=256, slowdown=1.3)
+ZOO_FLUID = dict(steps=6, calibrate_every=3)
+ZOO_CKPT = dict(steps=3, batch=2, seq=32)      # run_plain's checkpoint, smoke config
+# kernel step against the dense step: loss, and each layer's FFN gradients
+# (relative 2-norm); every launch of the first kernel step against its plain
+# version at the bf16 per-launch gate
+ZOO_LOSS_TOL, ZOO_GRAD_TOL, BF16_HOLD_TOL = 1e-2, 2e-2, 1e-2
 # a zoo step's end-to-end gate: 2e-2, or, where the gap of the plain step
 # with masked_ffn_batch's fp32 sums in 2 and 4 pieces exceeds 2e-2 (no
 # kernel in either), this factor times that gap
@@ -2080,6 +2114,300 @@ def phase_serve_static(torch, np, cfg, name, dev="cuda"):
     return line, counts
 
 
+def ffn_grads(grads):
+    """The FFN gradients (w_in, w_gate, w_out), stacked over the layers, of
+    a one-segment model's gradient tree."""
+    return dict(grads["stack"]["seg0"]["l0"]["ffn"])
+
+
+def compare_routes(torch, cfg, params, batch, masks):
+    """The kernel route's and the dense route's loss and gradients of one
+    masked step from the same params and batch: the loss, each layer's FFN
+    gradients (relative 2-norm), and a dropped block's gradient columns
+    (w_in, w_gate) and rows (w_out) exactly 0 in both; the launches of
+    each."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    ops.reset_launch_counts()
+    (lk, _), g = steps.make_grads_fn(cfg, use_kernels=True)(params, batch, masks)
+    gk = ffn_grads(g)
+    del g
+    torch.cuda.synchronize()
+    kcounts = ops.launch_counts()
+    ops.reset_launch_counts()
+    (ld, _), g = steps.make_grads_fn(cfg)(params, batch, masks)
+    gd = ffn_grads(g)
+    del g
+    torch.cuda.synchronize()
+    dcounts = ops.launch_counts()
+    dropped = masks[0]["l0"]["ffn"] == 0                        # (L, F)
+    rel, exact = {}, True
+    for k in ("w_in", "w_gate", "w_out"):
+        rel[k] = [rel2(a, b) for a, b in zip(gk[k], gd[k])]
+        for grads in (gk[k], gd[k]):
+            for layer, drop in zip(grads, dropped):
+                exact &= bool(((layer[drop] if k == "w_out" else layer[:, drop]) == 0).all())
+    return {"loss_kernel": float(lk), "loss_dense": float(ld),
+            "loss_rel": abs(float(lk) - float(ld)) / abs(float(ld)),
+            "grad_rel2_by_layer": rel, "dropped_grads_exactly_0": exact,
+            "launches_kernel": kcounts, "launches_dense": dcounts}
+
+
+def zoo_kernel_times(torch, cfg, mask, dev):
+    """B1's training form, B2 and B3 at the train step's shape (C 1, M
+    B·S, d, F, bf16, swiglu) under one layer's mask: device time a call
+    beside its bound and its plain version's, each held to the plain
+    version; and the dense route's forward and backward of the same masked
+    FFN (apply_ffn without the kernels, cuBLAS)."""
+    from repro_torch.kernels import masked_ffn as ffn
+    from repro_torch.models.layers import apply_ffn
+    M, d, F = ZOO_TRAIN["batch"] * ZOO_TRAIN["seq"], cfg.d_model, cfg.d_ff
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = lambda *sh, fan: (torch.randn(*sh, generator=g, device=dev) / fan ** 0.5)
+    bf = torch.bfloat16
+    x, gy = r(1, M, d, fan=1).to(bf), r(1, M, d, fan=1).to(bf)
+    w = {"w_in": r(d, F, fan=d), "w_gate": r(d, F, fan=d), "w_out": r(F, d, fan=F)}
+    row = mask.to(dev, torch.float32).expand(1, M, F).contiguous()
+    args = (x, w["w_in"].to(bf)[None], w["w_out"].to(bf)[None], row, w["w_gate"].to(bf)[None])
+    runs = {"masked_ffn_train_fwd": (lambda: ffn.masked_ffn_train_fwd(*args, act="silu"),
+                                     lambda: ffn.masked_ffn_batch_plain(*args, "silu")),
+            "masked_ffn_dx": (lambda: ffn.masked_ffn_dx(gy, *args, act="silu"),
+                              lambda: ffn.masked_ffn_dx_plain(gy, *args, "silu")),
+            "masked_ffn_dw": (lambda: ffn.masked_ffn_dw(gy, *args, act="silu"),
+                              lambda: ffn.masked_ffn_dw_plain(gy, *args, "silu"))}
+    work, skipped = train_work(torch, row, d, True, 2)
+    out = {"shape": dict(C=1, M=M, d=d, F=F, dtype="bfloat16", act="silu", gated=True),
+           "kept_blocks": int((mask.view(-1, 128).amax(1) > 0).sum()),
+           "skipped_tile_share": skipped}
+    for k, (kern, plain) in runs.items():
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(rel_inf(a, b) for a, b in zip(got, want) if b is not None)
+        check(err <= BF16_HOLD_TOL, f"train_zoo: {k} at C 1, M {M}: rel err {err}")
+        nbytes, flops = work[k]
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        out[k] = {"ms": time_ms(kern, torch, n=10), "plain_ms": time_ms(plain, torch, n=3, warmup=1),
+                  "bound_ms": b_ms, "bound_by": b_by, "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                  "bound_ops_ms": flops / BF16_FLOPS * 1e3, "rel_err": err,
+                  "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(got, want) if b is not None)}
+        del got, want
+    p = {k: v.requires_grad_() for k, v in w.items()}
+    xd = x.reshape(ZOO_TRAIN["batch"], ZOO_TRAIN["seq"], d).requires_grad_()
+
+    def dense():
+        y = apply_ffn(p, xd, cfg, neuron_mask=mask.to(dev))
+        y.backward(gy.view_as(y))
+    dense_fwd = lambda: apply_ffn(p, xd.detach(), cfg, neuron_mask=mask.to(dev))
+    with torch.no_grad():
+        out["dense_forward_ms"] = time_ms(dense_fwd, torch, n=10)
+    out["dense_forward_backward_ms"] = time_ms(dense, torch, n=10)
+    # a kernel step runs the forward twice a layer (remat), dx and dW once
+    out["kernel_layer_ms"] = (2 * out["masked_ffn_train_fwd"]["ms"] + out["masked_ffn_dx"]["ms"]
+                              + out["masked_ffn_dw"]["ms"])
+    return out
+
+
+def phase_train_zoo(torch, np, dev="cuda"):
+    """StableLM-2-12B at full width on 8 of its 40 layers through the port's
+    train step (fp32 params, bf16 compute, AdamW, block remat) on the
+    reference's synthetic batches: 2 full steps; the invariant unit
+    statistics of the FFN against a snapshot and build_masks at
+    pick_rate(1.3) (81 of 108 blocks a layer); the kernel route against
+    the dense route on one masked step (same params, same batch); 3 masked
+    steps through B1's training form, B2 and B3 (16, 8 and 8 launches a
+    step), the first with every launch held against its plain version; 2
+    dense masked steps (no launch), the last with AdamW timed alone; then
+    B1-B3 timed at this shape, launch.train.run_fluid through its entry
+    point, and run_plain's checkpoint at smoke size reloaded bitwise.
+    Returns (line, the kernel steps' launches)."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import transformer_hooks as hooks
+    from repro_torch.core.straggler import pick_rate
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer
+    cfg = get_config(ZOO_TRAIN["arch"]).with_overrides(n_layers=ZOO_TRAIN["layers"])
+    B, S = ZOO_TRAIN["batch"], ZOO_TRAIN["seq"]
+    n = model.count_params(model.param_specs(cfg))
+    plan = {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": get_config(cfg.name).n_layers,
+            "params": n, "param_dtype": cfg.param_dtype, "dtype": cfg.dtype,
+            "optimizer": cfg.optimizer, "remat": cfg.remat, "batch": B, "seq": S,
+            "reckoned_GB": {"params": 4 * n / 1e9, "grads": 4 * n / 1e9,
+                            "adamw_m": 4 * n / 1e9, "adamw_v": 4 * n / 1e9, "total": 16 * n / 1e9}}
+    emit("train_zoo_plan", **plan)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    params = model.init_params(cfg, seed=0, device=dev)
+    opt = make_optimizer(cfg.optimizer)
+    state = opt.init(params)
+    rng = np.random.RandomState(0)
+    snap = train.ffn_snapshot(params, cfg)
+    losses, ms, counts = [], {"full": [], "kernel": [], "dense": []}, []
+    zero = dict.fromkeys(ops.LAUNCHES, 0)
+
+    def run(kind, fn, b=None, *extra):
+        nonlocal params, state
+        b = b if b is not None else train.synth_batch(rng, cfg, B, S + 1, dev)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, met = fn(params, state, b, *extra)
+        loss = float(met["loss"])
+        ms[kind].append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        counts.append((kind, ops.launch_counts()))
+        return counts[-1][1]
+
+    full = steps.make_train_step(cfg)
+    for _ in range(2):
+        check(run("full", full) == zero, f"train_zoo: a full step launched {counts[-1]}")
+    stats = hooks.ffn_unit_stats(snap, params, cfg)
+    del snap
+    r = pick_rate(ZOO_TRAIN["slowdown"])
+    masks = tree_map(lambda m: m.to(dev), hooks.build_masks(stats, cfg, r))
+    nb = cfg.d_ff // 128
+    kept = masks[0]["l0"]["ffn"].view(cfg.n_layers, nb, 128).amax(-1).sum(-1)
+    want_kept = round(nb * r)
+    check(bool((kept == want_kept).all()), f"train_zoo: kept blocks a layer {kept.tolist()}, "
+          f"expected {want_kept}")
+    st = stats[0]["l0"]["ffn"]
+    check(bool((st > 0).all()), f"train_zoo: a calibration statistic is not > 0 "
+          f"(min {float(st.min())})")
+    calib = {"rate": r, "kept_blocks": kept.tolist(), "of_blocks": nb,
+             "stat_min": float(st.min()), "stat_max": float(st.max())}
+    # the kernel route against the dense route, on the first kernel step's batch
+    b = train.synth_batch(rng, cfg, B, S + 1, dev)
+    routes = compare_routes(torch, cfg, params, b, masks)
+    L = cfg.n_layers
+    per_step = {"masked_ffn_train_fwd": 2 * L, "masked_ffn_dx": L, "masked_ffn_dw": L}
+    check(routes["launches_dense"] == zero,
+          f"train_zoo: the dense route launched {routes['launches_dense']}")
+    check(all(routes["launches_kernel"][k] == v for k, v in per_step.items()),
+          f"train_zoo: the kernel route launched {routes['launches_kernel']}, expected {per_step}")
+    check(routes["loss_rel"] <= ZOO_LOSS_TOL, f"train_zoo: kernel vs dense loss {routes['loss_rel']}")
+    worst = max(max(v) for v in routes["grad_rel2_by_layer"].values())
+    check(worst <= ZOO_GRAD_TOL, f"train_zoo: kernel vs dense FFN gradients {worst}")
+    check(routes["dropped_grads_exactly_0"], "train_zoo: a dropped block's gradient is not 0")
+    gc.collect()
+    # three masked steps through the kernels: the first held, the last profiled
+    kern = steps.make_train_step(cfg, with_masks=True, use_kernels=True)
+    with HoldLaunches(torch) as hold:
+        c = run("kernel", kern, b, masks)
+    held = hold.check("train_zoo", c, TRAIN_KERNELS, tol=BF16_HOLD_TOL)
+    run("kernel", kern, None, masks)
+    busy = busy_share(torch, lambda: run("kernel", kern, None, masks),
+                      watch=("train_fwd", "train_dx", "train_dw", "train_fd_reduce"))
+    # a programmatic dependent (the f-block reduce) is counted from its early
+    # start, overlapping its primary: the share without it
+    wait_ms = sum(w["calls"] * w["us_per_call"] for w in busy.get("watched", [])
+                  if "reduce" in w["kernel"]) / 1e3
+    if busy["device_ms"] is not None:
+        busy["device_busy_share_without_dependents"] = (
+            (busy["device_ms"] - wait_ms) / busy["wall_ms"])
+    for kind, c in counts:
+        want = ({k: per_step.get(k, 0) for k in zero} if kind == "kernel" else zero)
+        check(c == want, f"train_zoo: a {kind} step launched {c}, expected {want}")
+    launches = {k: sum(c[k] for kind, c in counts if kind == "kernel") for k in TRAIN_KERNELS}
+    # two dense masked steps: the second as its gradients, then AdamW alone
+    dense = steps.make_train_step(cfg, with_masks=True)
+    check(run("dense", dense, None, masks) == zero, "train_zoo: the dense masked step launched")
+    b = train.synth_batch(rng, cfg, B, S + 1, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, _), grads = steps.make_grads_fn(cfg)(params, b, masks)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.update(grads, state, params, cfg.learning_rate)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    losses.append(float(loss))
+    ms["dense"].append(1e3 * (t2 - t0))
+    adamw_ms = 1e3 * (t2 - t1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+    check(all(np.isfinite(losses)) and finite, f"train_zoo: not finite (losses {losses})")
+    check(losses[-1] < losses[0], f"train_zoo: loss did not fall: {losses}")
+    step_s = {k: v[-1] / 1e3 for k, v in ms.items()}
+    step_s["kernel"] = ms["kernel"][1] / 1e3           # neither held nor profiled
+    flops = 6 * n * B * S
+    smi = nvidia_smi()
+    timing = {"card": smi, "ms_a_step": {k: 1e3 * v for k, v in step_s.items()},
+              "ms_by_step": ms,
+              "tokens_per_s": {k: B * S / v for k, v in step_s.items()},
+              "model_flop_share": {k: flops / v / BF16_FLOPS for k, v in step_s.items()},
+              "adamw_ms": adamw_ms, "kernel_step_busy": busy}
+    layer_mask = masks[0]["l0"]["ffn"][0].clone()
+    del params, state, masks, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    main_s = time.perf_counter() - t_phase
+    kern_times = zoo_kernel_times(torch, cfg, layer_mask, dev)
+    kern_times["card"] = smi
+    gc.collect()
+    torch.cuda.empty_cache()
+    # launch.train's entry points: run_fluid at this width, run_plain's
+    # checkpoint at smoke size (a full-width one would be 12.6 GB)
+    fl_stats, fl_masks = [], []
+    orig = {name: getattr(hooks, name) for name in ("ffn_unit_stats", "build_masks")}
+
+    def recorded(name, out):
+        return lambda *a, **kw: out.append(orig[name](*a, **kw)) or out[-1]
+    hooks.ffn_unit_stats, hooks.build_masks = (recorded("ffn_unit_stats", fl_stats),
+                                               recorded("build_masks", fl_masks))
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        fparams, flog = train.run_fluid(cfg, ZOO_FLUID["steps"], B, S,
+                                        calibrate_every=ZOO_FLUID["calibrate_every"],
+                                        straggler_slowdown=ZOO_TRAIN["slowdown"],
+                                        log_every=ZOO_FLUID["steps"], device=dev)
+        torch.cuda.synchronize()
+        fluid_s = time.perf_counter() - t0
+    finally:
+        hooks.ffn_unit_stats, hooks.build_masks = orig["ffn_unit_stats"], orig["build_masks"]
+    check(ops.launch_counts() == zero, f"train_zoo: run_fluid launched {ops.launch_counts()}")
+    del fparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(fl_stats) == ZOO_FLUID["steps"] // ZOO_FLUID["calibrate_every"],
+          f"train_zoo: run_fluid calibrated {len(fl_stats)} times")
+    fl_kept = []
+    for st, mk in zip(fl_stats, fl_masks):
+        check(bool((st[0]["l0"]["ffn"] > 0).all()), "train_zoo: run_fluid: a statistic is not > 0")
+        k = mk[0]["l0"]["ffn"].view(cfg.n_layers, nb, 128).amax(-1).sum(-1)
+        check(bool((k == want_kept).all()), f"train_zoo: run_fluid kept {k.tolist()}")
+        fl_kept.append(k.tolist())
+    fl_losses = [loss for loss, _, _ in flog]
+    check(all(np.isfinite(fl_losses)), f"train_zoo: run_fluid losses {fl_losses}")
+    ck = ROOT / "build" / "chip_smoke_ckpt" / "smoke"
+    scfg = get_config(ZOO_TRAIN["arch"]).smoke()
+    sparams, slosses = train.run_plain(scfg, ZOO_CKPT["steps"], ZOO_CKPT["batch"],
+                                       ZOO_CKPT["seq"], log_every=ZOO_CKPT["steps"],
+                                       ckpt=str(ck), device=dev)
+    back = load_checkpoint(str(ck), device=dev)["params"]
+    got, want = tree_leaves(back), tree_leaves(sparams)
+    bitwise = len(got) == len(want) and all(torch.equal(a, w) for a, w in zip(got, want))
+    check(bitwise, "train_zoo: the checkpoint did not reload bitwise")
+    line = {"plan": plan, "main_path_s": main_s, "losses": losses, "calibration": calib,
+            "kernel_vs_dense": routes, "held": held, "launches_a_kernel_step": per_step,
+            "steps": {k: len(v) for k, v in ms.items()}, **timing,
+            "peak_GB": peak, "peak_over_reckoning": peak / plan["reckoned_GB"]["total"],
+            "kernels_at_shape": kern_times,
+            "run_fluid": {"s": fluid_s, "losses": fl_losses, "kept_blocks": fl_kept,
+                          "stat_min": [float(st[0]["l0"]["ffn"].min()) for st in fl_stats]},
+            "run_plain_ckpt": {"config": "smoke", "losses": slosses, "reloaded_bitwise": bitwise,
+                               "leaves": len(tree_leaves(back))}}
+    return line, launches
+
+
 class RoundRecorder:
     """While active, wraps the server's and the sequential and fleet
     backends' run_round: keeps each round's wall seconds, its training
@@ -2605,15 +2933,15 @@ class HoldLaunches:
         for mod, attr, fn in self.orig:
             setattr(mod, attr, fn)
 
-    def check(self, name, counts, kernels):
-        """Every launch of ``kernels`` was held, each within HOLD_TOL;
+    def check(self, name, counts, kernels, tol=HOLD_TOL):
+        """Every launch of ``kernels`` was held, each within ``tol``;
         returns their records."""
         out = {}
         for k in kernels:
             h = self.held[k]
             check(h["n"] == counts[k],
                   f"{name}: {k}: {h['n']} of {counts[k]} launches held against plain")
-            check(h["rel_err"] <= HOLD_TOL,
+            check(h["rel_err"] <= tol,
                   f"{name}: {k}: rel err {h['rel_err']} against plain at C {sorted(h['C'])}")
             out[k] = {**h, "C": sorted(h["C"])}
         return out
@@ -3112,6 +3440,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
 
+    t_start = time.perf_counter()
     try:
         smi = nvidia_smi()
         emit("env", torch=torch.__version__, cuda=torch.version.cuda,
@@ -3171,6 +3500,11 @@ def main() -> int:
             emit(phase, **line)
             gc.collect()
             torch.cuda.empty_cache()
+        # the zoo train step at StableLM-2-12B's width, every serving model freed
+        line, zoo_counts = phase_train_zoo(torch, np)
+        emit("train_zoo", **line)
+        gc.collect()
+        torch.cuda.empty_cache()
         train, train_counts, train_runs = phase_train(torch, np)
         emit("train", **train)
         train_attn, attn_counts, attn_runs = phase_train_attn(torch, np)
@@ -3197,12 +3531,14 @@ def main() -> int:
         # launches: serving's kernels summed over the serve phases (StableLM,
         # MiniCPM3, RecurrentGemma, Command-R, Arctic, SeamlessM4T; DeepSeek's
         # launches none) and Granite's step, the chunked
-        # scan's from serve_rwkv, the FFN training kernels' from train, the
-        # head-masked kernels' from train_attn; invariant_stats is on no main
-        # path, so its count is that of its checks in the kernels phase
+        # scan's from serve_rwkv, the FFN training kernels' from train and
+        # train_zoo, the head-masked kernels' from train_attn; invariant_stats
+        # is on no main path, so its count is that of its checks in the
+        # kernels phase
+        train_paths = {"train": train_counts, "train_zoo": zoo_counts}
         launches = {**{k: sum(c[k] for c in serving.values()) for k in SERVE_KERNELS},
                     **rwkv_counts,
-                    **{k: train_counts[k] for k in TRAIN_KERNELS},
+                    **{k: train_counts[k] + zoo_counts[k] for k in TRAIN_KERNELS},
                     **{k: attn_counts[k] for k in ATTN_KERNELS},
                     "invariant_stats": stats_launches}
         check(set(launches) == {k["name"] for k in kernels},
@@ -3210,7 +3546,10 @@ def main() -> int:
     except SmokeFailure as e:
         emit("failed", error=str(e))
         return 1
-    by_path = {k: {p: c[k] for p, c in serving.items()} for k in SERVE_KERNELS}
+    by_path = {k: {p: c[k] for p, c in paths.items()}
+               for paths, names in ((serving, SERVE_KERNELS), (train_paths, TRAIN_KERNELS))
+               for k in names}
+    emit("total", seconds=time.perf_counter() - t_start)
     summary = [{k: v for k, v in kern.items()
                 if k not in ("mixes", "shape", "lengths", "rel_err", "library_call",
                              "block_mask_entry", "zoo")}

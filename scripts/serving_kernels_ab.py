@@ -2,7 +2,8 @@
 """Time the serving kernels of two checkouts on one card, in turns.
 
     python3 scripts/serving_kernels_ab.py --a PARENT_CHECKOUT [--b CHECKOUT]
-        [--variants JSON] [--profile] [--out FILE] [--set serving|scan_dw|fwd_dx]
+        [--variants JSON] [--profile] [--out FILE]
+        [--set serving|scan_dw|fwd_dx|zoo_train|gqa_bits]
 
 Each turn is a fresh process that puts one checkout's ``src/`` first on
 ``sys.path``, builds that checkout's ``masked_ffn`` and ``decode_gqa``
@@ -41,6 +42,14 @@ under the training path's masks, at femnist_attn's M 490 (F 256) and
 femnist_kernel's M 10 (F 1024), each at C 5 and 64, beside the launch
 shape (``fwd_dx_launch_geometry``); ``--variants`` may set ``cover``
 (blocks wanted per SM) for B.
+
+``--set zoo_train`` times B1's training form, B2 and B3 at the zoo train
+step's shape (C 1, M 1024, d 5120, F 13824, bf16, silu gated; StableLM-2-12B
+at batch 4 x 256) under a layer mask of 81 of 108 blocks, the same way (A,
+B, B, A; ``chip_smoke.zoo_kernel_times``: each held to its plain version,
+``ms`` one call between two CUDA events, the median of 10), beside the
+dense route's forward and backward, and each CUDA kernel's device time a
+call (torch.profiler).
 
 ``--set gqa_bits`` checks that decode_gqa gives the same bits in both
 checkouts at the group sizes G ∈ {1, 2, 4, 8} (fp32 and bf16, hd 64 and
@@ -166,6 +175,40 @@ def fwd_dx(torch, np, cs, ffn):
     return out
 
 
+def zoo_train(torch, np, cs):
+    """chip_smoke.zoo_kernel_times at StableLM-2-12B's FFN under a fixed
+    mask of 81 of its 108 blocks (B1-B3, the dense route's forward and
+    backward, and a kernel step's layer: the forward twice, dx and dW), and
+    the device µs a call of each kernel under B1-B3 from one profiled call
+    each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import masked_ffn as ffn
+    dev = torch.device("cuda")
+    cfg = get_config(cs.ZOO_TRAIN["arch"])
+    nb = cfg.d_ff // 128
+    keep = np.zeros(nb, np.float32)
+    keep[np.random.RandomState(0).choice(nb, round(nb * 0.75), replace=False)] = 1
+    mask = torch.from_numpy(np.repeat(keep, 128)).to(dev)
+    times = cs.zoo_kernel_times(torch, cfg, mask, dev)
+    out = {k: times[k] for k in cs.TRAIN_KERNELS}
+    out["dense_forward_backward"] = {"ms": times["dense_forward_backward_ms"],
+                                     "forward_ms": times["dense_forward_ms"]}
+    out["kernel_layer"] = {"ms": times["kernel_layer_ms"], "shape": times["shape"],
+                           "kept_blocks": times["kept_blocks"]}
+    M, d, F = times["shape"]["M"], times["shape"]["d"], times["shape"]["F"]
+    g = torch.Generator(device=dev).manual_seed(9)
+    r = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(torch.bfloat16)
+    x, gy = r(1, M, d), r(1, M, d)
+    w_in, w_gate, w_out = r(1, d, F), r(1, d, F), r(1, F, d)
+    row = mask.expand(1, M, F).contiguous()
+    for name, run in (
+            ("masked_ffn_train_fwd", lambda: ffn.masked_ffn_train_fwd(x, w_in, w_out, row, w_gate, act="silu")),
+            ("masked_ffn_dx", lambda: ffn.masked_ffn_dx(gy, x, w_in, w_out, row, w_gate, act="silu")),
+            ("masked_ffn_dw", lambda: ffn.masked_ffn_dw(gy, x, w_in, w_out, row, w_gate, act="silu"))):
+        out[name]["by_kernel"] = by_kernel(torch, cs, run, n=1, watch=("train_",))
+    return out
+
+
 GQA_BITS_CASES = [(dt, G, hd, C) for dt in ("float32", "bfloat16") for G in (1, 2, 4, 8)
                   for hd in (64, 128) for C in (300, 576, 4096)]
 
@@ -213,6 +256,13 @@ def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> 
         _build.build_all(["rwkv_chunk", "masked_ffn_train"])
         return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
                 "kernels": scan_dw(torch, np, cs)}
+    if which == "zoo_train":
+        t0 = time.perf_counter()
+        _build.build_all(["masked_ffn_train"])
+        return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
+                "ptxas": [ln for ln in _build.build_log.get("masked_ffn_train", "").splitlines()
+                          if "registers" in ln or "spill" in ln],
+                "kernels": zoo_train(torch, np, cs)}
     if which == "gqa_bits":
         t0 = time.perf_counter()
         _build.build_all(["decode_gqa"])
@@ -338,7 +388,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--set", default="serving",
-                    choices=("serving", "scan_dw", "fwd_dx", "gqa_bits"),
+                    choices=("serving", "scan_dw", "fwd_dx", "zoo_train", "gqa_bits"),
                     help="the kernels to time")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--tune", default="{}", help=argparse.SUPPRESS)

@@ -37,7 +37,9 @@
 //     keep the f-block's weight slab in shared memory; their fp32 partials
 //     are added in m-tile order through an fp32 scratch and a second
 //     kernel (train_dw_kernel, below); an f-block no m-tile keeps is
-//     written as exact zeros.
+//     written as exact zeros. Where d > 64 the blocks also split d, and a
+//     first kernel computes each kept tile's pre-activation terms once for
+//     all of them (train_dw_core_kernel).
 // Masks are data: a new mask never means a new build.
 #include <type_traits>
 
@@ -75,8 +77,12 @@ constexpr int LD = BN + 1;       // padded shared-memory row of a weight slab
 // shared memory was slower at every shape timed, PERF.md §6.)
 // A block reads no weight unless one of its m-tiles is kept; an f-block no
 // m-tile keeps gets partials of exact zeros, so its dW is exactly 0.
+// Where d > DW_DK the recompute of a tile does not depend on the block's
+// rows of d, so train_dw_core_kernel does it once a tile (the same code,
+// dw_tile_core) and the dW blocks read its (hm, dzh, dzg) and no weight.
 constexpr int DW_THREADS = 256;
 constexpr int DW_DK = 64;         // rows of d a block's dW partial covers
+constexpr int DW_CORE_GROUPS = 16;  // most blocks a pair's m-tiles split over in the core pass
 constexpr int DW_KC = 32;         // rows of d of a restaged weight chunk
 constexpr int DW_KS = 4;          // k-slices of the recompute
 constexpr int DW_KR = DW_KC / DW_KS;          // rows of a chunk a k-slice sums (8)
@@ -191,16 +197,217 @@ __device__ void dw_stage_slab(float* __restrict__ slab, int kch, const T* __rest
   }
 }
 
+// Which of the m-tiles [mt0, mt1) of an f-block does some row keep? Into
+// kept[], from the mask alone (8 loads in flight a thread); returns whether
+// any is, to every thread of the block.
+__device__ __forceinline__ bool dw_kept_tiles(int* __restrict__ kept,
+                                              const float* __restrict__ mask_c, int mt0,
+                                              int mt1, int M, int F, int f0) {
+  const int tid = threadIdx.x;
+  bool mine = false;
+  const int nmask = (mt1 - mt0) * MT * BN;
+  for (int b0 = tid; b0 < nmask; b0 += DW_THREADS * 8) {
+    float mv[8];                          // 8 loads in flight
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = b0 + u * DW_THREADS, r = mt0 * MT + e / BN;
+      mv[u] = e < nmask && r < M ? mask_c[(size_t)r * F + f0 + e % BN] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (mv[u] != 0.f) {
+        kept[(b0 + u * DW_THREADS) / (MT * BN)] = 1;
+        mine = true;
+      }
+  }
+  return __syncthreads_or(mine);
+}
+
+// The pre-activations of a kept m-tile (rows m0 .. m0 + rows) over all of d,
+// then its mask and activation: hb (3, MT, BN) = (hm, dzh, dzg). x and gy
+// of the tile go to xs/gs (all of d, transposed) where the slab is
+// resident, and, with xr non-null, to xr/gr (rows kd0 .. kd0 + DW_DK of d).
+// Thread (n0, ks) sums 2 neurons (n0, n0 + 64) x 8 rows over rows ks·8.. of
+// every 32-row chunk of d; the 4 k-slice partials (in red, under hb) are
+// added in slice order. Ends with a block barrier: hb is complete.
+template <typename T, bool GATED>
+__device__ __forceinline__ void dw_tile_core(
+    float* __restrict__ red, float* __restrict__ slab, float* __restrict__ xs,
+    float* __restrict__ gs, float* __restrict__ xr, float* __restrict__ gr, const DwGeom& g,
+    const float* __restrict__ mask_c, const T* __restrict__ x_c, const T* __restrict__ g_c,
+    const T* __restrict__ wi_c, const T* __restrict__ wg_c, const T* __restrict__ wo_c,
+    int m0, int rows, int f0, int kd0, int d, int F, int act) {
+  constexpr int NM = GATED ? 3 : 2;
+  const int tid = threadIdx.x, n0 = tid % 64, ks = tid / 64;
+  float* hb = red;                        // hm, dzh, dzg over the partials: a
+                                          // thread writes only the (r, n) it has read
+  float mv[DW_EPT];
+#pragma unroll
+  for (int i = 0; i < DW_EPT; ++i) {
+    const int e = tid + i * DW_THREADS, r = e / BN;
+    mv[i] = r < rows ? mask_c[(size_t)(m0 + r) * F + f0 + e % BN] : 0.f;
+  }
+  if (g.resident || xr) {
+#pragma unroll 2
+    for (int e = tid; e < MT * d; e += DW_THREADS) {
+      const int r = e / d, k = e % d;
+      const bool in = r < rows;
+      const float xv = in ? rt::to_f(x_c[(size_t)(m0 + r) * d + k]) : 0.f;
+      const float gv = in ? rt::to_f(g_c[(size_t)(m0 + r) * d + k]) : 0.f;
+      if (g.resident) {
+        xs[k * MT + r] = xv;
+        gs[k * MT + r] = gv;
+      }
+      if (xr && k >= kd0 && k < kd0 + DW_DK) {
+        xr[r * DW_DK + k - kd0] = xv;
+        gr[r * DW_DK + k - kd0] = gv;
+      }
+    }
+  }
+  float z[NM][2][MT];
+#pragma unroll
+  for (int a = 0; a < NM; ++a)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < MT; ++r) z[a][h][r] = 0.f;
+  for (int c0 = 0; c0 < d; c0 += g.kch) {
+    const int kn = min(g.kch, d - c0);
+    __syncthreads();                      // the previous chunk is consumed
+    if (!g.resident) {
+      dw_stage_slab<T, GATED>(slab, g.kch, wi_c, wg_c, wo_c, c0, kn, f0, d, F);
+      for (int e = tid; e < MT * kn; e += DW_THREADS) {
+        const int r = e / kn, k = e % kn;
+        const bool in = r < rows;
+        const size_t at = (size_t)(m0 + r) * d + c0 + k;
+        xs[k * MT + r] = in ? rt::to_f(x_c[at]) : 0.f;
+        gs[k * MT + r] = in ? rt::to_f(g_c[at]) : 0.f;
+      }
+    }
+    __syncthreads();
+    const float* wi = slab;
+    const float* wo = slab + g.kch * LD;
+    const float* wg = slab + 2 * g.kch * LD;
+    for (int s0 = 0; s0 < kn; s0 += DW_KC) {
+      const int k1 = min(s0 + ks * DW_KR + DW_KR, kn);
+#pragma unroll 2
+      for (int k = s0 + ks * DW_KR; k < k1; ++k) {
+        float xv[MT], gv[MT];
+        const float4* xp = reinterpret_cast<const float4*>(xs + k * MT);
+        const float4* gp = reinterpret_cast<const float4*>(gs + k * MT);
+        const float4 x0 = xp[0], x1 = xp[1], g0 = gp[0], g1 = gp[1];
+        xv[0] = x0.x; xv[1] = x0.y; xv[2] = x0.z; xv[3] = x0.w;
+        xv[4] = x1.x; xv[5] = x1.y; xv[6] = x1.z; xv[7] = x1.w;
+        gv[0] = g0.x; gv[1] = g0.y; gv[2] = g0.z; gv[3] = g0.w;
+        gv[4] = g1.x; gv[5] = g1.y; gv[6] = g1.z; gv[7] = g1.w;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + 64 * h;
+          const float a = wi[k * LD + n], b = wo[k * LD + n];
+          const float cg = GATED ? wg[k * LD + n] : 0.f;
+#pragma unroll
+          for (int r = 0; r < MT; ++r) {
+            z[0][h][r] = fmaf(xv[r], a, z[0][h][r]);
+            z[1][h][r] = fmaf(gv[r], b, z[1][h][r]);
+            if (GATED) z[NM - 1][h][r] = fmaf(xv[r], cg, z[NM - 1][h][r]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NM; ++a)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < MT; ++r)
+        red[((ks * NM + a) * MT + r) * BN + n0 + 64 * h] = z[a][h][r];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < DW_EPT; ++i) {      // k-slices in order; mask, act
+    const int e = tid + i * DW_THREADS;
+    float pre_a[NM];
+#pragma unroll
+    for (int a = 0; a < NM; ++a) {
+      float v = red[a * MT * BN + e];
+#pragma unroll
+      for (int p = 1; p < DW_KS; ++p) v += red[(p * NM + a) * MT * BN + e];
+      pre_a[a] = v;
+    }
+    const float rm = mv[i], zh = pre_a[0], ghm = pre_a[1] * rm;
+    float hm, dzh, dzg = 0.f;
+    if (GATED) {
+      const float zg = pre_a[NM - 1], av = act_f(zg, act);
+      hm = av * zh;
+      dzh = ghm * av;
+      dzg = ghm * zh * dact_f(zg, act);
+    } else {
+      hm = act_f(zh, act);
+      dzh = ghm * dact_f(zh, act);
+    }
+    hb[e] = hm * rm;
+    hb[MT * BN + e] = dzh;
+    hb[2 * MT * BN + e] = dzg;
+  }
+  __syncthreads();
+}
+
+// Where d > DW_DK the dW kernel's blocks split d, and each would recompute
+// its tiles' pre-activations over all of d: at d 5120, 80 times over. So
+// there a first kernel computes each kept (m-tile, f-block) tile's (hm,
+// dzh, dzg) once, with the same arithmetic, into an fp32 scratch `core`
+// (C, nfb, m-tiles, 3, MT, BN), and the dW kernel reads them from it.
+// grid (Gc, nfb, C), DW_THREADS threads; block q takes m-tiles
+// [q·g.per, (q+1)·g.per).
+template <typename T, bool GATED>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+train_dw_core_kernel(const T* __restrict__ gy, const T* __restrict__ x,
+                     const T* __restrict__ w_in, const T* __restrict__ w_gate,
+                     const T* __restrict__ w_out, const float* __restrict__ mask,
+                     float* __restrict__ core, DwGeom g, int M, int d, int F, int act) {
+  extern __shared__ __align__(16) float dsm[];
+  const int q = blockIdx.x, fb = blockIdx.y, c = blockIdx.z, tid = threadIdx.x;
+  const int f0 = fb * BN, nmt = (M + MT - 1) / MT;
+  const int mt0 = q * g.per, mt1 = min(mt0 + g.per, nmt);
+  const size_t dF = (size_t)d * F;
+  const float* mask_c = mask + (size_t)c * M * F;
+  float* slab = dsm;
+  float* xs = dsm + g.region;
+  float* gs = xs + g.kch * MT;
+  float* red = gs + g.kch * MT + 2 * MT * DW_DK;
+  int* kept = reinterpret_cast<int*>(red + DW_KS * (GATED ? 3 : 2) * MT * BN);
+  for (int i = tid; i < mt1 - mt0; i += DW_THREADS) kept[i] = 0;
+  __syncthreads();
+  if (!dw_kept_tiles(kept, mask_c, mt0, mt1, M, F, f0)) return;
+  const T* wi_c = w_in + c * dF;
+  const T* wg_c = GATED ? w_gate + c * dF : nullptr;
+  const T* wo_c = w_out + c * dF;
+  if (g.resident) dw_stage_slab<T, GATED>(slab, g.kch, wi_c, wg_c, wo_c, 0, d, f0, d, F);
+  for (int mt = mt0; mt < mt1; ++mt) {
+    if (!kept[mt - mt0]) continue;
+    const int m0 = mt * MT;
+    dw_tile_core<T, GATED>(red, slab, xs, gs, nullptr, nullptr, g, mask_c,
+                           x + (size_t)c * M * d, gy + (size_t)c * M * d, wi_c, wg_c, wo_c,
+                           m0, min(MT, M - m0), f0, 0, d, F, act);
+    float4* dst = reinterpret_cast<float4*>(
+        core + (((size_t)c * g.nfb + fb) * nmt + mt) * 3 * MT * BN);
+    for (int e = tid; e < 3 * MT * BN / 4; e += DW_THREADS)
+      dst[e] = reinterpret_cast<const float4*>(red)[e];
+    __syncthreads();                      // red is consumed
+  }
+}
+
 // grid (G, nfb·ndk, C), DW_THREADS threads. scratch (G > 1): (C, nfb·ndk,
-// G, 2·DW_KA·nm·DW_THREADS) fp32.
+// G, 2·DW_KA·nm·DW_THREADS) fp32. With `core` (d > DW_DK) a tile's (hm,
+// dzh, dzg) come from train_dw_core_kernel, and no weight is read.
 template <typename T, bool GATED>
 __global__ void __launch_bounds__(DW_THREADS, 1)
 train_dw_kernel(const T* __restrict__ gy, const T* __restrict__ x,
                 const T* __restrict__ w_in, const T* __restrict__ w_gate,
                 const T* __restrict__ w_out, const float* __restrict__ mask,
                 T* __restrict__ dw_in, T* __restrict__ dw_gate,
-                T* __restrict__ dw_out, float* __restrict__ scratch, DwGeom g,
-                int M, int d, int F, int act) {
+                T* __restrict__ dw_out, float* __restrict__ scratch,
+                const float* __restrict__ core, DwGeom g, int M, int d, int F, int act) {
   constexpr int NM = GATED ? 3 : 2;       // weights, and pre-activations of a tile
   constexpr int NACC = 2 * DW_KA * NM;    // dW partials a thread holds
   extern __shared__ __align__(16) float dsm[];
@@ -225,150 +432,39 @@ train_dw_kernel(const T* __restrict__ gy, const T* __restrict__ x,
   float* xr = gs + g.kch * MT;            // (MT, DW_DK) x at this block's rows of d
   float* gr = xr + MT * DW_DK;            // (MT, DW_DK) gy
   float* red = gr + MT * DW_DK;           // (DW_KS, NM, MT, BN) k-slice partials
-  float* hb = red;                        // (3, MT, BN) hm, dzh, dzg, over them: a
-                                          // thread writes only the (r, n) it has read
+  const float* hb = red;                  // (3, MT, BN) hm, dzh, dzg
   int* kept = reinterpret_cast<int*>(red + DW_KS * NM * MT * BN);   // (per) m-tile kept
 
   float acc[NACC];
 #pragma unroll
   for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
 
-  // which of this block's m-tiles does some row keep? (masks only)
   for (int i = tid; i < mt1 - mt0; i += DW_THREADS) kept[i] = 0;
   for (int e = tid; e < MT * DW_DK; e += DW_THREADS) xr[e] = gr[e] = 0.f;   // rows past d
   __syncthreads();
-  bool mine = false;
-  const int nmask = (mt1 - mt0) * MT * BN;
-  for (int b0 = tid; b0 < nmask; b0 += DW_THREADS * 8) {
-    float mv[8];                          // 8 loads in flight
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      const int e = b0 + u * DW_THREADS, r = mt0 * MT + e / BN;
-      mv[u] = e < nmask && r < M ? mask_c[(size_t)r * F + f0 + e % BN] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-      if (mv[u] != 0.f) {
-        kept[(b0 + u * DW_THREADS) / (MT * BN)] = 1;
-        mine = true;
-      }
-  }
-  if (__syncthreads_or(mine)) {
-    if (g.resident) dw_stage_slab<T, GATED>(slab, g.kch, wi_c, wg_c, wo_c, 0, d, f0, d, F);
+  if (dw_kept_tiles(kept, mask_c, mt0, mt1, M, F, f0)) {
+    if (!core && g.resident) dw_stage_slab<T, GATED>(slab, g.kch, wi_c, wg_c, wo_c, 0, d, f0, d, F);
     for (int mt = mt0; mt < mt1; ++mt) {
       if (!kept[mt - mt0]) continue;      // the tile reads no weight
       const int m0 = mt * MT, rows = min(MT, M - m0);
-      // the tile's mask into registers; x and gy into xr/gr (this block's
-      // rows of d) and, where the slab is resident, xs/gs (all of d,
-      // transposed)
-      float mv[DW_EPT];
-#pragma unroll
-      for (int i = 0; i < DW_EPT; ++i) {
-        const int e = tid + i * DW_THREADS, r = e / BN;
-        mv[i] = r < rows ? mask_c[(size_t)(m0 + r) * F + f0 + e % BN] : 0.f;
-      }
-#pragma unroll 2
-      for (int e = tid; e < MT * d; e += DW_THREADS) {
-        const int r = e / d, k = e % d;
-        const bool in = r < rows;
-        const float xv = in ? rt::to_f(x_c[(size_t)(m0 + r) * d + k]) : 0.f;
-        const float gv = in ? rt::to_f(g_c[(size_t)(m0 + r) * d + k]) : 0.f;
-        if (g.resident) {
-          xs[k * MT + r] = xv;
-          gs[k * MT + r] = gv;
+      if (core) {                         // this block's rows of d of x and gy, and the tile's core
+        const int kn = min(DW_DK, d - kd0);
+        for (int e = tid; e < MT * kn; e += DW_THREADS) {
+          const int r = e / kn, k = e % kn;
+          const bool in = r < rows;
+          const size_t at = (size_t)(m0 + r) * d + kd0 + k;
+          xr[r * DW_DK + k] = in ? rt::to_f(x_c[at]) : 0.f;
+          gr[r * DW_DK + k] = in ? rt::to_f(g_c[at]) : 0.f;
         }
-        if (k >= kd0 && k < kd0 + DW_DK) {
-          xr[r * DW_DK + k - kd0] = xv;
-          gr[r * DW_DK + k - kd0] = gv;
-        }
-      }
-      // pre-activations: thread (n0, ks), neurons n0 and n0 + 64, all 8 rows
-      float z[NM][2][MT];
-#pragma unroll
-      for (int a = 0; a < NM; ++a)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int r = 0; r < MT; ++r) z[a][h][r] = 0.f;
-      for (int c0 = 0; c0 < d; c0 += g.kch) {
-        const int kn = min(g.kch, d - c0);
-        __syncthreads();                  // the previous chunk is consumed
-        if (!g.resident) {
-          dw_stage_slab<T, GATED>(slab, g.kch, wi_c, wg_c, wo_c, c0, kn, f0, d, F);
-          for (int e = tid; e < MT * kn; e += DW_THREADS) {
-            const int r = e / kn, k = e % kn;
-            const bool in = r < rows;
-            const size_t at = (size_t)(m0 + r) * d + c0 + k;
-            xs[k * MT + r] = in ? rt::to_f(x_c[at]) : 0.f;
-            gs[k * MT + r] = in ? rt::to_f(g_c[at]) : 0.f;
-          }
-        }
+        const float4* src = reinterpret_cast<const float4*>(
+            core + (((size_t)c * g.nfb + fb) * nmt + mt) * 3 * MT * BN);
+        for (int e = tid; e < 3 * MT * BN / 4; e += DW_THREADS)
+          reinterpret_cast<float4*>(red)[e] = src[e];
         __syncthreads();
-        const float* wi = slab;
-        const float* wo = slab + g.kch * LD;
-        const float* wg = slab + 2 * g.kch * LD;
-        for (int s0 = 0; s0 < kn; s0 += DW_KC) {
-          const int k1 = min(s0 + ks * DW_KR + DW_KR, kn);
-#pragma unroll 2
-          for (int k = s0 + ks * DW_KR; k < k1; ++k) {
-            float xv[MT], gv[MT];
-            const float4* xp = reinterpret_cast<const float4*>(xs + k * MT);
-            const float4* gp = reinterpret_cast<const float4*>(gs + k * MT);
-            const float4 x0 = xp[0], x1 = xp[1], g0 = gp[0], g1 = gp[1];
-            xv[0] = x0.x; xv[1] = x0.y; xv[2] = x0.z; xv[3] = x0.w;
-            xv[4] = x1.x; xv[5] = x1.y; xv[6] = x1.z; xv[7] = x1.w;
-            gv[0] = g0.x; gv[1] = g0.y; gv[2] = g0.z; gv[3] = g0.w;
-            gv[4] = g1.x; gv[5] = g1.y; gv[6] = g1.z; gv[7] = g1.w;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int n = n0 + 64 * h;
-              const float a = wi[k * LD + n], b = wo[k * LD + n];
-              const float cg = GATED ? wg[k * LD + n] : 0.f;
-#pragma unroll
-              for (int r = 0; r < MT; ++r) {
-                z[0][h][r] = fmaf(xv[r], a, z[0][h][r]);
-                z[1][h][r] = fmaf(gv[r], b, z[1][h][r]);
-                if (GATED) z[NM - 1][h][r] = fmaf(xv[r], cg, z[NM - 1][h][r]);
-              }
-            }
-          }
-        }
+      } else {
+        dw_tile_core<T, GATED>(red, slab, xs, gs, xr, gr, g, mask_c, x_c, g_c, wi_c, wg_c,
+                               wo_c, m0, rows, f0, kd0, d, F, act);
       }
-#pragma unroll
-      for (int a = 0; a < NM; ++a)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int r = 0; r < MT; ++r)
-            red[((ks * NM + a) * MT + r) * BN + n0 + 64 * h] = z[a][h][r];
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < DW_EPT; ++i) {  // k-slices in order; mask, act
-        const int e = tid + i * DW_THREADS;
-        float pre_a[NM];
-#pragma unroll
-        for (int a = 0; a < NM; ++a) {
-          float v = red[a * MT * BN + e];
-#pragma unroll
-          for (int p = 1; p < DW_KS; ++p) v += red[(p * NM + a) * MT * BN + e];
-          pre_a[a] = v;
-        }
-        const float rm = mv[i], zh = pre_a[0], ghm = pre_a[1] * rm;
-        float hm, dzh, dzg = 0.f;
-        if (GATED) {
-          const float zg = pre_a[NM - 1], av = act_f(zg, act);
-          hm = av * zh;
-          dzh = ghm * av;
-          dzg = ghm * zh * dact_f(zg, act);
-        } else {
-          hm = act_f(zh, act);
-          dzh = ghm * dact_f(zh, act);
-        }
-        hb[e] = hm * rm;
-        hb[MT * BN + e] = dzh;
-        hb[2 * MT * BN + e] = dzg;
-      }
-      __syncthreads();
       for (int r = 0; r < rows; ++r) {    // the tile's rows, in order, onto the partials
         float xv[DW_KA], gv[DW_KA];
 #pragma unroll
@@ -428,21 +524,42 @@ train_dw_reduce_kernel(const float* __restrict__ scratch, T* __restrict__ dw_in,
 template <typename T, bool GATED>
 cudaError_t launch_dw(const void* gy, const void* x, const void* w_in, const void* w_gate,
                       const void* w_out, const float* mask, void* dw_in, void* dw_gate,
-                      void* dw_out, float* scratch, int C, int M, int d, int F, int act,
-                      int G, cudaStream_t s) {
-  const DwGeom g = dw_geom(G, M, d, F, GATED);
+                      void* dw_out, float* scratch, float* core, int C, int M, int d, int F,
+                      int act, int G, cudaStream_t s) {
+  DwGeom g = dw_geom(G, M, d, F, GATED);
   if (C == 0 || g.nfb == 0 || d == 0) return cudaSuccess;
   if (g.G > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (g.ndk > 1) {                        // the tiles' (hm, dzh, dzg) once, into core
+    if (core == nullptr) return cudaErrorInvalidValue;
+    const int nmt = (M + MT - 1) / MT;
+    const DwGeom gc = dw_geom(nmt < DW_CORE_GROUPS ? nmt : DW_CORE_GROUPS, M, d, F, GATED);
+    const size_t smem_c = dw_smem(gc, GATED);
+    if (smem_c > MAX_SMEM) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(train_dw_core_kernel<T, GATED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
+    if (err != cudaSuccess) return err;
+    train_dw_core_kernel<T, GATED><<<dim3((nmt + gc.per - 1) / gc.per, g.nfb, C), DW_THREADS,
+                                     smem_c, s>>>(
+        static_cast<const T*>(gy), static_cast<const T*>(x), static_cast<const T*>(w_in),
+        static_cast<const T*>(w_gate), static_cast<const T*>(w_out), mask, core, gc, M, d, F,
+        act);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    g.region = g.kch = g.resident = 0;    // the dW kernel then reads no weight
+  } else {
+    core = nullptr;
+  }
   const size_t smem = dw_smem(g, GATED);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(train_dw_kernel<T, GATED>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(train_dw_kernel<T, GATED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   train_dw_kernel<T, GATED><<<dim3(g.G, g.nfb * g.ndk, C), DW_THREADS, smem, s>>>(
       static_cast<const T*>(gy), static_cast<const T*>(x), static_cast<const T*>(w_in),
       static_cast<const T*>(w_gate), static_cast<const T*>(w_out), mask,
-      static_cast<T*>(dw_in), static_cast<T*>(dw_gate), static_cast<T*>(dw_out), scratch, g,
-      M, d, F, act);
+      static_cast<T*>(dw_in), static_cast<T*>(dw_gate), static_cast<T*>(dw_out), scratch, core,
+      g, M, d, F, act);
   err = cudaGetLastError();
   if (err != cudaSuccess || g.G == 1) return err;
   cudaLaunchAttribute attr[1];
@@ -594,8 +711,7 @@ __device__ __forceinline__ void cp_wait_upto3(int n) {
 
 // Rows [c0, c0 + kn) of d of the f-block's W_in and W_gate into shared
 // memory at rows [k0, k0 + kn) (stride LDW). fp32: 16-byte cp.async, which
-// the caller commits and waits for; otherwise loads and stores, 8 in
-// flight a thread.
+// the caller commits and waits for; otherwise 16-byte loads and stores.
 template <typename T, bool GATED>
 __device__ __forceinline__ void fd_stage_in(float* __restrict__ slab, const FdGeom& g,
                                             const T* __restrict__ wi_c,
@@ -611,23 +727,31 @@ __device__ __forceinline__ void fd_stage_in(float* __restrict__ slab, const FdGe
     }
     return;
   }
-  for (int b0 = threadIdx.x; b0 < kn * BN; b0 += FD_THREADS * 8) {
-    float a[8], q[8];
+  // 16-byte loads (F and f0 are multiples of 128), 4 of each weight in
+  // flight a thread before any is stored
+  constexpr int V = rt::Vec<T>::N, RV = BN / V, U = 4;
+  for (int b0 = threadIdx.x; b0 < kn * RV; b0 += FD_THREADS * U) {
+    float a[U][V], q[U][V];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int e = b0 + u * FD_THREADS;
-      if (e < kn * BN) {
-        const size_t at = (size_t)(c0 + e / BN) * F + f0 + e % BN;
-        a[u] = rt::to_f(wi_c[at]);
-        if (GATED) q[u] = rt::to_f(wg_c[at]);
+      if (e < kn * RV) {
+        const size_t at = (size_t)(c0 + e / RV) * F + f0 + e % RV * V;
+        rt::load16(wi_c + at, a[u]);
+        if (GATED) rt::load16(wg_c + at, q[u]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int e = b0 + u * FD_THREADS;
-      if (e < kn * BN) {
-        wi[e / BN * LDW + e % BN] = a[u];
-        if (GATED) wg[e / BN * LDW + e % BN] = q[u];
+      if (e < kn * RV) {
+        float* di = wi + e / RV * LDW + e % RV * V;
+        float* dg = wg + e / RV * LDW + e % RV * V;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          di[v] = a[u][v];
+          if (GATED) dg[v] = q[u][v];
+        }
       }
     }
   }
@@ -636,7 +760,8 @@ __device__ __forceinline__ void fd_stage_in(float* __restrict__ slab, const FdGe
 // Columns [c0, c0 + kn) of the f-block's 128 W_out rows into shared memory
 // at columns from 0 (stride g.ldo). fp32 with d and c0 multiples of 4:
 // 16-byte cp.async (the whole of d is one contiguous run of 128·d floats),
-// which the caller commits and waits for; otherwise loads and stores.
+// which the caller commits and waits for; otherwise loads and stores, 16
+// bytes at a time where d, c0 and kn are multiples of a 16-byte vector.
 template <typename T>
 __device__ __forceinline__ void fd_stage_out(float* __restrict__ slab, const FdGeom& g,
                                              const T* __restrict__ wo_c, int c0, int kn, int f0,
@@ -651,6 +776,28 @@ __device__ __forceinline__ void fd_stage_out(float* __restrict__ slab, const FdG
       }
       return;
     }
+  }
+  constexpr int V = rt::Vec<T>::N, U = 4;
+  if (d % V == 0 && c0 % V == 0 && kn % V == 0) {   // 16-byte loads, U in flight
+    const int kv = kn / V;
+    for (int b0 = threadIdx.x; b0 < BN * kv; b0 += FD_THREADS * U) {
+      float o[U][V];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = b0 + u * FD_THREADS;
+        if (e < BN * kv) rt::load16(wo_c + (size_t)(f0 + e / kv) * d + c0 + e % kv * V, o[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = b0 + u * FD_THREADS;
+        if (e < BN * kv) {
+          float* dst = wo + e / kv * g.ldo + e % kv * V;
+#pragma unroll
+          for (int v = 0; v < V; ++v) dst[v] = o[u][v];
+        }
+      }
+    }
+    return;
   }
   for (int b0 = threadIdx.x; b0 < kn * BN; b0 += FD_THREADS * 8) {
     float o[8];
@@ -1152,18 +1299,20 @@ extern "C" int masked_ffn_fd_resident(int M, int d, int F, int gated, int bwd, i
 // dW of the training form. G blocks share each (client, f-block) pair's
 // m-tiles and, where G > 1, sum their partials through `scratch` ((C,
 // F/128·ceil(d/64), G, 32·(2 or 3)·256) fp32; may be null where G = 1).
+// Where d > 64, `core` ((C, F/128, ceil(M/8), 3, 8, 128) fp32; may be null
+// where d <= 64) takes each kept tile's (hm, dzh, dzg) from a first kernel.
 extern "C" int masked_ffn_dw_launch(
     const void* gy, const void* x, const void* w_in, const void* w_gate,
     const void* w_out, const float* mask, void* dw_in, void* dw_gate,
-    void* dw_out, float* scratch, int C, int M, int d, int F, int act,
+    void* dw_out, float* scratch, float* core, int C, int M, int d, int F, int act,
     int dtype, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   RT_DISPATCH(dtype, T, {
     err = w_gate ? launch_dw<T, true>(gy, x, w_in, w_gate, w_out, mask, dw_in, dw_gate,
-                                      dw_out, scratch, C, M, d, F, act, G, s)
+                                      dw_out, scratch, core, C, M, d, F, act, G, s)
                  : launch_dw<T, false>(gy, x, w_in, w_gate, w_out, mask, dw_in, dw_gate,
-                                       dw_out, scratch, C, M, d, F, act, G, s);
+                                       dw_out, scratch, core, C, M, d, F, act, G, s);
   });
   return err;
 }

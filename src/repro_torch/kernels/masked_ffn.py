@@ -381,14 +381,16 @@ def dw_launch_geometry(C, M, d, F, n_sm=132):
     most DW_GROUPS), a block for each DW_ROWS rows of d; ``blocks`` in all,
     ``grid`` (groups, F/128·ceil(d/64), C). ``route`` says how the partials
     are added in m-tile order: "direct" (one block a pair writes dW) or
-    "scratch" (an fp32 scratch and a second kernel)."""
+    "scratch" (an fp32 scratch and a second kernel). ``core_pass``: d > 64,
+    so the blocks split d, and a first kernel computes each kept tile's
+    (hm, dzh, dzg) once for all of them, into an fp32 scratch."""
     nmt, nfb, ndk = -(-M // 8), F // BLOCK_NEURONS, -(-d // DW_ROWS)
     pairs = C * nfb * ndk
     per = -(-nmt // max(1, min(nmt, DW_GROUPS, n_sm // max(pairs, 1))))
     groups = -(-nmt // per)
     return {"route": "direct" if groups == 1 else "scratch", "groups": groups, "m_tiles": nmt,
             "m_tiles_per_block": per, "blocks": groups * pairs,
-            "grid": (groups, nfb * ndk, C)}
+            "grid": (groups, nfb * ndk, C), "core_pass": ndk > 1}
 
 
 def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
@@ -400,15 +402,17 @@ def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
     dw_in = torch.empty_like(w_in)
     dw_out = torch.empty_like(w_out)
     dw_gate = None if w_gate is None else torch.empty_like(w_gate)
-    scratch = None
+    scratch = core = None
     if geo["groups"] > 1:              # each block's fp32 partial of its pair's dW
         blocks = geo["groups"] * (Fh // BLOCK_NEURONS) * -(-d // DW_ROWS) * C
         per_block = 32 * (2 if w_gate is None else 3) * 256   # partials a thread, threads
         scratch = torch.empty((blocks * per_block,), dtype=torch.float32, device=dev)
+    if d > DW_ROWS:                    # the core pass: (hm, dzh, dzg) of every tile
+        core = torch.empty((C * Fh * -(-M // 8) * 3 * 8,), dtype=torch.float32, device=dev)
     err = lib.masked_ffn_dw_launch(
         gy.data_ptr(), x.data_ptr(), w_in.data_ptr(), _ptr(w_gate),
         w_out.data_ptr(), row_mask.data_ptr(), dw_in.data_ptr(),
-        _ptr(dw_gate), dw_out.data_ptr(), _ptr(scratch), C, M, d, Fh,
+        _ptr(dw_gate), dw_out.data_ptr(), _ptr(scratch), _ptr(core), C, M, d, Fh,
         _ACT_CODE[act], _build.DTYPE_CODE[dtype], geo["groups"],
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -423,7 +427,7 @@ def _bind_train(lib):
     lib.masked_ffn_train_fwd_launch.restype = i
     lib.masked_ffn_dx_launch.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.masked_ffn_dx_launch.restype = i
-    lib.masked_ffn_dw_launch.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.masked_ffn_dw_launch.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.masked_ffn_dw_launch.restype = i
     lib.masked_ffn_fd_resident.argtypes = [i] * 6
     lib.masked_ffn_fd_resident.restype = i

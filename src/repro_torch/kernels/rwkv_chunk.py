@@ -119,7 +119,8 @@ def rwkv_chunk_scan(r, k, v, logw, u, chunk=64, state=None):
     state: optional (B,H,N,N) fp32 initial state (zero when None).
     chunk = min(chunk, S) must divide S. Returns (y (B,S,H,N) fp32, final
     state (B,H,N,N) fp32). CUDA tensors launch the kernel, CPU tensors run
-    the plain version."""
+    the plain version. The kernel is forward-only: on the card an input
+    that requires grad, with grad mode on, raises ValueError."""
     if r.ndim != 4 or k.shape != r.shape or v.shape != r.shape or logw.shape != r.shape:
         raise ValueError(f"r, k, v, logw must share one (B, S, H, N) shape, got "
                          f"{[tuple(t.shape) for t in (r, k, v, logw)]}")
@@ -134,4 +135,11 @@ def rwkv_chunk_scan(r, k, v, logw, u, chunk=64, state=None):
         raise ValueError(f"sequence length {S} must be a multiple of chunk {chunk}")
     if r.device.type == "cpu":
         return rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, state=state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (r, k, v, logw, u, state)):
+        # the kernel launches through raw pointers: its output would be cut
+        # off from autograd, and no gradient would reach the time-mix params
+        raise ValueError("rwkv_chunk_scan's kernel (B12) has no backward (nor has the "
+                         "reference's); an input requires grad: run it under "
+                         "torch.no_grad(), or differentiate the plain version on CPU tensors")
     return _launch(r, k, v, logw, u, chunk, state)

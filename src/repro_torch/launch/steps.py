@@ -1,14 +1,76 @@
-"""Step builders (port of ``repro/launch/steps.py``, its serving half):
-the prefill step and the decode step that ``launch/serve.serve`` runs.
-The reference's jit, shardings and donation have no counterpart here; a
-step is a plain function over the port's model API.
+"""Step builders (port of ``repro/launch/steps.py``): the train step that
+``launch/train.py`` runs, and the prefill and decode steps that
+``launch/serve.serve`` runs. The reference's jit, shardings and donation
+have no counterpart here; a step is a plain function over the port's model
+API, and the train step updates params and optimizer state in place.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.launch.sharding import train_kernels_context
 from repro_torch.models import model as model_lib
+from repro_torch.optim import make_optimizer
+
+
+def make_grads_fn(cfg: ModelConfig, use_kernels: bool = False):
+    """grads_of(params, batch, masks=None) -> ((loss, metrics), grads): the
+    loss and its gradients (a tree like params), both computed inside
+    ``train_kernels_context(ffn=use_kernels)`` so that a block-remat
+    recompute in the backward takes the forward's FFN route. The params
+    are not changed and need no ``requires_grad``."""
+    def grads_of(params, batch, masks=None):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        leaves = tree_leaves(live)
+        with train_kernels_context(ffn=use_kernels):
+            loss, metrics = model_lib.loss_fn(live, cfg, batch, masks=masks)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        by_leaf = dict(zip(map(id, leaves), grads))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return (loss.detach(), metrics), tree_map(lambda p: by_leaf[id(p)], live)
+    return grads_of
+
+
+def make_train_step(cfg: ModelConfig, with_masks: bool = False,
+                    use_kernels: bool = False):
+    """step(params, opt_state, batch[, masks]) -> (params, opt_state,
+    metrics), params and state updated in place; metrics {'xent', 'aux',
+    'loss'} as device tensors. use_kernels routes the masked FFN through
+    the training kernels (forward, dx and dW skip dropped 128-blocks);
+    only meaningful with with_masks=True. With cfg.grad_accum > 1 the batch
+    is split into that many microbatches, taken in order: gradients summed
+    into zeros of the params' dtype and divided by the count, the loss
+    their mean, the other metrics the last microbatch's."""
+    opt = make_optimizer(cfg.optimizer)
+    accum = max(cfg.grad_accum, 1)
+    grads_of = make_grads_fn(cfg, use_kernels)
+
+    def step(params, opt_state, batch, masks=None):
+        if accum > 1:
+            gsum = tree_map(torch.zeros_like, params)
+            loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+            for k in range(accum):
+                mb = tree_map(lambda x: x.reshape(accum, x.shape[0] // accum,
+                                                  *x.shape[1:])[k], batch)
+                (loss_k, metrics), g = grads_of(params, mb, masks)
+                for a, gg in zip(tree_leaves(gsum), tree_leaves(g)):
+                    a.add_(gg.to(a.dtype))
+                loss = loss + loss_k
+            grads = tree_map(lambda g: g.div_(accum), gsum)
+            loss = loss / accum
+        else:
+            (loss, metrics), grads = grads_of(params, batch, masks)
+        params, opt_state = opt.update(grads, opt_state, params, cfg.learning_rate)
+        return params, opt_state, dict(metrics, loss=loss)
+
+    if with_masks:
+        return step
+    return lambda params, opt_state, batch: step(params, opt_state, batch)
 
 
 def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):

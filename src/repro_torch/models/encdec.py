@@ -22,7 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention
 from repro_torch.models.layers import (TensorSpec, apply_ffn, apply_norm,
                                        cdtype, init_ffn, init_norm)
-from repro_torch.models.transformer import _at, _ring_from_seq, _stack_caches
+from repro_torch.models.transformer import _at, _ring_from_seq, _stack_caches, remat
 
 
 def _init_layers(gen, cfg: ModelConfig, n, names, device, dtype):
@@ -71,14 +71,16 @@ def run_encoder(params, frames, cfg: ModelConfig, masks=None):
     d_ff)} or None."""
     S = frames.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=frames.device)
-    x = frames.to(cdtype(cfg))
-    for r in range(cfg.enc_layers):
-        p = _at(params["enc"], r)
+
+    def layer(x, p, mask):
         y, _ = attention.attn_seq(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
                                   positions, causal=False)
         x = x + y
-        x = x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg), cfg,
-                          neuron_mask=_ffn_mask(masks, r))
+        return x + apply_ffn(p["ffn"], apply_norm(p["norm2"], x, cfg), cfg,
+                             neuron_mask=mask)
+    x = frames.to(cdtype(cfg))
+    for r in range(cfg.enc_layers):
+        x = remat(cfg, layer, x, _at(params["enc"], r), _ffn_mask(masks, r))
     return x
 
 
@@ -106,12 +108,12 @@ def run_decoder_seq(params, x, memory, cfg: ModelConfig, positions, masks=None,
     """x: (B,S,d) decoder token embeddings; memory: (B,M,d). Returns (x,
     caches): with want_cache, {'attn': {'k','v'}, 'cross_k', 'cross_v'}
     stacked over the layers, else None."""
+    def layer(x, memory, p, mask):
+        return _dec_layer_seq(p, x, _cross_kv(p["cross"], memory, cfg), cfg,
+                              positions, mask, want_cache, cache_len)
     per_layer = []
     for r in range(cfg.n_layers):
-        p = _at(params["dec"], r)
-        x, cache = _dec_layer_seq(p, x, _cross_kv(p["cross"], memory, cfg), cfg,
-                                  positions, _ffn_mask(masks, r), want_cache,
-                                  cache_len)
+        x, cache = remat(cfg, layer, x, memory, _at(params["dec"], r), _ffn_mask(masks, r))
         per_layer.append(cache)
     return x, (_stack_caches(per_layer) if want_cache else None)
 

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import train_kernel_flags
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -48,10 +49,13 @@ def dense_init(gen: torch.Generator, fan_in, *shape, dtype, device,
     ``repeats`` the result is stacked (repeats, *shape) and drawn one repeat
     at a time, so the fp32 draw never holds more than one layer's matrix;
     a matrix of more than DRAW_CHUNK elements (Command-R-35B's 256000-row
-    vocab tables) is drawn DRAW_CHUNK elements of leading rows at a time."""
+    vocab tables) is drawn DRAW_CHUNK elements of leading rows at a time.
+    On the meta device nothing is drawn (``param_specs``)."""
     scale = 1.0 / math.sqrt(fan_in)
     lead = (repeats,) if repeats else ()
     out = torch.empty(lead + shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for sub in (out if repeats else [out]):
         rows = sub.shape[0] if sub.numel() <= DRAW_CHUNK else max(
             1, DRAW_CHUNK // (sub.numel() // sub.shape[0]))
@@ -192,11 +196,35 @@ def _ffn_kernel_ok(p, x, cfg, neuron_mask) -> bool:
             and cfg.ffn_kind in _KERNEL_ACT)
 
 
+def _ffn_train_kernel_ok(p, x, cfg, neuron_mask) -> bool:
+    """The differentiable masked kernels apply on the (B, S, d) train shape
+    with one shared (f,) layer mask, no biases, 128-aligned hidden dim."""
+    return (x.ndim == 3 and neuron_mask is not None and neuron_mask.ndim == 1
+            and "b_in" not in p
+            and p["w_in"].shape[1] % ops.BLOCK_NEURONS == 0
+            and cfg.ffn_kind in _KERNEL_ACT)
+
+
 def apply_ffn(p, x, cfg: ModelConfig, neuron_mask=None):
     """FFN with an optional 0/1 neuron mask (the invariant-dropout
     sub-model): (f,) for one mask, (B, 1, f) per request at decode, where
-    the masked FFN kernel runs."""
+    the masked FFN kernel runs. Under ``train_kernels_context(ffn=True)``
+    an (f,) mask on the (B, S, d) train shape goes through the training
+    kernels (forward, dx and dW skip dropped 128-blocks) at C = 1, M = B·S."""
     dt = cdtype(cfg)
+    if train_kernel_flags()["ffn"] and _ffn_train_kernel_ok(p, x, cfg, neuron_mask):
+        act, gated = _KERNEL_ACT[cfg.ffn_kind]
+        B, S, d = x.shape
+        f = p["w_in"].shape[1]
+        # every row carries the layer mask, as the reference broadcasts it;
+        # the dW comes back in dt and autograd carries it through the cast
+        rm = neuron_mask.to(x.device, torch.float32).expand(1, B * S, f).contiguous()
+        one = lambda w: w.to(dt)[None]
+        y = ops.masked_ffn_train(
+            x.reshape(1, B * S, d).to(dt).contiguous(), one(p["w_in"]),
+            one(p["w_out"]), rm, w_gate=one(p["w_gate"]) if gated else None,
+            act=act)
+        return y.reshape(B, S, d)
     if _ffn_kernel_ok(p, x, cfg, neuron_mask):
         act, gated = _KERNEL_ACT[cfg.ffn_kind]
         B, _, d = x.shape
@@ -221,3 +249,17 @@ def apply_ffn(p, x, cfg: ModelConfig, neuron_mask=None):
     if "b_out" in p:
         out = out + p["b_out"].to(dt)
     return out
+
+
+# ---------------------------------------------------------------------------
+# losses
+
+def softmax_xent(logits, targets, mask=None):
+    """Mean next-token NLL in fp32 over the padded vocabulary; with a
+    ``loss_mask`` the masked mean sum(nll·mask) / max(sum(mask), 1)."""
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - lf.gather(-1, targets[..., None].long())[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -5,17 +5,23 @@ encoder–decoder (SeamlessM4T).
 
   init_params(cfg, seed, device, dtype)        -> params dict
   forward_seq(params, cfg, batch, ...)         -> (logits, caches, aux)
+  loss_fn(params, cfg, batch, masks)           -> (loss, {'xent', 'aux'})
   decode_step(params, cfg, caches, ...)        -> (logits, caches)
   cache_specs(cfg, batch, seq_len, ...)        -> pytree of TensorSpec
+  param_specs(cfg), count_params(params)
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import encdec, transformer
-from repro_torch.models.layers import (apply_norm, embed_tokens, init_embed,
-                                       init_norm, lm_logits, pdtype)
+from repro_torch.models.layers import (TensorSpec, apply_norm, embed_tokens,
+                                       init_embed, init_norm, lm_logits, pdtype,
+                                       softmax_xent)
 
 ENC_MEM_LEN = 4096      # encoder memory length of the decode-shape caches
 
@@ -30,11 +36,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda", dtype=None):
     router stays in fp32, as the reference keeps it. The numbers differ
     from the reference's jax.random init: to compare the two packages,
     convert the reference's params with
-    ``repro_torch.interop.params_from_numpy``."""
+    ``repro_torch.interop.params_from_numpy``. On the meta device nothing
+    is drawn (``param_specs``)."""
     device = torch.device(device)
     dtype = dtype or pdtype(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     if cfg.is_encdec:
         stack = encdec.init_encdec_stack(gen, cfg, device, dtype)
         return {"tok": init_embed(gen, cfg, device, dtype),
@@ -80,6 +89,15 @@ def forward_seq(params, cfg: ModelConfig, batch, masks=None,
     return logits, (caches if want_cache else None), aux
 
 
+def loss_fn(params, cfg: ModelConfig, batch, masks=None):
+    """The training loss: the mean next-token xent (``batch['loss_mask']``
+    weights it when given) plus cfg.router_aux_coef × the MoE router loss.
+    Returns (loss, {'xent', 'aux'})."""
+    logits, _, aux = forward_seq(params, cfg, batch, masks=masks)
+    xent = softmax_xent(logits, batch["targets"], batch.get("loss_mask"))
+    return xent + cfg.router_aux_coef * aux, {"xent": xent, "aux": aux}
+
+
 def decode_hidden(params, cfg: ModelConfig, caches, token, pos, masks=None,
                   mla_absorb=False):
     """The final-normed hidden state (B,1,d) of one decode step; the caches
@@ -117,3 +135,15 @@ def init_caches(cfg: ModelConfig, batch, seq_len, device):
             return {k: alloc(v) for k, v in tree.items()}
         return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
     return [alloc(s) for s in cache_specs(cfg, batch, seq_len)]
+
+
+def count_params(params) -> int:
+    """Elements of a params tree, of tensors or of ``param_specs``."""
+    return sum(math.prod(t.shape) for t in tree_leaves(params))
+
+
+def param_specs(cfg: ModelConfig):
+    """The TensorSpec tree of ``init_params(cfg)``, allocating and drawing
+    nothing (built on the meta device)."""
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype),
+                    init_params(cfg, device="meta"))

@@ -11,16 +11,22 @@ Layer kinds:  attn | local_attn (MLA or GQA) | rglru | rwkv    (mixer)
 A parallel block (Command-R) sums mixer and FFN of one norm. An MoE FFN
 (models/moe.py) takes the layer's (E, f) expert-unit mask and (E,) expert
 mask, and its router loss is summed over layers. Decode updates the caches
-in place.
+in place. With cfg.remat == "block" a differentiated sequence pass
+recomputes each unit in the backward (``remat``), as the reference
+checkpoints each scanned unit.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_leaves
+from repro_torch.launch.sharding import train_kernel_flags, train_kernels_context
 from repro_torch.models import attention, mla, moe, rglru, rwkv6
 from repro_torch.models.layers import (TensorSpec, apply_ffn, apply_norm,
                                        cdtype, init_ffn, init_norm)
@@ -208,6 +214,21 @@ def _stack_caches(per_repeat):
     return torch.stack(per_repeat)
 
 
+def remat(cfg: ModelConfig, fn, *args):
+    """fn(*args); under cfg.remat == "block", when the call is
+    differentiated, its activations are dropped and recomputed in the
+    backward (``torch.utils.checkpoint``), the reference's jax.checkpoint.
+    The recompute takes the FFN route the forward took: the train-kernel
+    flags of the call are restored around it."""
+    if not (cfg.remat == "block" and torch.is_grad_enabled()
+            and any(isinstance(t, torch.Tensor) and t.requires_grad
+                    for t in tree_leaves(args))):
+        return fn(*args)
+    flags = train_kernel_flags()
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), train_kernels_context(**flags)))
+
+
 def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
                   masks=None, want_cache=False, cache_len=None):
     """x: (B,S,d). Returns (x, caches, aux): aux the MoE router losses
@@ -217,15 +238,21 @@ def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (seg, sp) in enumerate(zip(segs, seg_params)):
         smasks = masks[si] if masks is not None else None
+
+        # the unit is bound now: remat runs the body again in the backward
+        def unit_body(x, aux_total, up, um, unit=seg.unit):
+            cache_u = {}
+            for i, spec in enumerate(unit):
+                lm = um[f"l{i}"] if um is not None else None
+                x, cache_u[f"l{i}"], aux = _apply_layer_seq(
+                    spec, up[f"l{i}"], x, cfg, positions, lm, want_cache, cache_len)
+                aux_total = aux_total + aux
+            return x, aux_total, cache_u
+
         per_repeat = []
         for r in range(seg.repeats):
-            cache_u = {}
-            for i, spec in enumerate(seg.unit):
-                lm = _at(smasks[f"l{i}"], r) if smasks is not None else None
-                x, cache_u[f"l{i}"], aux = _apply_layer_seq(
-                    spec, _at(sp[f"l{i}"], r), x, cfg, positions, lm,
-                    want_cache, cache_len)
-                aux_total = aux_total + aux
+            x, aux_total, cache_u = remat(cfg, unit_body, x, aux_total, _at(sp, r),
+                                          _at(smasks, r) if smasks is not None else None)
             per_repeat.append(cache_u)
         caches.append(_stack_caches(per_repeat) if want_cache else None)
     return x, caches, aux_total

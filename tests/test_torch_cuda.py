@@ -483,6 +483,23 @@ def test_masked_ffn_dw_any_split_of_the_m_tiles(dev, monkeypatch, groups, C, M):
         _check_dw(got, want, mask, dtype)
 
 
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,M,d,F", [(3, 13, 200, 384), (2, 490, 130, 256), (1, 64, 512, 1024)])
+def test_masked_ffn_dw_core_pass_matches_plain(dev, C, M, d, F, dtype, gated):
+    """d > 64: the dW blocks split d, and a first kernel computes each kept
+    tile's (hm, dzh, dzg) once for all of them (a ragged last m-tile, d not
+    a multiple of 64): against the plain version, dropped f-blocks exactly
+    0, and two calls bitwise equal."""
+    gy, x, w_in, w_out, mask, w_gate = _dw_case(C, M, dtype, gated, dev, d=d, F=F)
+    assert ffn.dw_launch_geometry(C, M, d, F)["core_pass"]
+    got = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act="silu")
+    again = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act="silu")
+    torch.cuda.synchronize()
+    _check_dw(got, ffn.masked_ffn_dw_plain(gy, x, w_in, w_out, mask, w_gate, "silu"), mask, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+
+
 @pytest.mark.parametrize("C", [5, 64])
 def test_masked_ffn_dw_repeats_bitwise_at_m490(dev, C):
     """Two calls on the same inputs give the same bits (fixed-order sums,
@@ -1186,3 +1203,121 @@ def test_moe_and_encdec_prefill_then_decode_card_matches_cpu(dev, arch):
     for a, b in zip(res["cpu"], res["cuda"]):
         assert bool(torch.isfinite(b).all())
         assert float((a - b).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the zoo train step: the masked FFN through the training kernels at C = 1
+
+@pytest.mark.parametrize("M,d,F", [(1024, 5120, 13824), (48, 256, 512)])
+def test_train_route_c1_matches_plain(dev, M, d, F):
+    """apply_ffn's train-kernel route in bf16 (StableLM-2-12B's FFN at
+    batch 4 x 256, and a small 128-aligned one): one layer mask of 3/4 of
+    the blocks expanded to every row. B1's training form, B2 and B3 launch
+    once each, each within 1e-2 of its plain version, and a dropped block's
+    dW columns and rows are exactly 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import train_kernels_context
+    from repro_torch.models.layers import apply_ffn
+    cfg = get_config("stablelm-12b").with_overrides(d_model=d, d_ff=F)
+    g = torch.Generator(device=dev).manual_seed(M + F)
+    r = lambda *s, fan: torch.randn(*s, generator=g, device=dev) / math.sqrt(fan)
+    p = {"w_in": r(d, F, fan=d), "w_gate": r(d, F, fan=d), "w_out": r(F, d, fan=F)}
+    p = {k: w.requires_grad_() for k, w in p.items()}
+    x = r(2, M // 2, d, fan=1).to(torch.bfloat16).requires_grad_()
+    nb = F // 128
+    keep = torch.ones(nb, device=dev)
+    keep[torch.randperm(nb, generator=g, device=dev)[:nb - round(nb * 0.75)]] = 0
+    mask = keep.repeat_interleave(128)
+    ops.reset_launch_counts()
+    with train_kernels_context(ffn=True):
+        y = apply_ffn(p, x, cfg, neuron_mask=mask)
+        gy = r(*y.shape, fan=1).to(torch.bfloat16)
+        y.backward(gy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")] == [1, 1, 1]
+    args = (x.detach().reshape(1, M, d), *(p[k].detach().to(torch.bfloat16)[None]
+                                          for k in ("w_in", "w_out")),
+            mask.expand(1, M, F).contiguous(), p["w_gate"].detach().to(torch.bfloat16)[None])
+    gy1 = gy.reshape(1, M, d)
+    assert _rel_err(y.detach().reshape(1, M, d), ffn.masked_ffn_batch_plain(*args, "silu")) <= 1e-2
+    assert _rel_err(x.grad.reshape(1, M, d), ffn.masked_ffn_dx_plain(gy1, *args, "silu")) <= 1e-2
+    dw_in, dw_out, dw_gate = ffn.masked_ffn_dw_plain(gy1, *args, "silu")
+    for got, want in ((p["w_in"].grad, dw_in), (p["w_out"].grad, dw_out),
+                      (p["w_gate"].grad, dw_gate)):
+        assert got.dtype == torch.float32
+        assert _rel_err(got, want[0]) <= 1e-2
+    dropped = mask == 0
+    assert (p["w_in"].grad[:, dropped] == 0).all() and (p["w_gate"].grad[:, dropped] == 0).all()
+    assert (p["w_out"].grad[dropped] == 0).all()
+
+
+def test_train_step_kernels_against_dense_on_the_card(dev):
+    """A smoke-size StableLM (bf16 compute, fp32 params, block remat)
+    masked step from the same params and batch with and without the
+    kernels: with them B1's training form launches 2L times (forward and
+    recompute), B2 and B3 L times; without, none. Loss within 1e-2, the FFN
+    gradients within 2e-2 (relative 2-norm)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.transformer_hooks import full_masks
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import model
+    cfg = get_config("stablelm-12b").smoke()
+    params = model.init_params(cfg, seed=0, device=dev)
+    masks = tree_map(lambda m: m.to(dev), full_masks(cfg))
+    masks[0]["l0"]["ffn"][:, 128:256] = 0
+    batch = synth_batch(np.random.RandomState(0), cfg, 4, 65, device=dev)
+    res = {}
+    for kernels in (True, False):
+        ops.reset_launch_counts()
+        (loss, _), grads = steps.make_grads_fn(cfg, kernels)(params, batch, masks)
+        torch.cuda.synchronize()
+        res[kernels] = (float(loss), grads["stack"]["seg0"]["l0"]["ffn"], ops.launch_counts())
+    L = cfg.n_layers
+    assert [res[True][2][k] for k in ("masked_ffn_train_fwd", "masked_ffn_dx",
+                                      "masked_ffn_dw")] == [2 * L, L, L]
+    assert set(res[False][2].values()) == {0}
+    assert abs(res[True][0] - res[False][0]) <= 1e-2 * abs(res[False][0])
+    for k in ("w_in", "w_gate", "w_out"):
+        a, b = res[True][1][k], res[False][1][k]
+        assert float((a - b).norm() / b.norm()) <= 2e-2, k
+        assert (a[:, :, 128:256] == 0).all() if k != "w_out" else (a[:, 128:256] == 0).all()
+
+
+def test_run_fluid_calibration_statistics_are_nonzero_on_the_card(dev, monkeypatch):
+    """run_fluid on the card at smoke size: every calibration's unit
+    statistics are positive (a snapshot, not an alias of the params the
+    optimizer updates in place), its masks keep 3/4 of the blocks, and the
+    losses are finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import transformer_hooks as hooks
+    from repro_torch.launch import train
+    cfg = get_config("stablelm-12b").smoke()
+    stats, masks = [], []
+    for name, out in (("ffn_unit_stats", stats), ("build_masks", masks)):
+        fn = getattr(hooks, name)
+        monkeypatch.setattr(hooks, name, lambda *a, _fn=fn, _out=out, **kw:
+                            _out.append(_fn(*a, **kw)) or _out[-1])
+    _, log = train.run_fluid(cfg, 6, 2, 32, calibrate_every=3, log_every=100, device="cuda")
+    assert len(stats) == len(masks) == 2
+    for st, ms in zip(stats, masks):
+        assert bool((st[0]["l0"]["ffn"] > 0).all())
+        kept = ms[0]["l0"]["ffn"].reshape(cfg.n_layers, -1, 128).amax(-1).sum(-1)
+        assert (kept == round(cfg.d_ff // 128 * 0.75)).all()
+    assert all(np.isfinite(loss) for loss, _, _ in log)
+
+
+def test_rwkv_chunk_kernel_refuses_autograd(dev):
+    """B12 has no backward: on the card, an input that requires grad with
+    grad mode on raises; under no_grad the same call launches."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    r, k, v = (torch.randn(1, 16, 2, 64, generator=g, device=dev) for _ in range(3))
+    logw = -torch.rand(1, 16, 2, 64, generator=g, device=dev) - 0.1
+    u = torch.randn(2, 64, generator=g, device=dev)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.rwkv_chunk_scan(r.requires_grad_(), k, v, logw, u, chunk=8)
+    with torch.no_grad():
+        y, _ = ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=8)
+    assert bool(torch.isfinite(y).all())
