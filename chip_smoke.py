@@ -8,7 +8,9 @@ SeamlessM4T-Large v2 at full width through the reference's static-batch
 ``serve``, train StableLM-2-12B at full width (8 of its 40 layers) with
 its masked FFN through the training kernels, run FLuID training on both
 kernel workloads and on the paper's own workloads through ``repro_torch``,
-and check the results.
+hold the meta-device dry-run against the card's own counts, train
+RWKV-6-3B at full width (2 of its 32 layers) against the CPU, and check
+the results.
 
     python3 chip_smoke.py
 
@@ -33,7 +35,10 @@ the seconds the phase took (``phase_s``):
              inputs, bitwise equal); the chunked RWKV-6 scan at
              RWKV-6-3B's prefill shape (B 1, S 512, H 40, N 64, chunk
              128), also at logw = -8 and chunk 256 (each twice, bitwise
-             equal; ``ms`` device time from a CUDA graph); invariant_stats
+             equal; ``ms`` device time from a CUDA graph), and its bf16
+             chunk form (rwkv_chunk_scan_bf16, the dry-run's
+             rwkv_c128_bf16) at the same shape against its plain form
+             (relative 2-norm 5e-4, ∞-norm 1e-2); invariant_stats
              at 1024 x 1024 fp32 and bf16 and at a 2560 x 8960 bf16
              channel-mix w_in (it is on no main path: its launches are
              those of its checks here); then the two serving kernels at
@@ -52,6 +57,11 @@ the seconds the phase took (``phase_s``):
              Arctic, SeamlessM4T (frames through the encoder)
   serve      24 mixed-rate requests at full width (serving's main path)
   step       every launch of a full-width decode step against its plain version
+  decode_routes the same step under decode_cache_context("seq")
+             (_sdpa_grouped, no decode_gqa launch) and, with every row at
+             position 240, under uniform_pos_context(True) (one slot
+             write), each against the default route (relative 2-norm
+             <= 2e-2 of the hidden state and the logits)
   profile    device time by kernel over a few decode steps
   serve_rwkv RWKV-6-3B at full width: 16 mixed-rate requests of exactly 512
              tokens, the chunked scan launched once per layer per prefill;
@@ -59,7 +69,10 @@ the seconds the phase took (``phase_s``):
              from the same input, against the plain version; that
              prefill's logits against the plain version's within a
              multiple of its 1e-7 noise floor; decode rate against its
-             byte bound, busy share of 3 decode steps
+             byte bound, busy share of 3 decode steps; then one 512-token
+             prefill under rwkv_c128_bf16 through make_prefill_step: the
+             bf16 chunk form launched once a layer (its launches on the
+             summary line), each held against its plain form
   serve_mla  MiniCPM3-4B at full width (62 layers, MLA with q-LoRA), the
              serve phase's 24 requests: masked_ffn_batch launched 62 x
              decode steps, decode_gqa never (MLA is plain torch, as in the
@@ -127,7 +140,19 @@ the seconds the phase took (``phase_s``):
              cuBLAS forward and backward; launch.train.run_fluid (6 steps,
              calibrated every 3: statistics > 0, 81 blocks kept, no
              launch) and run_plain's checkpoint at smoke size reloaded
-             bitwise
+             bitwise; the first full step counted by FlopCounterMode, the
+             params' and AdamW state's allocation and the peak after the
+             two full steps recorded for the dryrun phase
+  dryrun     launch/dryrun.dry_step of train_zoo's dense step on the meta
+             device: its FLOPs equal to the card's count, its params and
+             AdamW state bytes equal to the card's allocation within 512 B
+             a tensor; its peak estimate printed beside the card's peak,
+             and a serving decode step's byte floor beside decode_bytes
+  train_rwkv RWKV-6-3B at full width on 2 of its 32 layers in fp32: one
+             make_train_step AdamW step on the card against the same step
+             on the CPU (loss 1e-4, gradients 1e-3 relative 2-norm); the
+             time mix trains through the plain chunked form under
+             autograd, so the step launches no kernel
   train      6 FLuID rounds of femnist_kernel on the fleet backend (the
              FFN training path): each masked-FFN kernel launched once per
              SGD step; the same run with the plain versions must reach the
@@ -191,12 +216,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-BF16_FLOPS = 989e12                # dense tensor-core peak, bf16
-FP32_FLOPS = 67e12                 # fp32 outside the tensor cores
-# exponentials: 16 a clock on each of 132 SMs, at the 1.98 GHz that the fp32
-# peak implies (132 SMs x 128 lanes x 2 flops x 1.98 GHz = 67 TFLOP/s)
-SFU_EXP_PER_S = 132 * 16 * 1.98e9
+# the card's rates, one copy: HBM 3.35e12 B/s, bf16 989e12 and fp32 67e12
+# FLOP/s, exponentials on the SFU (src/repro_torch/launch/roofline.py)
+try:
+    sys.path.insert(0, str(SRC))
+    from repro_torch.launch.roofline import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,
+                                             SFU_EXP_PER_S)
+except ImportError:        # not beside a checkout: main() says so and exits 2
+    if (SRC / "repro_torch").is_dir():
+        raise
+    BF16_FLOPS = FP32_FLOPS = HBM_BYTES_PER_S = SFU_EXP_PER_S = float("nan")
 FFN_SHAPE = dict(M=8, d=5120, F=13824)
 GQA_SHAPE = dict(B=8, H=32, KV=8, hd=128, C=576)
 GQA_ROTATIONS = 24         # distinct K/V caches a timing graph cycles over: 453 MB
@@ -244,6 +273,12 @@ ZOO_CKPT = dict(steps=3, batch=2, seq=32)      # run_plain's checkpoint, smoke c
 # (relative 2-norm); every launch of the first kernel step against its plain
 # version at the bf16 per-launch gate
 ZOO_LOSS_TOL, ZOO_GRAD_TOL, BF16_HOLD_TOL = 1e-2, 2e-2, 1e-2
+# train_rwkv: RWKV-6-3B at full width on 2 of its 32 layers in fp32, one
+# AdamW step on the card against the same step on the CPU
+RWKV_TRAIN = dict(arch="rwkv6-3b", layers=2, batch=2, seq=128)
+RWKV_TRAIN_TOL = dict(loss=1e-4, grads=1e-3)
+# dryrun: argument bytes against the card's allocation, a tensor's rounding
+ALLOC_ROUNDING = 512
 # a zoo step's end-to-end gate: 2e-2, or, where the gap of the plain step
 # with masked_ffn_batch's fp32 sums in 2 and 4 pieces exceeds 2e-2 (no
 # kernel in either), this factor times that gap
@@ -1002,6 +1037,7 @@ def phase_rwkv_kernels(torch, np, dev="cuda"):
             "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "shape": RWKV_SCAN_SHAPE, "mixes": per}]
+    out.append(rwkv_bf16_kernel(torch, rwkv, r, k, v, -torch.exp(w), u))
     del r, k, v, u, w, cases
 
     per, stats_launches = [], 0
@@ -1038,6 +1074,46 @@ def phase_rwkv_kernels(torch, np, dev="cuda"):
                                  "(on no main path)",
                 "shape": dict(d_in=1024, n=1024, dtype="float32"), "mixes": per})
     return out
+
+
+RWKV_BF16_TOL = dict(rel2=5e-4, inf=1e-2, state=1e-4)
+
+
+def rwkv_bf16_kernel(torch, rwkv, r, k, v, logw, u):
+    """B12's bf16 chunk form (rwkv_out_bf16_kernel) at RWKV_SCAN_SHAPE
+    against its plain form: relative 2-norm <= 5e-4 and ∞-norm <= 1e-2 (a
+    score whose bf16 rounding flips is a sparse error: a 1e-7 relative
+    change of logw moves the plain form by ~3e-5 in 2-norm; the fp32 form
+    lies ~2e-3 away, reported as ``fp32_form_rel_err_2``), the state
+    1e-4, two calls the same bits. Bound: bytes, and the literal form's
+    exponentials at SFU_EXP_PER_S (rwkv_work), which this form must take:
+    each (t, j, n)'s decay is rounded on its own."""
+    c = RWKV_SCAN_SHAPE["chunk"]
+    B, S, H, N = r.shape
+    run = lambda: rwkv.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=c)
+    plain = lambda: rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=c,
+                                               chunk_dtype=torch.bfloat16)
+    (y, st), (y2, st2), (yp, sp) = run(), run(), plain()
+    y32, _ = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=c)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), "rwkv_chunk_scan_bf16 not finite")
+    check(torch.equal(y, y2) and torch.equal(st, st2), "rwkv_chunk_scan_bf16: two calls differ")
+    errs = {"rel2": rel2(y, yp), "inf": rel_inf(y, yp), "state": rel_inf(st, sp)}
+    check(all(errs[key] <= tol for key, tol in RWKV_BF16_TOL.items()),
+          f"rwkv_chunk_scan_bf16 vs its plain form {errs}, limits {RWKV_BF16_TOL}")
+    nbytes, _, _, chunked = rwkv_work(B, S, H, N, c, 2)
+    exps = chunked["literal_form_exponentials"]
+    terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "exp_ms": exps / SFU_EXP_PER_S * 1e3}
+    b_ms = max(terms.values())
+    return {"name": "rwkv_chunk_scan_bf16", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv_chunk.cu",
+            "replaces": "src/repro/models/rwkv6.py:113",
+            "max_abs_err": max(float((y - yp).abs().max()), float((st - sp).abs().max())),
+            "ms": graph_ms(run, torch), "call_ms": time_ms(run, torch),
+            "plain_ms": time_ms(plain, torch, n=10), "bound_ms": b_ms,
+            "bound_by": "bytes" if terms["bytes_ms"] >= b_ms else "operations",
+            "bound_terms": terms, "library_ms": None, "rel_err": errs,
+            "fp32_form_rel_err_2": rel2(yp, y32), "shape": RWKV_SCAN_SHAPE}
 
 
 def plain_train(torch):
@@ -1091,8 +1167,11 @@ def swap_in_plain(ops):
     from repro_torch.kernels import masked_ffn as ffn
     from repro_torch.kernels import rwkv_chunk as rwkv
     names = ("masked_ffn_batch", "decode_gqa", "masked_ffn_train",
-             "masked_head_proj", "masked_head_merge", "rwkv_chunk_scan")
+             "masked_head_proj", "masked_head_merge", "rwkv_chunk_scan",
+             "rwkv_chunk_scan_bf16")
     saved = {n: getattr(ops, n) for n in names}
+    ops.rwkv_chunk_scan_bf16 = lambda *a, **kw: rwkv.rwkv_chunk_scan_plain(
+        *a, chunk_dtype=torch.bfloat16, **kw)
     ops.masked_ffn_batch = lambda x, wi, wo, m, w_gate=None, act="silu": \
         ffn.masked_ffn_batch_plain(x, wi, wo, m, w_gate, act)
     ops.decode_gqa = gqa.decode_gqa_plain
@@ -1328,6 +1407,208 @@ def phase_step(torch, np, params, cfg):
     return out, (caches, tok, pos, masks)
 
 
+def phase_decode_routes(torch, np, params, cfg, state):
+    """The decode routes the dry-run's variants select, on the step phase's
+    full-width StableLM-2-12B decode step, each held against the default
+    route (B11) at the step phase's gate (relative 2-norm <= 2e-2 of the
+    hidden state and the logits): decode_cache_context("seq") (the grouped
+    attention _sdpa_grouped, which launches no decode_gqa) on the step's
+    own rows, and uniform_pos_context(True) (one slot written for every
+    row) on the same caches with every row at position 240."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import decode_cache_context, uniform_pos_context
+    from repro_torch.models import layers, model
+    caches, tok, pos, masks = state
+    saved = tree_map(lambda t: t.clone(), caches)
+
+    def hidden(p, t):
+        tree_map(lambda c, s0: c.copy_(s0), caches, saved)
+        ops.reset_launch_counts()
+        h = model.decode_hidden(params, cfg, caches, t, p, masks=masks)
+        return h, layers.lm_logits(params["tok"], h, cfg), ops.launch_counts()["decode_gqa"]
+
+    out = {}
+    hd, ld, nd = hidden(pos, tok)
+    with decode_cache_context("seq"):
+        hs, ls, ns = hidden(pos, tok)
+    check(nd == cfg.n_layers and ns == 0,
+          f"decode_routes: decode_gqa launched {nd} (default) and {ns} (seq) times")
+    out["seq"] = {"hidden_rel_err_2": rel2(hs, hd), "logits_rel_err_2": rel2(ls, ld),
+                  "greedy_agreement": float((ls.argmax(-1) == ld.argmax(-1)).float().mean()),
+                  "decode_gqa_launches": ns}
+    upos = torch.full_like(pos, 240)
+    utok = tok.clone()
+    hd, ld, _ = hidden(upos, utok)
+    with uniform_pos_context(True):
+        hu, lu, nu = hidden(upos, utok)
+    out["uniform_pos"] = {"hidden_rel_err_2": rel2(hu, hd), "logits_rel_err_2": rel2(lu, ld),
+                          "bitwise": bool(torch.equal(lu, ld)), "position": 240,
+                          "decode_gqa_launches": nu}
+    tree_map(lambda c, s0: c.copy_(s0), caches, saved)
+    del saved
+    torch.cuda.synchronize()
+    for name, r in out.items():
+        check(r["hidden_rel_err_2"] <= 2e-2 and r["logits_rel_err_2"] <= 2e-2,
+              f"decode_routes: {name} route vs the default route {r}")
+    return out
+
+
+def phase_dryrun(torch, np, zoo):
+    """The meta-device dry-run (launch/dryrun.dry_step) against what the
+    card ran. FLOPs: the meta count of train_zoo's dense step (StableLM-2-12B,
+    8 of 40 layers, batch 4 x 256, AdamW) must equal FlopCounterMode's count
+    around that step on the card. Argument bytes: the meta params and AdamW
+    state must equal the growth of torch.cuda.memory_allocated() while
+    train_zoo built them, within ALLOC_ROUNDING a tensor. Printed, not
+    gated: the meta peak estimate beside max_memory_allocated after the two
+    full steps, and a serving decode step's floor of bytes (bf16 params,
+    SERVE_QUEUE's 8 rows of 576 slots) beside decode_bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model
+    cfg = get_config(ZOO_TRAIN["arch"]).with_overrides(n_layers=ZOO_TRAIN["layers"])
+    shape = InputShape("train_zoo", ZOO_TRAIN["seq"], ZOO_TRAIN["batch"], "train")
+    t0 = time.perf_counter()
+    terms, mem = dryrun.dry_step(cfg, shape)
+    meta_s = time.perf_counter() - t0
+    parts = mem["argument_breakdown"]
+    built = parts["params"] + parts["opt_state"]
+    card = zoo["card_counts"]
+    out = {"train": {"meta_flops": terms.flops, "card_flops": card["flops"],
+                     "meta_param_and_state_bytes": built, "card_allocated_bytes": card["built_bytes"],
+                     "tensors": card["tensors"],
+                     "meta_peak_estimate_GB": mem["peak_estimate"] / 1e9,
+                     "card_max_memory_allocated_GB": card["peak_bytes"] / 1e9,
+                     "peak_ratio_meta_over_card": mem["peak_estimate"] / card["peak_bytes"],
+                     "saved_for_backward_GB": mem["saved_for_backward_bytes"] / 1e9,
+                     "roofline": terms.to_dict(), "meta_s": meta_s}}
+    check(terms.flops == card["flops"],
+          f"dryrun: meta FLOPs {terms.flops} != the card's {card['flops']}")
+    check(abs(built - card["built_bytes"]) <= ALLOC_ROUNDING * card["tensors"],
+          f"dryrun: meta argument bytes {built} vs the card's allocation {card['built_bytes']} "
+          f"({card['tensors']} tensors)")
+    q = SERVE_QUEUE
+    scfg = get_config("stablelm-12b").with_overrides(param_dtype="bfloat16")
+    dshape = InputShape("serve_decode", q["prompt_len"] + q["gen_len"], q["batch"], "decode")
+    dterms, dmem = dryrun.dry_step(scfg, dshape)
+    mparams = model.init_params(scfg, device="meta")
+    want = decode_bytes(scfg, mparams, q)
+    check(param_bytes(tree_leaves(mparams)) == dmem["argument_breakdown"]["params"],
+          "dryrun: the decode step's param bytes differ from the model's")
+    out["decode"] = {"meta_bytes_min": dterms.bytes_accessed, "decode_bytes": want,
+                     "ratio": dterms.bytes_accessed / want,
+                     "meta_bytes_unfused": dterms.bytes_unfused, "meta_flops": dterms.flops,
+                     "note": "bytes_min reads every param (the embedding table too), the "
+                             "whole caches and writes one slot; decode_bytes leaves out "
+                             "the embedding table and the caches"}
+    return out
+
+
+def rwkv_bf16_prefill(torch, np, params, cfg, dev="cuda"):
+    """RWKV-6-3B at full width through make_prefill_step under the dry-run's
+    rwkv_c128_bf16 variant (chunk 128, the bf16 chunk form): one prompt of
+    RWKV_SCAN_SHAPE's 512 tokens. The main path: B12's bf16 form launched
+    once a layer, its fp32 form never. Then the same prefill with each
+    launch held against the plain bf16 form (RWKV_BF16_TOL), bitwise the
+    same logits, which are finite; their gap to the fp32 chunk form's at
+    chunk 128 is reported (the stack amplifies any rounding: serve_rwkv)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv_chunk as rwkv
+    from repro_torch.launch import dryrun, steps
+    bcfg = cfg.with_overrides(**dryrun.VARIANTS["rwkv_c128_bf16"]["cfg_overrides"])
+    S = RWKV_SCAN_SHAPE["S"]
+    batch = {"tokens": torch.from_numpy(
+        np.random.RandomState(4).randint(0, 256, (1, S)).astype(np.int64)).to(dev)}
+    prefill = steps.make_prefill_step(bcfg)
+    ops.reset_launch_counts()                  # main path starts here
+    lb, _ = prefill(params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()               # main path ends here
+    check(counts["rwkv_chunk_scan_bf16"] == cfg.n_layers and counts["rwkv_chunk_scan"] == 0,
+          f"serve_rwkv: the bf16 prefill launched {counts}")
+    saved = ops.rwkv_chunk_scan_bf16
+    worst = {"rel2": 0.0, "inf": 0.0, "state": 0.0, "held": 0}
+
+    def both(r, k, v, logw, u, chunk=64, state=None):
+        y, st = saved(r, k, v, logw, u, chunk=chunk, state=state)
+        yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, state=state,
+                                            chunk_dtype=torch.bfloat16)
+        for key, e in (("rel2", rel2(y, yp)), ("inf", rel_inf(y, yp)), ("state", rel_inf(st, sp))):
+            worst[key] = max(worst[key], e)
+        worst["held"] += 1
+        return y, st
+    ops.rwkv_chunk_scan_bf16 = both
+    try:
+        lh, _ = prefill(params, batch)
+    finally:
+        ops.rwkv_chunk_scan_bf16 = saved
+    lf, _ = steps.make_prefill_step(bcfg.with_overrides(rwkv_chunk_dtype="float32"))(params, batch)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lb).all()), "serve_rwkv: the bf16 prefill's logits are not finite")
+    check(torch.equal(lb, lh), "serve_rwkv: the bf16 prefill gave other bits when held")
+    check(worst["held"] == cfg.n_layers and all(worst[k] <= t for k, t in RWKV_BF16_TOL.items()),
+          f"serve_rwkv: bf16 launches vs the plain bf16 form {worst}, limits {RWKV_BF16_TOL}")
+    line = {"variant": "rwkv_c128_bf16", "tokens": S, "launches": counts["rwkv_chunk_scan_bf16"],
+            "held": worst, "logits_vs_fp32_form_rel_err_2": rel2(lb, lf)}
+    return line, {"rwkv_chunk_scan_bf16": counts["rwkv_chunk_scan_bf16"]}
+
+
+def phase_train_rwkv(torch, np, dev="cuda"):
+    """RWKV-6-3B at full width (d 2560, 40 heads of 64, d_ff 8960, vocab
+    65536) on 2 of its 32 layers, fp32 params and compute, AdamW, block
+    remat: one make_train_step step of RWKV_TRAIN's batch on the card and
+    the same step on the CPU from the same params (drawn on the CPU, seed
+    0) and batch. The loss within 1e-4 relative, each param's gradient
+    (make_grads_fn, the step's own) within 1e-3 relative 2-norm. The time
+    mix trains through the plain chunked form under autograd: B12 (either
+    form) launched 0 times in the step; serve_rwkv's prefills launch it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model
+    from repro_torch.optim import make_optimizer
+    cfg = get_config(RWKV_TRAIN["arch"]).with_overrides(
+        n_layers=RWKV_TRAIN["layers"], dtype="float32", param_dtype="float32")
+    B, S = RWKV_TRAIN["batch"], RWKV_TRAIN["seq"]
+    cpu = model.init_params(cfg, seed=0, device="cpu")
+    card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+    bcpu = train.synth_batch(np.random.RandomState(0), cfg, B, S + 1, "cpu")
+    bcard = tree_map(lambda t: t.to(dev), bcpu)
+    grads_of = steps.make_grads_fn(cfg)        # the step's own gradients
+    (_, _), gcard = grads_of(card, bcard)
+    (_, _), gcpu = grads_of(cpu, bcpu)
+    step = steps.make_train_step(cfg)
+    opt = make_optimizer(cfg.optimizer)
+    ops.reset_launch_counts()                  # main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, _, met = step(card, opt.init(card), bcard)
+    loss = float(met["loss"])
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    counts = ops.launch_counts()               # main path ends here
+    check(set(counts.values()) == {0}, f"train_rwkv: the train step launched {counts}")
+    cpu, _, met_cpu = step(cpu, opt.init(cpu), bcpu)
+    loss_cpu = float(met_cpu["loss"])
+    errs = [rel2(a.cpu(), b) for a, b in zip(tree_leaves(gcard), tree_leaves(gcpu))
+            if float(b.norm()) > 0]
+    loss_rel = abs(loss - loss_cpu) / abs(loss_cpu)
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
+           "params": model.count_params(cpu), "loss": loss, "loss_cpu": loss_cpu,
+           "loss_rel_err": loss_rel, "grad_rel_err_2_worst": max(errs), "grad_leaves": len(errs),
+           "step_ms": step_ms, "launches": counts,
+           "params_after_step_max_abs_diff": max(float((a.cpu() - b).abs().max())
+                                                 for a, b in zip(tree_leaves(card), tree_leaves(cpu)))}
+    check(np.isfinite(loss) and loss_rel <= RWKV_TRAIN_TOL["loss"],
+          f"train_rwkv: card vs CPU loss {out}")
+    check(max(errs) <= RWKV_TRAIN_TOL["grads"], f"train_rwkv: card vs CPU gradients {out}")
+    return out
+
+
 def phase_profile(torch, params, cfg, state, steps=3):
     """Device time by kernel over a few full-width decode steps (the step
     phase's state), and the device's busy share of the window's wall time."""
@@ -1522,6 +1803,7 @@ def phase_serve_rwkv(torch, np, dev="cuda"):
     step_bytes = (sum(t.numel() * t.element_size() for t in leaves)
                   - embed.numel() * embed.element_size()
                   + B * cfg.d_model * embed.element_size() + 2 * state_bytes)
+    bf16_line, bf16_counts = rwkv_bf16_prefill(torch, np, params, cfg, dev)
     steps = summ["decode_steps"]
     out = {"params": n_params, "param_gb": sum(t.numel() * t.element_size() for t in leaves) / 1e9,
            "init_s": init_s, "wall_s": wall_s,
@@ -1538,8 +1820,8 @@ def phase_serve_rwkv(torch, np, dev="cuda"):
                             "per_launch_rel_err": {k: worst[k] for k in ("y", "state")},
                             "layer_out_rel_err_2": worst["layer_out"],
                             "launches": worst["launches"], **e2e},
-           "profile": prof}
-    return out, counts
+           "profile": prof, "bf16_prefill": bf16_line}
+    return out, {**counts, **bf16_counts}
 
 
 def kernel_layers(cfg):
@@ -2222,6 +2504,7 @@ def phase_train_zoo(torch, np, dev="cuda"):
     B1-B3 timed at this shape, launch.train.run_fluid through its entry
     point, and run_plain's checkpoint at smoke size reloaded bitwise.
     Returns (line, the kernel steps' launches)."""
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.checkpoint import load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core import transformer_hooks as hooks
@@ -2244,9 +2527,12 @@ def phase_train_zoo(torch, np, dev="cuda"):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
+    allocated0 = torch.cuda.memory_allocated()
     params = model.init_params(cfg, seed=0, device=dev)
     opt = make_optimizer(cfg.optimizer)
     state = opt.init(params)
+    card_counts = {"built_bytes": torch.cuda.memory_allocated() - allocated0,
+                   "tensors": len(tree_leaves(params)) + len(tree_leaves(state))}
     rng = np.random.RandomState(0)
     snap = train.ffn_snapshot(params, cfg)
     losses, ms, counts = [], {"full": [], "kernel": [], "dense": []}, []
@@ -2266,8 +2552,11 @@ def phase_train_zoo(torch, np, dev="cuda"):
         return counts[-1][1]
 
     full = steps.make_train_step(cfg)
-    for _ in range(2):
+    with FlopCounterMode(display=False) as fc:    # the dryrun phase's FLOPs
         check(run("full", full) == zero, f"train_zoo: a full step launched {counts[-1]}")
+    card_counts["flops"] = fc.get_total_flops()
+    check(run("full", full) == zero, f"train_zoo: a full step launched {counts[-1]}")
+    card_counts["peak_bytes"] = torch.cuda.max_memory_allocated()
     stats = hooks.ffn_unit_stats(snap, params, cfg)
     del snap
     r = pick_rate(ZOO_TRAIN["slowdown"])
@@ -2397,6 +2686,7 @@ def phase_train_zoo(torch, np, dev="cuda"):
     bitwise = len(got) == len(want) and all(torch.equal(a, w) for a, w in zip(got, want))
     check(bitwise, "train_zoo: the checkpoint did not reload bitwise")
     line = {"plan": plan, "main_path_s": main_s, "losses": losses, "calibration": calib,
+            "card_counts": card_counts,
             "kernel_vs_dense": routes, "held": held, "launches_a_kernel_step": per_step,
             "steps": {k: len(v) for k, v in ms.items()}, **timing,
             "peak_GB": peak, "peak_over_reckoning": peak / plan["reckoned_GB"]["total"],
@@ -3466,6 +3756,7 @@ def main() -> int:
         emit("serve", **serve)
         step, state = phase_step(torch, np, params, cfg)
         emit("step", **step)
+        emit("decode_routes", **phase_decode_routes(torch, np, params, cfg, state))
         emit("profile", **phase_profile(torch, params, cfg, state))
         del params, state
         torch.cuda.empty_cache()
@@ -3505,6 +3796,10 @@ def main() -> int:
         emit("train_zoo", **line)
         gc.collect()
         torch.cuda.empty_cache()
+        emit("dryrun", **phase_dryrun(torch, np, line))
+        emit("train_rwkv", **phase_train_rwkv(torch, np))
+        gc.collect()
+        torch.cuda.empty_cache()
         train, train_counts, train_runs = phase_train(torch, np)
         emit("train", **train)
         train_attn, attn_counts, attn_runs = phase_train_attn(torch, np)
@@ -3531,7 +3826,7 @@ def main() -> int:
         # launches: serving's kernels summed over the serve phases (StableLM,
         # MiniCPM3, RecurrentGemma, Command-R, Arctic, SeamlessM4T; DeepSeek's
         # launches none) and Granite's step, the chunked
-        # scan's from serve_rwkv, the FFN training kernels' from train and
+        # scan's from serve_rwkv (its bf16 form's from serve_rwkv's bf16 prefill), the FFN training kernels' from train and
         # train_zoo, the head-masked kernels' from train_attn; invariant_stats
         # is on no main path, so its count is that of its checks in the
         # kernels phase

@@ -28,9 +28,13 @@ def params_from_numpy(tree, device="cuda", dtype=None):
     both: it is used in the compute dtype, so storing it cast gives the
     same numbers. A model's layers sit under "stack" with a leading repeat
     axis (the encoder–decoder's 'enc' and 'dec' stacks too), so there a
-    vector is (R, n)."""
+    vector is (R, n). The tensors own their memory, on the CPU too: they
+    never alias the caller's arrays."""
     def conv(a, lead, name):
-        a = np.array(a)
+        # np.array copies: the tensors never share the caller's buffers (an
+        # in-place optimizer step would write into them, and into a JAX
+        # array that aliases the same numpy buffer on the CPU)
+        a = np.array(a, copy=True)
         if a.dtype.name == "bfloat16":         # ml_dtypes' bf16 (Arctic's params)
             t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
         else:

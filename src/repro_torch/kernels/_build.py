@@ -134,6 +134,22 @@ class LaunchCounter:
         self.n = 0
 
 
+def runs_plain(t) -> bool:
+    """Whether a wrapper given ``t`` runs its kernel's plain version: a CPU
+    tensor or a meta tensor (the dry-run's). A CUDA tensor always launches
+    the kernel."""
+    return t.device.type in ("cpu", "meta")
+
+
+def checked_as_card(t) -> bool:
+    """Whether a wrapper given ``t`` applies the checks the card's launch
+    applies: on a CUDA tensor before it launches, on a meta tensor before
+    it runs the plain version, so that a dry-run raises where the card
+    would refuse. A CPU tensor skips them (the plain versions take fp64 and
+    any head size)."""
+    return t.device.type != "cpu"
+
+
 def check_operand(name, t, dtype, device):
     """Raise unless ``t`` is what a kernel takes: on ``device``, of
     ``dtype``, contiguous and 16-byte aligned."""
@@ -143,5 +159,5 @@ def check_operand(name, t, dtype, device):
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if t.data_ptr() % 16:         # 0 on the meta device: a meta tensor passes
         raise ValueError(f"{name} must be 16-byte aligned")

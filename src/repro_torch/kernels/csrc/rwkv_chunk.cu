@@ -52,6 +52,9 @@
 //     sub-block's scores directly, the off-diagonal keys in tiles of 64 as
 //     products, then, after griddepcontrol.wait, the inter term from the
 //     chunk's entry state, and y.
+//   rwkv_out_bf16_kernel, in place of rwkv_out_kernel for the bf16 chunk
+//     form (see there): the literal form, its scores rounded as the
+//     reference's bf16 einsum rounds them.
 // The second and third are programmatic dependent launches: the output
 // kernel's intra work runs while the state pass and the carry do. The
 // cumsum is a parallel scan: each 16-row sub-block sums its logw serially
@@ -427,6 +430,160 @@ rwkv_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
 }
 
+// The bf16 chunk form (the reference's rwkv_chunk_dtype="bfloat16",
+// repro/models/rwkv6.py::_chunk_core :131-134): there D is rounded to bf16,
+// and jnp.einsum contracts r, k and D pairwise, r ⊗ k first, each result
+// rounded to bf16. So the score of query t and key j < t is
+//
+//   s_tj = bf16( Σ_n bf16(bf16(r_tn) · bf16(k_jn)) · bf16(e^{l_exc,tn - l_inc,jn}) )
+//
+// with the sum over n in fp32 (each product of two bf16 values is exact in
+// fp32). The factored form of rwkv_out_kernel cannot round each (t, j, n)'s
+// exponential, so this kernel takes them literally: c(c-1)/2·N a chunk and
+// head. The bonus (j == t) and the inter term stay fp32, as in the
+// reference; the state pass and the carry are those of the fp32 form.
+// grid (B·H, chunks, nb): a block a 16-row sub-block sb of a chunk, its keys
+// 0 .. t0+nt-1 in tiles of KT; launched as a programmatic dependent of
+// rwkv_carry_kernel, whose entry states it reads after griddepcontrol.wait.
+template <int N> struct LayoutBf16 {
+  static constexpr int P = N + 4;
+  static size_t floats(int nb) {
+    return (size_t)(nb + 1) * N + 2 * SB * P + N * SB + KT * SB + 3 * KT * P;
+  }
+  static_assert(KT * P >= N * N, "the entry state reuses the key tile");
+};
+
+__device__ __forceinline__ float bf16r(float x) {   // round to bf16, nearest even
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS)
+rwkv_out_bf16_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ logw,
+                     const float* __restrict__ u, const float* __restrict__ ds,
+                     float* __restrict__ y, int S, int H, int c) {
+  constexpr int P = LayoutBf16<N>::P, RPT = N / 16, EPT = N * N / THREADS;
+  constexpr int KQ = KT * SB / THREADS;  // (t, j) pairs a thread scores in a tile
+  static_assert(KQ * THREADS == KT * SB && THREADS % SB == 0, "pairs split evenly");
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, ch = blockIdx.y, nc = gridDim.y, sb = blockIdx.z;
+  const int b = bh / H, h = bh % H;
+  const int t0 = SB * sb, nt = min(SB, c - t0);
+  float* Lb = smem;                     // (sb + 1, N) boundaries
+  float* rr = Lb + ((c + SB - 1) / SB + 1) * N;   // (SB, P) r
+  float* le = rr + SB * P;              // (SB, P) logw, then l_exc
+  float* rh = le + SB * P;              // (N, SB) (r ⊙ e^{l_exc})ᵀ
+  float* pt = rh + N * SB;              // (KT, SB) scores, key-major
+  float* kk = pt + KT * SB;             // (KT, P) k
+  float* li = kk + KT * P;              // (KT, P) l_inc of the keys
+  float* vt = li + KT * P;              // (KT, P) v
+  float* st = kk;                       // (N, N) entry state, over kk at the end
+  const size_t rs = (size_t)H * N;
+  const size_t base = ((size_t)b * S + (size_t)ch * c) * rs + (size_t)h * N;
+  const float* uh = u + (size_t)h * N;
+
+  boundaries<N>(logw + base, rs, c, sb, Lb);   // Lb[0..sb]
+  for (int e = tid; e < SB * N; e += THREADS) {
+    const int i = e / N, n = e % N;
+    const bool in = i < nt;
+    const size_t g = base + (size_t)(t0 + i) * rs + n;
+    rr[i * P + n] = in ? rt::to_f(r[g]) : 0.f;
+    le[i * P + n] = in ? logw[g] : 0.f;
+  }
+  __syncthreads();
+  if (tid < N) {                        // l_exc of the query rows, from the boundary
+    const int n = tid;
+    float run = 0.f;
+    const float lT = Lb[sb * N + n];
+    for (int i = 0; i < nt; ++i) {
+      const float w = le[i * P + n];
+      le[i * P + n] = lT + run;
+      run += w;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < SB * N; e += THREADS) {
+    const int i = e / N, n = e % N;
+    rh[n * SB + i] = rr[i * P + n] * exp_neg(le[i * P + n]);
+  }
+
+  const int m = tid % N, rg = tid / N;  // output column; rows rg·RPT..
+  float yacc[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) yacc[i] = 0.f;
+  const int tq = tid % SB, jq = tid / SB;   // the thread's query row; keys jq + (THREADS/SB)·q
+  for (int j0 = 0; j0 < t0 + nt; j0 += KT) {
+    const int kn = min(KT, t0 + nt - j0);
+    __syncthreads();                    // pt, kk, li, vt are consumed
+    for (int e = tid; e < kn * N; e += THREADS) {
+      const int j = e / N, n = e % N;
+      const size_t g = base + (size_t)(j0 + j) * rs + n;
+      kk[j * P + n] = rt::to_f(k[g]);
+      vt[j * P + n] = rt::to_f(v[g]);
+    }
+    for (int e = tid; e < (KT / SB) * N; e += THREADS) {   // l_inc, a sub-block's run
+      const int jl = e / N, n = e % N;
+      const int rows = min(SB, kn - SB * jl);
+      if (rows > 0) {
+        const int J = j0 / SB + jl;
+        const size_t g0 = base + (size_t)(j0 + SB * jl) * rs + n;
+        float run = 0.f;
+        for (int i = 0; i < rows; ++i) {
+          run += logw[g0 + i * rs];
+          li[(SB * jl + i) * P + n] = Lb[J * N + n] + run;
+        }
+      }
+    }
+    __syncthreads();
+    {
+      int kind[KQ];                     // 0 none, 1 below the diagonal, 2 the bonus
+      float acc[KQ];
+#pragma unroll
+      for (int q = 0; q < KQ; ++q) {
+        const int j = jq + (THREADS / SB) * q, jg = j0 + j, tg = t0 + tq;
+        kind[q] = (tq >= nt || j >= kn || jg > tg) ? 0 : (jg < tg ? 1 : 2);
+        acc[q] = 0.f;
+      }
+      for (int n = 0; n < N; ++n) {
+        const float rv = rr[tq * P + n], rb = bf16r(rv), lv = le[tq * P + n];
+#pragma unroll
+        for (int q = 0; q < KQ; ++q) {
+          const int j = jq + (THREADS / SB) * q;
+          if (kind[q] == 1) {
+            const float kv = kk[j * P + n];
+            const float rk = bf16r(rb * bf16r(kv));
+            acc[q] = fmaf(rk, bf16r(exp_neg(lv - li[j * P + n])), acc[q]);
+          } else if (kind[q] == 2) {
+            acc[q] = fmaf(rv, uh[n] * kk[j * P + n], acc[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < KQ; ++q) {
+        const int j = jq + (THREADS / SB) * q;
+        pt[j * SB + tq] = kind[q] == 1 ? bf16r(acc[q]) : acc[q];
+      }
+    }
+    __syncthreads();
+    accumulate<RPT>(yacc, pt, vt, P, kn, rg, m);
+  }
+
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  __syncthreads();                      // kk is free
+  const float* entry = ds + ((size_t)bh * nc + ch) * N * N;
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) st[tid + i * THREADS] = entry[tid + i * THREADS];
+  __syncthreads();
+  accumulate<RPT>(yacc, rh, st, N, N, rg, m);
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int t = rg * RPT + i;
+    if (t < nt) y[base + (size_t)(t0 + t) * rs + m] = yacc[i];
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -435,15 +592,18 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
 template <typename T, int N>
 cudaError_t launch(const void* r, const void* k, const void* v, const float* logw,
                    const float* u, const float* state_in, float* ds, float* ltot,
-                   float* y, float* state_out, int B, int S, int H, int c, cudaStream_t s) {
+                   float* y, float* state_out, int B, int S, int H, int c, bool bf16,
+                   cudaStream_t s) {
   const int nb = (c + SB - 1) / SB, nc = S / c;
   if (B * H == 0) return cudaSuccess;
   if (nc > 65535) return cudaErrorInvalidValue;
   const size_t smem_a = Layout<N>::state_floats(nb) * sizeof(float);
-  const size_t smem_c = Layout<N>::out_floats(nb) * sizeof(float);
+  const size_t smem_c = (bf16 ? LayoutBf16<N>::floats(nb) : Layout<N>::out_floats(nb))
+                        * sizeof(float);
   cudaError_t err = allow_smem(rwkv_state_kernel<T, N>, smem_a);
   if (err != cudaSuccess) return err;
-  err = allow_smem(rwkv_out_kernel<T, N>, smem_c);
+  err = bf16 ? allow_smem(rwkv_out_bf16_kernel<T, N>, smem_c)
+             : allow_smem(rwkv_out_kernel<T, N>, smem_c);
   if (err != cudaSuccess) return err;
   rwkv_state_kernel<T, N><<<dim3(B * H, nc), THREADS, smem_a, s>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), logw, ds, ltot, S, H, c);
@@ -461,11 +621,12 @@ cudaError_t launch(const void* r, const void* k, const void* v, const float* log
   err = cudaLaunchKernelEx(&cfg, rwkv_carry_kernel<N>, state_in, ds,
                            static_cast<const float*>(ltot), state_out, B * H, nc);
   if (err != cudaSuccess) return err;
-  cfg.gridDim = dim3(B * H, nc, (nb + 1) / 2);
+  cfg.gridDim = dim3(B * H, nc, bf16 ? nb : (nb + 1) / 2);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem_c;
-  err = cudaLaunchKernelEx(&cfg, rwkv_out_kernel<T, N>, static_cast<const T*>(r),
-                           static_cast<const T*>(k), static_cast<const T*>(v), logw, u,
+  err = cudaLaunchKernelEx(&cfg, bf16 ? rwkv_out_bf16_kernel<T, N> : rwkv_out_kernel<T, N>,
+                           static_cast<const T*>(r), static_cast<const T*>(k),
+                           static_cast<const T*>(v), logw, u,
                            static_cast<const float*>(ds), y, S, H, c);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -476,19 +637,22 @@ cudaError_t launch(const void* r, const void* k, const void* v, const float* log
 // (B,H,N,N) or null (zero state), y (B,S,H,N), state_out (B,H,N,N): fp32.
 // Scratch from the caller: ds (B·H·S/chunk·N·N) and ltot (B·H·S/chunk·N)
 // fp32. All contiguous. Requires N in {16, 32, 64}, 1 <= chunk <= 1024 and
-// S % chunk == 0. Returns cudaGetLastError() of the two launches.
+// S % chunk == 0. bf16_scores != 0 takes the bf16 chunk form's output kernel
+// (rwkv_out_bf16_kernel). Returns cudaGetLastError() of the launches.
 extern "C" int rwkv_chunk_launch(const void* r, const void* k, const void* v,
                                  const float* logw, const float* u,
                                  const float* state_in, float* ds, float* ltot,
                                  float* y, float* state_out, int B, int S, int H,
-                                 int N, int chunk, int dtype, void* stream) {
+                                 int N, int chunk, int dtype, int bf16_scores,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunk < 1 || chunk > CMAX || S % chunk) return cudaErrorInvalidValue;
+  const bool bf = bf16_scores != 0;
   RT_DISPATCH(dtype, T, {
     switch (N) {
-      case 16: return launch<T, 16>(r, k, v, logw, u, state_in, ds, ltot, y, state_out, B, S, H, chunk, s);
-      case 32: return launch<T, 32>(r, k, v, logw, u, state_in, ds, ltot, y, state_out, B, S, H, chunk, s);
-      case 64: return launch<T, 64>(r, k, v, logw, u, state_in, ds, ltot, y, state_out, B, S, H, chunk, s);
+      case 16: return launch<T, 16>(r, k, v, logw, u, state_in, ds, ltot, y, state_out, B, S, H, chunk, bf, s);
+      case 32: return launch<T, 32>(r, k, v, logw, u, state_in, ds, ltot, y, state_out, B, S, H, chunk, bf, s);
+      case 64: return launch<T, 64>(r, k, v, logw, u, state_in, ds, ltot, y, state_out, B, S, H, chunk, bf, s);
       default: return cudaErrorInvalidValue;
     }
   });

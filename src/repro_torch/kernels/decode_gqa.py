@@ -3,8 +3,9 @@
 ``decode_gqa`` dispatches on where its tensors lie: on a CUDA tensor it
 launches the hand-written kernel in ``csrc/decode_gqa.cu`` (which replaces
 the Pallas ``_kernel``) and counts the launch; on a CPU tensor it runs
-``decode_gqa_plain``. There is no fallback from the card to the plain
-version.
+``decode_gqa_plain``; on a meta tensor (the dry-run's) it applies the
+launch's checks, then runs ``decode_gqa_plain``. There is no fallback from
+the card to the plain version.
 
 The kernel splits the cache axis into splits of ``split_len(...)``
 positions, one block each, and merges the splits' softmax partials in
@@ -77,10 +78,9 @@ def _bind(lib):
 _build.register_binding("decode_gqa", _bind)
 
 
-def _launch(q, k, v, lengths):
-    B, H, hd = q.shape
-    C, KV = k.shape[1], k.shape[2]
-    dtype, dev = q.dtype, q.device
+def _check(q, k, v, lengths):
+    """The launch's refusals (a ValueError), on the operands it is given."""
+    hd, dtype, dev = q.shape[2], q.dtype, q.device
     if dtype not in _build.DTYPE_CODE:
         raise ValueError(f"decode_gqa kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
     lanes = hd * q.element_size() // 16
@@ -90,6 +90,12 @@ def _launch(q, k, v, lengths):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _build.check_operand(name, t, dtype, dev)
     _build.check_operand("lengths", lengths, torch.int32, dev)
+
+
+def _launch(q, k, v, lengths):
+    B, H, hd = q.shape
+    C, KV = k.shape[1], k.shape[2]
+    dtype, dev = q.dtype, q.device
     lib = _build.load("decode_gqa")
     _, rep = head_groups(H // KV)
     ts = split_len(B, KV * rep, C, _build.sm_count(dev))
@@ -111,7 +117,8 @@ def decode_gqa(q, k, v, lengths):
     """q: (B,H,hd); k,v: (B,C,KV,hd); lengths: (B,) valid prefix per row,
     in [1, C]. Returns (B,H,hd) in q.dtype: softmax over the first
     lengths[b] cache slots, scale 1/sqrt(hd), fp32 accumulation. CUDA
-    tensors launch the kernel, CPU tensors run the plain version."""
+    tensors launch the kernel, CPU tensors run the plain version, meta
+    tensors take the launch's checks and then the plain version."""
     B, H, hd = q.shape
     if k.ndim != 4 or k.shape[0] != B or k.shape[3] != hd or k.shape != v.shape:
         raise ValueError(f"k, v must be (B={B}, C, KV, hd={hd}), got "
@@ -120,6 +127,9 @@ def decode_gqa(q, k, v, lengths):
         raise ValueError(f"H={H} must be a multiple of KV={k.shape[2]}")
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"lengths must be (B={B},), got {tuple(lengths.shape)}")
-    if q.device.type == "cpu":
+    if _build.checked_as_card(q):
+        lengths = lengths.to(torch.int32).contiguous()
+        _check(q, k, v, lengths)
+    if _build.runs_plain(q):
         return decode_gqa_plain(q, k, v, lengths)
-    return _launch(q, k, v, lengths.to(torch.int32).contiguous())
+    return _launch(q, k, v, lengths)

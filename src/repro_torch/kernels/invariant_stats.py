@@ -4,7 +4,8 @@
 ``invariant_stats`` dispatches on where its tensors lie: on a CUDA tensor
 it launches the hand-written kernels in ``csrc/invariant_stats.cu`` (which
 replace the Pallas ``_kernel``: slab partials, then a fixed-order sum) and
-counts the launch; on a CPU tensor it runs ``invariant_stats_plain``.
+counts the launch; on a CPU tensor it runs ``invariant_stats_plain``, on
+a meta tensor the launch's checks and then ``invariant_stats_plain``.
 There is no fallback from the card to the plain version. Like the
 reference's, it is an entry point that no main path calls: the server's
 calibration computes its statistic over several leaves in plain torch
@@ -42,13 +43,18 @@ def _bind(lib):
 _build.register_binding("invariant_stats", _bind)
 
 
-def _launch(w0, w1):
-    d_in, n = w0.shape
+def _check(w0, w1):
+    """The launch's refusals (a ValueError)."""
     dtype, dev = w0.dtype, w0.device
     if dtype not in _build.DTYPE_CODE:
         raise ValueError(f"invariant_stats kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
     _build.check_operand("w0", w0, dtype, dev)
     _build.check_operand("w1", w1, dtype, dev)
+
+
+def _launch(w0, w1):
+    d_in, n = w0.shape
+    dtype, dev = w0.dtype, w0.device
     slabs = -(-d_in // SLAB_ROWS)
     partials = torch.empty((2, slabs, n), dtype=torch.float32, device=dev)
     out = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -64,12 +70,15 @@ def _launch(w0, w1):
 def invariant_stats(w0, w1):
     """w0, w1: (d_in, n), same shape and dtype. Returns (n,) fp32, the sums
     taken in fp32. CUDA tensors launch the kernel, CPU tensors run the
-    plain version."""
+    plain version, meta tensors take the launch's checks and then the plain
+    version."""
     if w0.ndim != 2 or w0.shape != w1.shape or w0.numel() == 0:
         raise ValueError(f"w0, w1 must be one non-empty (d_in, n) shape, got "
                          f"{tuple(w0.shape)} and {tuple(w1.shape)}")
     if w0.dtype != w1.dtype:
         raise ValueError(f"w0, w1 must share a dtype, got {w0.dtype} and {w1.dtype}")
-    if w0.device.type == "cpu":
+    if _build.checked_as_card(w0):
+        _check(w0, w1)
+    if _build.runs_plain(w0):
         return invariant_stats_plain(w0, w1)
     return _launch(w0, w1)

@@ -16,7 +16,8 @@ head_mask is (C, H) 0/1. Each form is a ``torch.autograd.Function`` that
 saves only (input, weight, mask); its forward is one kernel and its
 backward two. A CUDA tensor launches the hand-written kernel of
 ``csrc/masked_attn.cu`` and counts the launch, a CPU tensor runs the
-kernel's plain PyTorch version; there is no fallback from the card:
+kernel's plain PyTorch version, a meta tensor the launch's checks and then
+the plain version; there is no fallback from the card:
 
   kernel (launch counter)   plain version                 replaces (Pallas)
   masked_head_proj          masked_head_proj_plain        _proj_kernel :54
@@ -171,16 +172,25 @@ def _bind(lib):
 _build.register_binding("masked_attn", _bind)
 
 
+def _plain_here(name, a, b, head_mask):
+    """Whether ``name`` runs its plain version on these operands (CPU or
+    meta tensors); on CUDA and meta tensors, first the launch's refusals
+    (a ValueError)."""
+    if _build.checked_as_card(a):
+        dtype, dev = a.dtype, a.device
+        if dtype not in _build.DTYPE_CODE:
+            raise ValueError(f"{name} kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
+        _build.check_operand("a", a, dtype, dev)
+        _build.check_operand("b", b, dtype, dev)
+        _build.check_operand("head_mask", head_mask, torch.float32, dev)
+    return _build.runs_plain(a)
+
+
 def _launch(name, a, b, head_mask, out_shape, M, width, hd):
     """Launch ``name``'s kernel on (a, b, head_mask) into a new tensor of
     ``out_shape``, type of ``a``; ``width`` is the non-head width (din or
     d)."""
     dtype, dev = a.dtype, a.device
-    if dtype not in _build.DTYPE_CODE:
-        raise ValueError(f"{name} kernel takes {list(_build.DTYPE_CODE)}, got {dtype}")
-    _build.check_operand("a", a, dtype, dev)
-    _build.check_operand("b", b, dtype, dev)
-    _build.check_operand("head_mask", head_mask, torch.float32, dev)
     lib = _build.load("masked_attn")
     C, H = head_mask.shape
     out = torch.empty(out_shape, dtype=dtype, device=dev)
@@ -223,7 +233,7 @@ def mm_launch_geometry(name, C, M, width, H, hd):
 def proj_fwd(x, w, head_mask):
     """Projection forward (no autograd): CUDA tensors launch the
     ``masked_head_proj`` kernel, CPU tensors run its plain version."""
-    if x.device.type == "cpu":
+    if _plain_here("masked_head_proj", x, w, head_mask):
         return masked_head_proj_plain(x, w, head_mask)
     C, M, din = x.shape
     N = w.shape[-1]
@@ -234,7 +244,7 @@ def proj_fwd(x, w, head_mask):
 def proj_dx(gy, w, head_mask):
     """dL/dx of the projection: the ``masked_head_proj_dx`` kernel on CUDA
     tensors, its plain version on CPU tensors."""
-    if gy.device.type == "cpu":
+    if _plain_here("masked_head_proj_dx", gy, w, head_mask):
         return masked_head_proj_dx_plain(gy, w, head_mask)
     C, M, N = gy.shape
     din = w.shape[-2]
@@ -245,7 +255,7 @@ def proj_dx(gy, w, head_mask):
 def proj_dw(gy, x, head_mask):
     """dL/dW of the projection: the ``masked_head_proj_dw`` kernel on CUDA
     tensors, its plain version on CPU tensors."""
-    if gy.device.type == "cpu":
+    if _plain_here("masked_head_proj_dw", gy, x, head_mask):
         return masked_head_proj_dw_plain(gy, x, head_mask)
     C, M, N = gy.shape
     din, hd = x.shape[-1], N // head_mask.shape[-1]
@@ -256,7 +266,7 @@ def proj_dw(gy, x, head_mask):
 def merge_fwd(a, w, head_mask):
     """Merge forward (no autograd): the ``masked_head_merge`` kernel on
     CUDA tensors, its plain version on CPU tensors."""
-    if a.device.type == "cpu":
+    if _plain_here("masked_head_merge", a, w, head_mask):
         return masked_head_merge_plain(a, w, head_mask)
     C, M, N = a.shape
     d = w.shape[-1]
@@ -267,7 +277,7 @@ def merge_fwd(a, w, head_mask):
 def merge_da(gy, w, head_mask):
     """dL/da of the merge: the ``masked_head_merge_da`` kernel on CUDA
     tensors, its plain version on CPU tensors."""
-    if gy.device.type == "cpu":
+    if _plain_here("masked_head_merge_da", gy, w, head_mask):
         return masked_head_merge_da_plain(gy, w, head_mask)
     C, M, d = gy.shape
     N = w.shape[-2]
@@ -278,7 +288,7 @@ def merge_da(gy, w, head_mask):
 def merge_dw(gy, a, head_mask):
     """dL/dW of the merge: the ``masked_head_merge_dw`` kernel on CUDA
     tensors, its plain version on CPU tensors."""
-    if gy.device.type == "cpu":
+    if _plain_here("masked_head_merge_dw", gy, a, head_mask):
         return masked_head_merge_dw_plain(gy, a, head_mask)
     C, M, d = gy.shape
     N = a.shape[-1]

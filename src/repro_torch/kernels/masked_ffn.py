@@ -4,8 +4,9 @@
 
 Two forms, each dispatching on where its tensors lie — a CUDA tensor
 launches the hand-written kernel and counts the launch, a CPU tensor runs
-the kernel's plain PyTorch version; there is no fallback from the card to
-the plain version:
+the kernel's plain PyTorch version, a meta tensor (the dry-run's) the
+launch's checks and then the plain version; there is no fallback from the
+card to the plain version:
 
 * ``masked_ffn_batch`` — the serving form: x (M, d), one weight set,
   forward only. Kernel ``csrc/masked_ffn.cu`` (replaces the Pallas
@@ -144,13 +145,13 @@ def ffn_geometry(M, d, F, n_sm):
     return min(ks, -(-d // 64)), fs
 
 
-def _launch(x, w_in, w_out, row_mask, w_gate, act):
+def _check_batch(x, w_in, w_out, row_mask, w_gate):
+    """The serving kernel's refusals (a ValueError), on what it is given."""
     dtype, dev = x.dtype, x.device
     if dtype not in _build.DTYPE_CODE:
         raise ValueError(f"masked_ffn_batch kernel takes {list(_build.DTYPE_CODE)}, "
                          f"got {dtype}")
-    M, d = x.shape
-    Fh = w_in.shape[1]
+    d = x.shape[1]
     if d % (16 // x.element_size()):
         raise ValueError(f"d={d} must be a multiple of {16 // x.element_size()}"
                          f" for 16-byte loads of {dtype}")
@@ -159,6 +160,12 @@ def _launch(x, w_in, w_out, row_mask, w_gate, act):
         if t is not None:
             _build.check_operand(name, t, dtype, dev)
     _build.check_operand("row_mask", row_mask, torch.float32, dev)
+
+
+def _launch(x, w_in, w_out, row_mask, w_gate, act):
+    dtype, dev = x.dtype, x.device
+    M, d = x.shape
+    Fh = w_in.shape[1]
     lib = _build.load("masked_ffn")
     code = _build.DTYPE_CODE[dtype]
     ks, fs = ffn_geometry(M, d, Fh, _build.sm_count(dev))
@@ -204,10 +211,12 @@ def masked_ffn_batch(x, w_in, w_out, row_mask, w_gate=None, *,
     _validate(x, w_in, w_out, w_gate, row_mask)
     if act not in _ACTS:
         raise ValueError(f"act must be one of {sorted(_ACTS)}, got {act!r}")
-    if x.device.type == "cpu":
+    if _build.checked_as_card(x):
+        row_mask = row_mask.to(torch.float32).contiguous()
+        _check_batch(x, w_in, w_out, row_mask, w_gate)
+    if _build.runs_plain(x):
         return masked_ffn_batch_plain(x, w_in, w_out, row_mask, w_gate, act)
-    return _launch(x, w_in, w_out, row_mask.to(torch.float32).contiguous(),
-                   w_gate, act)
+    return _launch(x, w_in, w_out, row_mask, w_gate, act)
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +298,7 @@ def masked_ffn_dw_plain(gy, x, w_in, w_out, row_mask, w_gate=None,
 
 
 def _check_train(name, x, w_in, w_out, row_mask, w_gate, gy=None):
+    """The training kernels' refusals (a ValueError)."""
     dtype, dev = x.dtype, x.device
     if dtype not in _build.DTYPE_CODE:
         raise ValueError(f"{name} kernel takes {list(_build.DTYPE_CODE)}, "
@@ -298,8 +308,6 @@ def _check_train(name, x, w_in, w_out, row_mask, w_gate, gy=None):
         if t is not None:
             _build.check_operand(arg, t, dtype, dev)
     _build.check_operand("row_mask", row_mask, torch.float32, dev)
-    C, M, d = x.shape
-    return dtype, dev, C, M, d, w_in.shape[2]
 
 
 def _ptr(t):
@@ -340,7 +348,7 @@ def _aligned(t):
 
 
 def _launch_fd(name, gy, x, w_in, w_out, row_mask, w_gate, act):
-    dtype, dev, C, M, d, Fh = _check_train(name, x, w_in, w_out, row_mask, w_gate, gy)
+    dtype, dev, (C, M, d), Fh = x.dtype, x.device, x.shape, w_in.shape[2]
     w_in, w_out, row_mask, w_gate = (_aligned(t) for t in (w_in, w_out, row_mask, w_gate))
     lib = _build.load("masked_ffn_train")
     geo = fwd_dx_launch_geometry(C, M, d, Fh, _build.sm_count(dev))
@@ -394,8 +402,7 @@ def dw_launch_geometry(C, M, d, F, n_sm=132):
 
 
 def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
-    dtype, dev, C, M, d, Fh = _check_train("masked_ffn_dw", x, w_in, w_out,
-                                           row_mask, w_gate, gy)
+    dtype, dev, (C, M, d), Fh = x.dtype, x.device, x.shape, w_in.shape[2]
     lib = _build.load("masked_ffn_train")
     geo = dw_launch_geometry(C, M, d, Fh, _build.sm_count(dev))
     # every element is written by the kernel, dropped tiles as exact zeros
@@ -440,7 +447,9 @@ def masked_ffn_train_fwd(x, w_in, w_out, row_mask, w_gate=None, *,
                          act="silu"):
     """Forward of the training form (no autograd): CUDA tensors launch the
     kernel, CPU tensors run ``masked_ffn_batch_plain``."""
-    if x.device.type == "cpu":
+    if _build.checked_as_card(x):
+        _check_train("masked_ffn_train_fwd", x, w_in, w_out, row_mask, w_gate)
+    if _build.runs_plain(x):
         return masked_ffn_batch_plain(x, w_in, w_out, row_mask, w_gate, act)
     return _launch_train_fwd(x, w_in, w_out, row_mask, w_gate, act)
 
@@ -448,7 +457,9 @@ def masked_ffn_train_fwd(x, w_in, w_out, row_mask, w_gate=None, *,
 def masked_ffn_dx(gy, x, w_in, w_out, row_mask, w_gate=None, *, act="silu"):
     """dL/dx of the training form: CUDA tensors launch the dx kernel, CPU
     tensors run ``masked_ffn_dx_plain``."""
-    if x.device.type == "cpu":
+    if _build.checked_as_card(x):
+        _check_train("masked_ffn_dx", x, w_in, w_out, row_mask, w_gate, gy)
+    if _build.runs_plain(x):
         return masked_ffn_dx_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
     return _launch_dx(gy, x, w_in, w_out, row_mask, w_gate, act)
 
@@ -456,7 +467,9 @@ def masked_ffn_dx(gy, x, w_in, w_out, row_mask, w_gate=None, *, act="silu"):
 def masked_ffn_dw(gy, x, w_in, w_out, row_mask, w_gate=None, *, act="silu"):
     """(dW_in, dW_out, dW_gate) of the training form: CUDA tensors launch
     the dW kernel, CPU tensors run ``masked_ffn_dw_plain``."""
-    if x.device.type == "cpu":
+    if _build.checked_as_card(x):
+        _check_train("masked_ffn_dw", x, w_in, w_out, row_mask, w_gate, gy)
+    if _build.runs_plain(x):
         return masked_ffn_dw_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
     return _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act)
 

@@ -1,7 +1,8 @@
 """Public wrappers around the port's kernels (mirror of ``repro/kernels/ops.py``).
 
 Each wrapper launches its hand-written CUDA kernel when given CUDA tensors
-and runs the kernel's plain PyTorch version when given CPU tensors: the
+and runs the kernel's plain PyTorch version when given CPU tensors (meta
+tensors, the dry-run's: the launch's checks, then the plain version): the
 masked FFN (serving, training and block-masked forms), the head-masked attention
 projections, ``decode_gqa``, the chunked RWKV-6 scan and
 ``invariant_stats`` (an entry point that no main path calls, as in the
@@ -28,6 +29,7 @@ LAUNCHES = {"masked_ffn_batch": _masked_ffn_mod.launches,
             "masked_ffn_dw": _masked_ffn_mod.dw_launches,
             **_masked_attn_mod.LAUNCHES,
             "rwkv_chunk_scan": _rwkv_chunk_mod.launches,
+            "rwkv_chunk_scan_bf16": _rwkv_chunk_mod.bf16_launches,
             "invariant_stats": _invariant_stats_mod.launches}
 
 
@@ -137,7 +139,17 @@ def rwkv_chunk_scan(r, k, v, logw, u, chunk=64, state=None):
 
     r/k/v/logw: (B, S, H, N), logw fp32 (< 0); u: (H, N); state: optional
     (B, H, N, N) fp32 initial state, zero when None. Returns (y (B,S,H,N)
-    fp32, final state (B,H,N,N) fp32). Forward-only (serving prefill).
+    fp32, final state (B,H,N,N) fp32). The kernel is forward-only (serving
+    prefill); under autograd the plain chunked form runs instead.
     Plain version: rwkv_chunk.rwkv_chunk_scan_plain."""
     return _rwkv_chunk_mod.rwkv_chunk_scan(r, k, v, logw, u, chunk=chunk,
                                            state=state)
+
+
+def rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=64, state=None):
+    """The bf16 chunk form of ``rwkv_chunk_scan`` (the reference's
+    ``rwkv_chunk_dtype="bfloat16"``): the decay tensor and the intra-chunk
+    scores rounded to bf16 as the reference rounds them, the rest fp32.
+    Plain version: rwkv_chunk.rwkv_chunk_scan_plain(chunk_dtype=bf16)."""
+    return _rwkv_chunk_mod.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=chunk,
+                                                state=state)

@@ -73,21 +73,28 @@ def make_train_step(cfg: ModelConfig, with_masks: bool = False,
     return lambda params, opt_state, batch: step(params, opt_state, batch)
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None):
+def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
+                      window_override: Optional[int] = None):
     """step(params, batch) -> (last-position logits (B, V), caches): the
-    caches hold cache_len positions (default the prompt's)."""
+    caches hold cache_len positions (default the prompt's);
+    window_override windows every full-attention layer."""
     def step(params, batch):
         logits, caches, _ = model_lib.forward_seq(params, cfg, batch, want_cache=True,
-                                                  cache_len=cache_len)
+                                                  cache_len=cache_len,
+                                                  window_override=window_override)
         return logits[:, -1], caches
     return step
 
 
-def make_serve_step(cfg: ModelConfig, mla_absorb: bool = False):
+def make_serve_step(cfg: ModelConfig, mla_absorb: bool = False,
+                    window_override: Optional[int] = None):
     """step(params, caches, token (B,1), pos (B,)) -> (logits (B, V),
-    caches), the caches updated in place."""
+    caches), the caches updated in place. The decode attention's route
+    follows ``launch/sharding``'s decode_cache_context and
+    uniform_pos_context."""
     def step(params, caches, token, pos):
         logits, caches = model_lib.decode_step(params, cfg, caches, token, pos,
-                                               mla_absorb=mla_absorb)
+                                               mla_absorb=mla_absorb,
+                                               window_override=window_override)
         return logits[:, -1], caches
     return step

@@ -6,7 +6,11 @@ cache (port of ``repro/models/attention.py``).
                        in the reference (which computes it in plain jnp)
   attn_decode(...)  -- one new token per row against the cache: through
                        the flash-decode kernel (kernels/decode_gqa.py), or,
-                       for a windowed layer, the plain windowed attention
+                       for a windowed layer, the plain windowed attention;
+                       under launch/sharding's decode_cache_context("seq"),
+                       the grouped attention ``_sdpa_grouped`` (no K/V
+                       expansion), and under uniform_pos_context(True) one
+                       slot written for every row
 Cache layout per layer: k, v (B, C, KV, hd). The reference also carries
 per-slot positions; the port derives them from the decode position (see
 ``slot_positions``).
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.sharding import decode_cache_mode, uniform_pos
 from repro_torch.models.layers import (TensorSpec, apply_rope, cdtype,
                                        dense_init, pdtype)
 
@@ -92,6 +97,30 @@ def _sdpa(q, k, v, q_pos, kv_pos, scale, window=None, causal=True):
     return torch.einsum("bhqt,bthk->bqhk", w.to(v.dtype), v)
 
 
+def _sdpa_grouped(q, k, v, q_pos, kv_pos, scale, window=None, causal=True):
+    """GQA attention without expanding K/V to the H query heads (reference
+    ``_sdpa_grouped``): q (B,Sq,H,hd); k, v (B,T,KV,hd); positions and
+    masks as ``_sdpa``. The query heads of a K/V head form a group G =
+    H/KV that reads the cache once, never a repeated copy of it."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() * scale
+    kv_b = (kv_pos[:, None, None, None, :] if kv_pos.ndim == 2
+            else kv_pos[None, None, None, None, :])
+    q_b = (q_pos[:, None, None, :, None] if q_pos.ndim == 2
+           else q_pos[None, None, None, :, None])
+    mask = kv_b >= 0
+    if causal:
+        mask = mask & (kv_b <= q_b)
+    if window is not None:
+        mask = mask & ((q_b - kv_b) < window)
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqt,btkd->bqkgd", w.to(v.dtype), v)
+    return out.reshape(B, Sq, H, hd)
+
+
 def attn_seq(p, x, cfg: ModelConfig, positions, window=None, kv_override=None,
              kv_positions=None, causal=True):
     """Full-sequence attention, windowed when ``window`` is given,
@@ -150,6 +179,14 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
     IN PLACE (the reference returns a rewritten cache); pos: (B,) int.
     Returns y (B,1,d).
 
+    Two routes of the reference's sharding modes (``launch/sharding``),
+    which on one card only change the math: under ``uniform_pos()`` every
+    row's new K/V go to slot pos[0] % C (a synchronized batch, all rows at
+    one position; the slot is indexed by a device tensor, no host sync);
+    under ``decode_cache_mode() == "seq"`` the attention is
+    ``_sdpa_grouped`` over ``slot_positions``, windowed or not, in place of
+    the kernel.
+
     The new K/V go to slot pos % C. The cache always holds the last
     min(pos+1, C) positions in its first min(pos+1, C) slots: contiguously
     from slot 0 until the ring wraps, and in every slot after. Attention is
@@ -159,7 +196,17 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
     reference keeps it off the flash-decode kernel."""
     C = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None])
-    write_slot(cache, pos, {"k": k_new[:, 0], "v": v_new[:, 0]})
+    if uniform_pos():
+        i0 = (pos[:1] % C).long()
+        for name, t in (("k", k_new), ("v", v_new)):
+            cache[name].index_copy_(1, i0, t)
+    else:
+        write_slot(cache, pos, {"k": k_new[:, 0], "v": v_new[:, 0]})
+    if decode_cache_mode() == "seq":
+        out = _sdpa_grouped(q, cache["k"], cache["v"], pos[:, None],
+                            slot_positions(pos, C), 1.0 / math.sqrt(cfg.head_dim),
+                            window)
+        return _out(p, out, cfg)
     if window is not None:
         out = _sdpa(q, _expand_kv(cache["k"], cfg.n_heads),
                     _expand_kv(cache["v"], cfg.n_heads), pos[:, None],

@@ -85,13 +85,13 @@ def run_encoder(params, frames, cfg: ModelConfig, masks=None):
 
 
 def _dec_layer_seq(p, x, mem_kv, cfg: ModelConfig, positions, mask,
-                   want_cache, cache_len=None):
+                   want_cache, cache_len=None, window_override=None):
     mem_k, mem_v = mem_kv
     y, (k, v) = attention.attn_seq(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
-                                   positions)
+                                   positions, window=window_override)
     cache = {}
     if want_cache:
-        cache = {"attn": _ring_from_seq({"k": k, "v": v}, positions,
+        cache = {"attn": _ring_from_seq({"k": k, "v": v}, positions, window_override,
                                         cache_len=cache_len),
                  "cross_k": mem_k, "cross_v": mem_v}
     x = x + y
@@ -104,13 +104,13 @@ def _dec_layer_seq(p, x, mem_kv, cfg: ModelConfig, positions, mask,
 
 
 def run_decoder_seq(params, x, memory, cfg: ModelConfig, positions, masks=None,
-                    want_cache=False, cache_len=None):
+                    want_cache=False, cache_len=None, window_override=None):
     """x: (B,S,d) decoder token embeddings; memory: (B,M,d). Returns (x,
     caches): with want_cache, {'attn': {'k','v'}, 'cross_k', 'cross_v'}
     stacked over the layers, else None."""
     def layer(x, memory, p, mask):
         return _dec_layer_seq(p, x, _cross_kv(p["cross"], memory, cfg), cfg,
-                              positions, mask, want_cache, cache_len)
+                              positions, mask, want_cache, cache_len, window_override)
     per_layer = []
     for r in range(cfg.n_layers):
         x, cache = remat(cfg, layer, x, memory, _at(params["dec"], r), _ffn_mask(masks, r))
@@ -118,13 +118,14 @@ def run_decoder_seq(params, x, memory, cfg: ModelConfig, positions, masks=None,
     return x, (_stack_caches(per_layer) if want_cache else None)
 
 
-def run_decoder_decode(params, caches, x, cfg: ModelConfig, pos, masks=None):
+def run_decoder_decode(params, caches, x, cfg: ModelConfig, pos, masks=None,
+                       window_override=None):
     """x: (B,1,d); pos: (B,). Returns x; the self-attention caches are
     updated in place."""
     for r in range(cfg.n_layers):
         p, c = _at(params["dec"], r), _at(caches, r)
         x = x + attention.attn_decode(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
-                                      c["attn"], pos)
+                                      c["attn"], pos, window=window_override)
         y, _ = attention.attn_seq(p["cross"], apply_norm(p["norm_c"], x, cfg), cfg,
                                   pos[:, None], kv_override=(c["cross_k"], c["cross_v"]),
                                   kv_positions=_mem_positions(c["cross_k"]))
@@ -134,12 +135,14 @@ def run_decoder_decode(params, caches, x, cfg: ModelConfig, pos, masks=None):
     return x
 
 
-def dec_cache_specs(cfg: ModelConfig, batch, seq_len, mem_len):
-    """{'attn': {'k','v': (L, B, seq_len, KV, hd)}, 'cross_k', 'cross_v':
-    (L, B, mem_len, KV, hd)}, L = n_layers, in the compute dtype."""
+def dec_cache_specs(cfg: ModelConfig, batch, seq_len, mem_len, window_override=None):
+    """{'attn': {'k','v': (L, B, C, KV, hd)}, 'cross_k', 'cross_v':
+    (L, B, mem_len, KV, hd)}, L = n_layers, C = seq_len (min(window_override,
+    seq_len) under window_override), in the compute dtype."""
+    C = seq_len if window_override is None else min(window_override, seq_len)
     L = cfg.n_layers
     stacked = lambda s: TensorSpec((L,) + s.shape, s.dtype)
     cross = TensorSpec((batch, mem_len, cfg.n_kv_heads, cfg.head_dim), cdtype(cfg))
     return {"attn": {k: stacked(s) for k, s in
-                     attention.cache_spec(cfg, batch, seq_len).items()},
+                     attention.cache_spec(cfg, batch, C).items()},
             "cross_k": stacked(cross), "cross_v": stacked(cross)}

@@ -61,10 +61,12 @@ def _seg_list(params, cfg):
 
 
 def forward_seq(params, cfg: ModelConfig, batch, masks=None,
-                want_cache=False, cache_len=None):
+                want_cache=False, cache_len=None, window_override=None):
     """batch: {'tokens': (B,S) int}, and for an encoder–decoder 'frames'
     (B,M,d) with masks {'enc': ..., 'dec': ...}. Returns (logits, caches,
-    aux); aux is the MoE router loss summed over layers (0 without MoE)."""
+    aux); aux is the MoE router loss summed over layers (0 without MoE).
+    window_override: every full-attention layer (the decoder's
+    self-attention) windowed, the long-context variant."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -76,56 +78,60 @@ def forward_seq(params, cfg: ModelConfig, batch, masks=None,
         x, caches = encdec.run_decoder_seq(
             params["stack"], x, mem, cfg, positions,
             masks=masks["dec"] if masks else None, want_cache=want_cache,
-            cache_len=cache_len)
+            cache_len=cache_len, window_override=window_override)
         caches = [caches]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
         seg_params, segs = _seg_list(params, cfg)
         x, caches, aux = transformer.run_stack_seq(
             seg_params, segs, x, cfg, positions, masks=masks,
-            want_cache=want_cache, cache_len=cache_len)
+            want_cache=want_cache, cache_len=cache_len, window_override=window_override)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["tok"], x, cfg)
     return logits, (caches if want_cache else None), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch, masks=None):
+def loss_fn(params, cfg: ModelConfig, batch, masks=None, window_override=None):
     """The training loss: the mean next-token xent (``batch['loss_mask']``
     weights it when given) plus cfg.router_aux_coef × the MoE router loss.
     Returns (loss, {'xent', 'aux'})."""
-    logits, _, aux = forward_seq(params, cfg, batch, masks=masks)
+    logits, _, aux = forward_seq(params, cfg, batch, masks=masks,
+                                 window_override=window_override)
     xent = softmax_xent(logits, batch["targets"], batch.get("loss_mask"))
     return xent + cfg.router_aux_coef * aux, {"xent": xent, "aux": aux}
 
 
 def decode_hidden(params, cfg: ModelConfig, caches, token, pos, masks=None,
-                  mla_absorb=False):
+                  mla_absorb=False, window_override=None):
     """The final-normed hidden state (B,1,d) of one decode step; the caches
     are updated in place. mla_absorb: MLA layers attend in latent space."""
     x = embed_tokens(params["tok"], token, cfg)
     if cfg.is_encdec:
         x = encdec.run_decoder_decode(params["stack"], caches[0], x, cfg, pos,
-                                      masks=masks["dec"] if masks else None)
+                                      masks=masks["dec"] if masks else None,
+                                      window_override=window_override)
     else:
         seg_params, segs = _seg_list(params, cfg)
         x = transformer.run_stack_decode(seg_params, segs, caches, x, cfg, pos,
-                                         masks=masks, mla_absorb=mla_absorb)
+                                         masks=masks, mla_absorb=mla_absorb,
+                                         window_override=window_override)
     return apply_norm(params["final_norm"], x, cfg)
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos, masks=None,
-                mla_absorb=False):
+                mla_absorb=False, window_override=None):
     """token: (B,1) int; pos: (B,) int. Returns (logits, caches); unlike
     the reference the caches are updated in place and returned as given."""
     x = decode_hidden(params, cfg, caches, token, pos, masks=masks,
-                      mla_absorb=mla_absorb)
+                      mla_absorb=mla_absorb, window_override=window_override)
     return lm_logits(params["tok"], x, cfg), caches
 
 
-def cache_specs(cfg: ModelConfig, batch, seq_len):
+def cache_specs(cfg: ModelConfig, batch, seq_len, window_override=None):
     if cfg.is_encdec:
-        return [encdec.dec_cache_specs(cfg, batch, seq_len, ENC_MEM_LEN)]
-    return transformer.stack_cache_specs(cfg, batch, seq_len)
+        return [encdec.dec_cache_specs(cfg, batch, seq_len, ENC_MEM_LEN,
+                                       window_override)]
+    return transformer.stack_cache_specs(cfg, batch, seq_len, window_override)
 
 
 def init_caches(cfg: ModelConfig, batch, seq_len, device):

@@ -76,7 +76,10 @@ def _route(p, x2d, cfg: ModelConfig, expert_mask):
     flat_e = topi.reshape(T * k)
     order = torch.argsort(flat_e, stable=True)
     tok = order // k
-    gs = torch.bincount(flat_e, minlength=E).to(torch.int32)
+    # picks per expert: ones added at each pick's expert (torch.bincount has
+    # no meta kernel; integer adds give the same counts in any order)
+    gs = torch.zeros(E, dtype=torch.int32, device=x2d.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
     w = topv.reshape(T * k)[order]
     frac = gs.float() / max(T * k, 1)
     aux = E * torch.sum(frac * probs.mean(dim=0))
@@ -217,5 +220,8 @@ def _moe_local(p, x, neuron_mask, expert_mask, cfg: ModelConfig):
 def apply_moe(p, x, cfg: ModelConfig, neuron_mask=None, expert_mask=None):
     """x: (B,S,d). Returns (y, aux_loss). The reference's mesh branch
     (shard_map over experts' hidden units, weight streaming) is not ported
-    (ROADMAP.md, A.5)."""
+    (ROADMAP.md, A.5). On the meta device (the dry-run) only the capacity
+    form runs: the ragged form's host loop reads the group sizes' values,
+    which a meta tensor has not; the dry-run takes moe_impl="capacity", as
+    the reference's jitted dry-run does."""
     return _moe_local(p, x, neuron_mask, expert_mask, cfg)

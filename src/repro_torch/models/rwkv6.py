@@ -6,7 +6,11 @@ Recurrence per head (key/value dim N):
 
 ``tmix_seq`` (prefill) runs the chunked form through
 ``ops.rwkv_chunk_scan``: on the card the hand-written chunked WKV kernel,
-where the reference scans the same chunk math in jnp. ``tmix_ref`` is the
+where the reference scans the same chunk math in jnp. Differentiated
+(training), it runs the plain chunked form, ``rwkv_chunk_scan_plain``,
+under autograd on any device: the kernel has no backward, and the
+reference differentiates its jnp scan. cfg.rwkv_chunk_dtype "bfloat16"
+takes the bf16 chunk form, ``ops.rwkv_chunk_scan_bf16``. ``tmix_ref`` is the
 naive per-token recurrence (the oracle); ``tmix_decode`` advances one token.
 The channel mix is plain torch, as the reference computes it outside any
 Pallas kernel. The decay LoRA's second product and the log decay stay
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.rwkv_chunk import rwkv_chunk_scan_plain
 from repro_torch.models.layers import cdtype, dense_init, pdtype
 
 LORA_MIX = 32
@@ -130,11 +135,13 @@ def _shifted(x, shift_in, dt):
 
 def tmix_seq(p, x, cfg: ModelConfig, shift_in=None, state_in=None):
     """x: (B,S,d). Returns (y, last_x, state_out). The chunk loop runs in
-    ``ops.rwkv_chunk_scan`` from ``state_in`` (zero when None)."""
-    if cfg.rwkv_chunk_dtype != "float32":
-        raise NotImplementedError(
-            f"rwkv_chunk_dtype={cfg.rwkv_chunk_dtype!r}: the port's chunked "
-            "WKV scan computes in float32 only (see ROADMAP.md)")
+    ``ops.rwkv_chunk_scan`` from ``state_in`` (zero when None), or in
+    ``ops.rwkv_chunk_scan_bf16`` when cfg.rwkv_chunk_dtype is "bfloat16";
+    differentiated, in ``rwkv_chunk_scan_plain`` under autograd."""
+    if cfg.rwkv_chunk_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"rwkv_chunk_dtype must be float32 or bfloat16, "
+                         f"got {cfg.rwkv_chunk_dtype!r}")
+    bf16 = cfg.rwkv_chunk_dtype == "bfloat16"
     B, S, d = x.shape
     H, N = cfg.rwkv_heads, cfg.rwkv_head_size
     r, k, v, g, logw = _rkvwg(p, x, _shifted(x, shift_in, cdtype(cfg)), cfg)
@@ -142,9 +149,15 @@ def tmix_seq(p, x, cfg: ModelConfig, shift_in=None, state_in=None):
     c = min(cfg.rwkv_chunk, S)
     while S % c:
         c -= 1
-    y, state_out = ops.rwkv_chunk_scan(_heads(r, H, N), _heads(k, H, N),
-                                       _heads(v, H, N), _heads(logw, H, N), u,
-                                       chunk=c, state=state_in)
+    args = (_heads(r, H, N), _heads(k, H, N), _heads(v, H, N), _heads(logw, H, N), u)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (*args, state_in)):
+        y, state_out = rwkv_chunk_scan_plain(
+            *args, chunk=c, state=state_in,
+            chunk_dtype=torch.bfloat16 if bf16 else torch.float32)
+    else:
+        scan = ops.rwkv_chunk_scan_bf16 if bf16 else ops.rwkv_chunk_scan
+        y, state_out = scan(*args, chunk=c, state=state_in)
     return _out(p, y, g, cfg), x[:, -1], state_out
 
 

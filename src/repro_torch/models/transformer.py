@@ -83,8 +83,12 @@ def _check_ported(spec: LayerSpec, cfg: ModelConfig):
             f"yet; only {PORTED} are (see ROADMAP.md queue A)")
 
 
-def _layer_window(mixer: str, cfg: ModelConfig):
-    return cfg.window if mixer == "local_attn" else None
+def _layer_window(mixer: str, cfg: ModelConfig, window_override=None):
+    """An attention layer's window: cfg.window for local attention, else
+    window_override (the long-context windowed variant), else None."""
+    if mixer == "local_attn":
+        return cfg.window
+    return window_override
 
 
 def _at(tree, r):
@@ -169,7 +173,7 @@ def _apply_ffn_or_moe(spec, p, h2, cfg: ModelConfig, masks):
 
 
 def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
-                     want_cache, cache_len=None):
+                     want_cache, cache_len=None, window_override=None):
     """Returns (x, cache_entry, aux)."""
     _check_ported(spec, cfg)
     mixer = spec[0]
@@ -191,13 +195,13 @@ def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
         cache["mla"] = {"c_kv": c_kv, "k_rope": k_rope}
     else:
         y, (k, v) = attention.attn_seq(p["attn"], h, cfg, positions,
-                                       window=_layer_window(mixer, cfg))
+                                       window=_layer_window(mixer, cfg, window_override))
         cache["attn"] = {"k": k, "v": v}
     if not want_cache:
         cache = {}
     elif mixer in ATTN_MIXERS:
-        cache = {name: _ring_from_seq(c, positions, _layer_window(mixer, cfg),
-                                      cache_len)
+        cache = {name: _ring_from_seq(c, positions,
+                                      _layer_window(mixer, cfg, window_override), cache_len)
                  for name, c in cache.items()}
     if cfg.parallel_block:
         return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn")), cache, 0.0
@@ -230,10 +234,11 @@ def remat(cfg: ModelConfig, fn, *args):
 
 
 def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
-                  masks=None, want_cache=False, cache_len=None):
+                  masks=None, want_cache=False, cache_len=None, window_override=None):
     """x: (B,S,d). Returns (x, caches, aux): aux the MoE router losses
     summed in layer order (0 without an MoE layer). masks: list per segment
-    of per-unit dicts with stacked (R, ...) leaves, or None."""
+    of per-unit dicts with stacked (R, ...) leaves, or None.
+    window_override: a window for every full-attention layer."""
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (seg, sp) in enumerate(zip(segs, seg_params)):
@@ -245,7 +250,8 @@ def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
             for i, spec in enumerate(unit):
                 lm = um[f"l{i}"] if um is not None else None
                 x, cache_u[f"l{i}"], aux = _apply_layer_seq(
-                    spec, up[f"l{i}"], x, cfg, positions, lm, want_cache, cache_len)
+                    spec, up[f"l{i}"], x, cfg, positions, lm, want_cache, cache_len,
+                    window_override)
                 aux_total = aux_total + aux
             return x, aux_total, cache_u
 
@@ -262,7 +268,7 @@ def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
 # decode pass
 
 def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
-                        mla_absorb=False):
+                        mla_absorb=False, window_override=None):
     _check_ported(spec, cfg)
     mixer = spec[0]
     h = apply_norm(p["norm1"], x, cfg)
@@ -283,7 +289,7 @@ def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
         y = mla.mla_decode(p["mla"], h, cfg, cache["mla"], pos, absorb=mla_absorb)
     else:
         y = attention.attn_decode(p["attn"], h, cfg, cache["attn"], pos,
-                                  window=_layer_window(mixer, cfg))
+                                  window=_layer_window(mixer, cfg, window_override))
     if cfg.parallel_block:
         return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn"))
     x = x + y
@@ -291,7 +297,7 @@ def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
 
 
 def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
-                     masks=None, mla_absorb=False):
+                     masks=None, mla_absorb=False, window_override=None):
     """x: (B,1,d). Returns x; the caches are updated in place."""
     for si, (seg, sp) in enumerate(zip(segs, seg_params)):
         smasks = masks[si] if masks is not None else None
@@ -300,14 +306,14 @@ def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
                 lm = _at(smasks[f"l{i}"], r) if smasks is not None else None
                 x = _apply_layer_decode(spec, _at(sp[f"l{i}"], r), x,
                                         _at(caches[si][f"l{i}"], r), cfg, pos,
-                                        lm, mla_absorb)
+                                        lm, mla_absorb, window_override)
     return x
 
 
 # ---------------------------------------------------------------------------
 # cache specs
 
-def _layer_cache_spec(spec, cfg: ModelConfig, batch, seq_len):
+def _layer_cache_spec(spec, cfg: ModelConfig, batch, seq_len, window_override=None):
     _check_ported(spec, cfg)
     mixer = spec[0]
     if mixer == "rwkv":
@@ -317,16 +323,17 @@ def _layer_cache_spec(spec, cfg: ModelConfig, batch, seq_len):
                          "shift_tm": shift, "shift_cm": shift}}
     if mixer == "rglru":
         return {"rglru": rglru.state_spec(cfg, batch)}
-    win = _layer_window(mixer, cfg)
+    win = _layer_window(mixer, cfg, window_override)
     C = seq_len if win is None else min(win, seq_len)
     if cfg.use_mla:
         return {"mla": mla.cache_spec(cfg, batch, C)}
     return {"attn": attention.cache_spec(cfg, batch, C)}
 
 
-def stack_cache_specs(cfg: ModelConfig, batch, seq_len):
+def stack_cache_specs(cfg: ModelConfig, batch, seq_len, window_override=None):
     """Per segment, {'l<i>': {'attn': {'k','v': TensorSpec (R, B, C, KV, hd)}}}
-    (C = min(window, seq_len) for a local_attn layer); for an MLA layer
+    (C = min(window, seq_len) for a local_attn layer, and for every
+    attention layer under window_override); for an MLA layer
     {'mla': {'c_kv': (R, B, C, lora), 'k_rope': (R, B, C, rope)}}; for an
     RG-LRU layer {'rglru': {'h': (R, B, w) fp32, 'conv': (R, B, K-1, w)}};
     for an RWKV layer {'rwkv': {'S': (R, B, H, N, N) fp32, 'shift_tm',
@@ -335,7 +342,7 @@ def stack_cache_specs(cfg: ModelConfig, batch, seq_len):
     for seg in build_segments(cfg):
         unit = {}
         for i, s in enumerate(seg.unit):
-            lc = _layer_cache_spec(s, cfg, batch, seq_len)
+            lc = _layer_cache_spec(s, cfg, batch, seq_len, window_override)
             unit[f"l{i}"] = {m: {k: type(t)((seg.repeats,) + t.shape, t.dtype)
                                  for k, t in d.items()}
                              for m, d in lc.items()}

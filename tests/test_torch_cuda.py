@@ -1310,14 +1310,65 @@ def test_run_fluid_calibration_statistics_are_nonzero_on_the_card(dev, monkeypat
 
 
 def test_rwkv_chunk_kernel_refuses_autograd(dev):
-    """B12 has no backward: on the card, an input that requires grad with
-    grad mode on raises; under no_grad the same call launches."""
+    """B12 has no backward: on the card, the wrapper given an input that
+    requires grad with grad mode on raises. Training takes the plain chunked
+    form in tmix_seq (no launch), whose gradients are the CPU's; under
+    no_grad the same tmix_seq launches, and matches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import rwkv6
     g = torch.Generator(device=dev).manual_seed(0)
     r, k, v = (torch.randn(1, 16, 2, 64, generator=g, device=dev) for _ in range(3))
     logw = -torch.rand(1, 16, 2, 64, generator=g, device=dev) - 0.1
     u = torch.randn(2, 64, generator=g, device=dev)
     with pytest.raises(ValueError, match="no backward"):
-        ops.rwkv_chunk_scan(r.requires_grad_(), k, v, logw, u, chunk=8)
+        ops.rwkv_chunk_scan(r.clone().requires_grad_(), k, v, logw, u, chunk=8)
+    cfg = dataclasses.replace(get_config("rwkv6-3b").smoke(), dtype="float32",
+                              param_dtype="float32", rwkv_chunk=8)
+    cpu = rwkv6.init_tmix(torch.Generator().manual_seed(0), cfg, "cpu", torch.float32)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 32, cfg.d_model)
+                         .astype(np.float32))
+    grads, ys = [], []
+    ops.reset_launch_counts()
+    for d in ("cpu", dev):
+        p = tree_map(lambda t: t.to(d).requires_grad_(True), cpu)
+        y, _, st = rwkv6.tmix_seq(p, x.to(d), cfg)
+        grads.append([t.cpu() for t in torch.autograd.grad(
+            y.square().sum() + st.sum(), tree_leaves(p))])
+        ys.append(y.detach().cpu())
+    assert ops.launch_counts()["rwkv_chunk_scan"] == 0
+    assert _rel_err(ys[1], ys[0]) <= 1e-4
+    assert all(_rel_err(a, b) <= 1e-4 for a, b in zip(*grads) if float(b.norm()) > 0)
     with torch.no_grad():
-        y, _ = ops.rwkv_chunk_scan(r, k, v, logw, u, chunk=8)
-    assert bool(torch.isfinite(y).all())
+        y2, _, _ = rwkv6.tmix_seq(tree_map(lambda t: t.to(dev), cpu), x.to(dev), cfg)
+    assert ops.launch_counts()["rwkv_chunk_scan"] == 1
+    assert bool(torch.isfinite(y2).all()) and _rel_err(y2.cpu(), ys[0]) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,N,chunk", [(1, 512, 40, 64, 128), (2, 96, 3, 32, 48),
+                                           (1, 40, 2, 16, 40), (1, 256, 2, 64, 256)])
+def test_rwkv_chunk_bf16_form_matches_plain(dev, dtype, B, S, H, N, chunk):
+    """B12's bf16 chunk form (rwkv_out_bf16_kernel) against its plain form:
+    relative 2-norm <= 5e-4 and ∞-norm <= 1e-2 (a score whose bf16
+    rounding flips between the two is a sparse error: a 1e-7 relative
+    change of logw moves the plain form by ~3e-5 in 2-norm, while the fp32
+    form lies ~2e-3 away), the state as the fp32 form's (1e-4); its own
+    launch counter; two calls the same bits."""
+    g = torch.Generator(device=dev).manual_seed(S + N)
+    r, k, v = (torch.randn(B, S, H, N, generator=g, device=dev).to(dtype) for _ in range(3))
+    u = 0.1 * torch.randn(H, N, generator=g, device=dev)
+    logw = -torch.exp(torch.rand(H, N, generator=g, device=dev) * 5 - 6
+                      + 0.1 * torch.randn(B, S, H, N, generator=g, device=dev))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        y, st = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=chunk)
+        y2, _ = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=chunk)
+    assert ops.launch_counts()["rwkv_chunk_scan_bf16"] == 2
+    assert ops.launch_counts()["rwkv_chunk_scan"] == 0
+    yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk,
+                                        chunk_dtype=torch.bfloat16)
+    assert torch.equal(y, y2)
+    assert float((y - yp).norm() / yp.norm()) <= 5e-4
+    assert _rel_err(y, yp) <= 1e-2 and _rel_err(st, sp) <= 1e-4

@@ -41,13 +41,15 @@ def test_updates_match_reference(make):
     p0 = _tree(lambda s: rng.randn(*s).astype(np.float32))
     grads = [_tree(lambda s: rng.randn(*s).astype(np.float32)) for _ in range(3)]
     jopt, topt = make(jax_optim), make(optim)
-    jp = jax.tree.map(jnp.asarray, p0)
-    tp = jax.tree.map(torch.from_numpy, p0)
+    # each package its own copy: on the CPU jnp.asarray may alias an aligned
+    # numpy buffer, which the port's in-place update would then write into
+    jp = jax.tree.map(lambda a: jnp.asarray(np.array(a, copy=True)), p0)
+    tp = jax.tree.map(lambda a: torch.tensor(a), p0)
     js, ts = jopt.init(jp), topt.init(tp)
     ids = list(map(id, tree_leaves(tp)))
     for g in grads:
         jp, js = jopt.update(jax.tree.map(jnp.asarray, g), js, jp, 3e-2)
-        tp, ts = topt.update(jax.tree.map(torch.from_numpy, g), ts, tp, 3e-2)
+        tp, ts = topt.update(jax.tree.map(torch.tensor, g), ts, tp, 3e-2)
     assert list(map(id, tree_leaves(tp))) == ids              # updated in place
     for a, b in zip(jax.tree.leaves(tp), jax.tree.leaves(jp)):
         assert _rel(a.numpy(), b) <= TOL
@@ -87,3 +89,18 @@ def test_make_optimizer_and_functional_forms():
     p2, st2 = optim.opt_update("adamw", {"w": torch.ones(3)}, st, p, 0.1)
     assert p2["w"] is p["w"] and int(st2["t"]) == 1
     assert torch.allclose(p["w"], torch.full((3,), 0.9))
+
+
+def test_params_from_numpy_never_aliases_the_callers_arrays():
+    """params_from_numpy copies on the CPU too: an in-place SGD step on its
+    tensors leaves the numpy tree as it was."""
+    from repro_torch.interop import params_from_numpy
+    rng = np.random.RandomState(1)
+    tree = _tree(lambda s: rng.randn(*s).astype(np.float32))
+    before = jax.tree.map(np.copy, tree)
+    tp = params_from_numpy(tree, device="cpu")
+    g = jax.tree.map(lambda a: torch.ones(a.shape), tree)
+    optim.sgd().update(g, {}, tp, 0.5)
+    for a, b, t in zip(jax.tree.leaves(tree), jax.tree.leaves(before), tree_leaves(tp)):
+        assert np.array_equal(a, b)
+        assert not np.shares_memory(a, t.numpy())

@@ -195,8 +195,9 @@ def test_tmix_seq_chunk_and_state_in(tmix):
     y_rest, _, s_rest = rwkv6.tmix_seq(tp, xt[:, 16:], tcfg, shift_in=last, state_in=st)
     np.testing.assert_allclose(torch.cat([y_pre, y_rest], 1).numpy(), y_full.numpy(), **TOL)
     np.testing.assert_allclose(s_rest.numpy(), s_full.numpy(), **TOL)
-    with pytest.raises(NotImplementedError, match="float32"):
-        rwkv6.tmix_seq(tp, xt, dataclasses.replace(tcfg, rwkv_chunk_dtype="bfloat16"))
+    # the two chunk forms the port has (float32, bfloat16); any other refused
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rwkv6.tmix_seq(tp, xt, dataclasses.replace(tcfg, rwkv_chunk_dtype="float16"))
 
 
 def test_tmix_decode_matches_reference(tmix):

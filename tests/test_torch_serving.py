@@ -281,6 +281,8 @@ def test_port_imports_no_jax_at_run_time():
             "import repro_torch.models.moe, repro_torch.models.encdec\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "import repro_torch.optim, repro_torch.checkpoint\n"
+            "import repro_torch.configs.shapes, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.dryrun\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
             "print(bad); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
