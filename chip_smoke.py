@@ -9,8 +9,10 @@ SeamlessM4T-Large v2 at full width through the reference's static-batch
 its masked FFN through the training kernels, run FLuID training on both
 kernel workloads and on the paper's own workloads through ``repro_torch``,
 hold the meta-device dry-run against the card's own counts, train
-RWKV-6-3B at full width (2 of its 32 layers) against the CPU, and check
-the results.
+RWKV-6-3B at full width (2 of its 32 layers) against the CPU, run
+repro_torch.analysis's contracts on the card (the dropped-dW NaN poison
+through B1-B9 at every zoo width, host-sync regions, mask-as-data), and
+check the results.
 
     python3 chip_smoke.py
 
@@ -196,6 +198,26 @@ the seconds the phase took (``phase_s``):
              kernel fleet bitwise; femnist_attn (K 8, concurrency 16, a
              flash crowd of 20, 3 buffers) held the same two ways. Then
              buffers a second with nothing wrapped, ms a dispatch group
+  analysis   repro_torch.analysis on the card: dw-zero-ffn through B1-B3
+             (ops.masked_ffn, every other 128-block of the weights NaN:
+             a finite forward, the dropped dW exactly 0, the rest against
+             the plain versions on clean weights within 1e-4 fp32 / 1e-2
+             bf16) at the reference's cases (d 16, M 8, fp32) and at every
+             zoo arch's (d_model, F, ffn_kind) and the kernel fleet's in
+             bf16, M 8; dw-zero-attn through B4-B9 (ops.masked_attention,
+             C 1) at the reference's cases (B 1, S 4, d 16, hd 8, fp32, H
+             each zoo head count and 4) and at every arch's (H, hd,
+             d_model) in bf16, B 1, S 8; one line a case with its shape and
+             the ms of its poisoned forward and backward. No host sync
+             (torch.cuda.set_sync_debug_mode("error") and the dispatch
+             recorder) in the kernel-fleet cohort program and combine (5
+             clients, n_data 2000), in every decode chunk of StableLM-2-12B's
+             ServeEngine at full width (8 requests of 512 tokens, run after
+             the profile phase) and in one more train_zoo kernel step (run
+             inside train_zoo, its launches off that line); StableLM's
+             masked train step at smoke size under three masks: the same op
+             sequence and launches, nothing built. Its launches on its own
+             line.
 
 Any failure exits non-zero. Before the last three lines a ``total`` line
 gives the seconds of the whole run. The last three lines are the per-kernel
@@ -2491,7 +2513,7 @@ def zoo_kernel_times(torch, cfg, mask, dev):
     return out
 
 
-def phase_train_zoo(torch, np, dev="cuda"):
+def phase_train_zoo(torch, np, dev="cuda", regions=None):
     """StableLM-2-12B at full width on 8 of its 40 layers through the port's
     train step (fp32 params, bf16 compute, AdamW, block remat) on the
     reference's synthetic batches: 2 full steps; the invariant unit
@@ -2502,8 +2524,9 @@ def phase_train_zoo(torch, np, dev="cuda"):
     step), the first with every launch held against its plain version; 2
     dense masked steps (no launch), the last with AdamW timed alone; then
     B1-B3 timed at this shape, launch.train.run_fluid through its entry
-    point, and run_plain's checkpoint at smoke size reloaded bitwise.
-    Returns (line, the kernel steps' launches)."""
+    point, and run_plain's checkpoint at smoke size reloaded bitwise. One
+    more kernel step runs in a host-sync region (into ``regions``, for the
+    analysis line). Returns (line, the kernel steps' launches)."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.checkpoint import load_checkpoint
     from repro_torch.configs import get_config
@@ -2604,6 +2627,11 @@ def phase_train_zoo(torch, np, dev="cuda"):
         want = ({k: per_step.get(k, 0) for k in zero} if kind == "kernel" else zero)
         check(c == want, f"train_zoo: a {kind} step launched {c}, expected {want}")
     launches = {k: sum(c[k] for kind, c in counts if kind == "kernel") for k in TRAIN_KERNELS}
+    # one more kernel step in a host-sync region, on a batch of its own
+    # (the analysis line reports it; its launches stay off this line)
+    sync_region(torch, {} if regions is None else regions,
+                "make_train_step[stablelm-12b, 8 layers, use_kernels]", kern, params, state,
+                train.synth_batch(np.random.RandomState(1), cfg, B, S + 1, dev), masks, dev=dev)
     # two dense masked steps: the second as its gradients, then AdamW alone
     dense = steps.make_train_step(cfg, with_masks=True)
     check(run("dense", dense, None, masks) == zero, "train_zoo: the dense masked step launched")
@@ -3714,6 +3742,162 @@ def phase_async(torch, np, dev="cuda"):
         "profile_buffer": prof, "launches": counts, "sgd_steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# analysis: the dropped-dW NaN-poison contracts through B1-B9 at the zoo's
+# widths, the no-host-sync regions, mask-as-data on the card
+
+ANALYSIS_FFN_M = 8                         # rows of x at full width (bf16)
+ANALYSIS_ATTN = dict(B=1, S=8)            # batch and sequence at full width (bf16)
+ANALYSIS_FLEET = dict(n_clients=5, n_data=2000)   # the train phase's cohort
+ANALYSIS_DECODE = dict(batch=8, prompt_len=512, gen_len=17, rates=(1.0, 0.5, 0.25))
+
+
+def sync_region(torch, regions, name, fn, *args, dev="cuda"):
+    """fn(*args) in a region no host sync may enter
+    (analysis/contracts.host_sync_region: the recorder, and on the card
+    torch.cuda.set_sync_debug_mode("error")); fails on any sync. Its
+    seconds and launches go to ``regions`` (name -> line), for the
+    analysis line."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vs, out = contracts.sync_violations("no-host-sync", name, fn, *args, device=dev)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    check(not vs, f"analysis: {'; '.join(map(str, vs))}")
+    regions[name] = {"s": time.perf_counter() - t0,
+                     "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+    return out
+
+
+def sync_decode(torch, np, params, cfg, regions):
+    """StableLM-2-12B's ServeEngine at full width: every decode chunk of a
+    short mixed-rate queue in a host-sync region (the chunk's program, as
+    the reference's jitted chunk; its inputs go to the card and its tokens
+    come back outside)."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serving import ServeEngine, ServeRequest, rate_masks
+    q = ANALYSIS_DECODE
+    eng = ServeEngine(cfg, params, batch_size=q["batch"], max_prompt_len=q["prompt_len"],
+                      max_gen_len=q["gen_len"], device="cuda")
+    rng = np.random.RandomState(0)
+    for i in range(q["batch"]):
+        r = q["rates"][i % len(q["rates"])]
+        eng.submit(ServeRequest(rng.randint(0, 256, (q["prompt_len"],), dtype=np.int32),
+                                gen_len=q["gen_len"],
+                                masks=None if r >= 1.0 else rate_masks(cfg, r)))
+    name = "ServeEngine._decode_program[stablelm-12b]"
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    with contracts.watching_syncs(eng, "_decode_program", name, "cuda") as found:
+        results = eng.run()
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    check(not found, f"analysis: {'; '.join(map(str, found))}")
+    check(len(results) == q["batch"], f"analysis: the decode region served {len(results)} "
+          f"of {q['batch']} requests")
+    regions[name] = {"s": time.perf_counter() - t0, "chunks": eng.stats["chunks"],
+                     "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+
+
+def analysis_ffn_cases(torch):
+    """(label, F, kind, d, M, dtype) of dw-zero-ffn on the card: the
+    reference's cases (d 16, M 8, fp32), then every zoo arch's (d_model, F,
+    ffn_kind) in bf16 and the kernel fleet's FFNs (d 64), M 8."""
+    from repro_torch.analysis import contracts
+    from repro_torch.configs.base import all_configs
+    cases = [(f"ref {arch}", F, kind, 16, 8, torch.float32)
+             for (F, kind), arch in sorted(contracts._ffn_cases().items())]
+    seen = set()
+    for arch, cfg in sorted(all_configs().items()):
+        for F in sorted({cfg.d_ff, cfg.moe_ff}):
+            if (cfg.d_model, F) not in seen:
+                seen.add((cfg.d_model, F))
+                cases.append((arch, F, cfg.ffn_kind, cfg.d_model, ANALYSIS_FFN_M,
+                              torch.bfloat16))
+    cases += [("kernel_mlp", 1024, "gelu", 64, ANALYSIS_FFN_M, torch.bfloat16),
+              ("kernel_attn", 256, "gelu", 64, ANALYSIS_FFN_M, torch.bfloat16)]
+    return cases
+
+
+def analysis_attn_cases(torch):
+    """(label, H, hd, d, B, S, dtype) of dw-zero-attn on the card: the
+    reference's (B 1, S 4, d 16, hd 8, fp32) for every zoo head count and
+    4, then every arch's (H, hd, d_model) in bf16."""
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.kernel_contracts import head_layouts
+    cases = [(f"ref H={H}", H, 8, 16, 1, 4, torch.float32) for H in contracts.zoo_head_counts()]
+    cases += [(arch, H, hd, d, ANALYSIS_ATTN["B"], ANALYSIS_ATTN["S"], torch.bfloat16)
+              for (H, hd, d), (arch, _) in head_layouts().items()]
+    return cases
+
+
+def phase_analysis(torch, np, regions):
+    """repro_torch.analysis on the card: dw-zero-ffn through B1-B3 and
+    dw-zero-attn through B4-B9 at the reference's cases and at every zoo
+    arch's full width (each case a line: shape, ms of its poisoned forward
+    and backward, the verdicts); the kernel-fleet cohort program and
+    combine in a host-sync region (with those the serve and train_zoo
+    phases ran: ``regions``); mask-as-data of StableLM-2-12B's masked
+    train step (smoke size) under three masks. Every launch here goes on
+    this phase's line, none on the kernels summary's."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels import _build, ops
+    smi = nvidia_smi()
+    before = ops.launch_counts()
+    bad = []
+
+    def report(kind, label, shape, res, vs):
+        ms = time_ms(res["run"], torch, n=5, warmup=1) if "run" in res else None
+        line = {"analysis_case": kind, "case": label, **shape, "ms": ms,
+                "finite": res.get("finite"), "refused": res.get("refused"),
+                "dropped_zero": res.get("dropped_zero"), "kept_err": res.get("kept_err"),
+                "violations": [str(v) for v in vs], "card": smi}
+        print(json.dumps(line), flush=True)
+        bad.extend(vs)
+        return {"case": label, **shape, "ms": ms}
+    ffn = []
+    for label, F, kind, d, M, dtype in analysis_ffn_cases(torch):
+        res = contracts.ffn_poison_case(F, kind, "cuda", d=d, M=M, dtype=dtype)
+        where = f"masked_ffn[F={F}, {kind}, d={d}, {str(dtype)[6:]}] ({label})"
+        ffn.append(report("dw-zero-ffn", label, {"F": F, "kind": kind, "d": d, "M": M,
+                                                 "dtype": str(dtype)[6:]},
+                          res, contracts.ffn_case_violations(where, res, dtype)))
+    attn = []
+    for label, H, hd, d, B, S, dtype in analysis_attn_cases(torch):
+        res = contracts.attn_poison_case(H, "cuda", B=B, S=S, d=d, hd=hd, dtype=dtype)
+        where = f"masked_attention[H={H}, hd={hd}, d={d}, {str(dtype)[6:]}] ({label})"
+        attn.append(report("dw-zero-attn", label, {"H": H, "hd": hd, "d": d, "B": B, "S": S,
+                                                   "dtype": str(dtype)[6:]},
+                           res, contracts.attn_case_violations(where, res, dtype)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    program, args = contracts.fleet_sync_program("cuda", **ANALYSIS_FLEET)
+    program(*args)                         # warm, outside the region
+    sync_region(torch, regions, "fleet cohort program + combine[femnist_kernel, 5 clients]",
+                program, *args)
+    calls = []
+    built = (sorted(_build._libs), _build._digest())
+    vs = contracts.check_train_step_mask_as_data(device="cuda", calls=calls)
+    bad.extend(vs)
+    check(built == (sorted(_build._libs), _build._digest()),
+          "analysis: mask-as-data built or loaded a kernel")
+    after = ops.launch_counts()
+    check(not bad, "analysis: " + "; ".join(map(str, bad[:6])))
+    for name in ("ServeEngine._decode_program[stablelm-12b]",
+                 "make_train_step[stablelm-12b, 8 layers, use_kernels]"):
+        check(name in regions, f"analysis: the {name} region did not run")
+    return {"card": smi, "dw_zero_ffn": ffn, "dw_zero_attn": attn,
+            "no_host_sync": regions,
+            "mask_as_data_train": {"steps": len(calls), "ops_a_step": len(calls[0]["ops"]),
+                                   "launches_a_step": {k: v for k, v in calls[0]["launches"].items()
+                                                       if v}},
+            "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -3758,6 +3942,8 @@ def main() -> int:
         emit("step", **step)
         emit("decode_routes", **phase_decode_routes(torch, np, params, cfg, state))
         emit("profile", **phase_profile(torch, params, cfg, state))
+        regions = {}                           # host-sync regions, for the analysis line
+        sync_decode(torch, np, params, cfg, regions)
         del params, state
         torch.cuda.empty_cache()
         serve_rwkv, rwkv_counts = phase_serve_rwkv(torch, np)
@@ -3792,7 +3978,7 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
         # the zoo train step at StableLM-2-12B's width, every serving model freed
-        line, zoo_counts = phase_train_zoo(torch, np)
+        line, zoo_counts = phase_train_zoo(torch, np, regions=regions)
         emit("train_zoo", **line)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3823,6 +4009,9 @@ def main() -> int:
         emit("population", **phase_population(torch, np))
         torch.cuda.empty_cache()
         emit("async", **phase_async(torch, np))
+        torch.cuda.empty_cache()
+        # repro_torch.analysis on the card: its launches stay on its own line
+        emit("analysis", **phase_analysis(torch, np, regions))
         # launches: serving's kernels summed over the serve phases (StableLM,
         # MiniCPM3, RecurrentGemma, Command-R, Arctic, SeamlessM4T; DeepSeek's
         # launches none) and Granite's step, the chunked

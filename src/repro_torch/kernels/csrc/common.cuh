@@ -66,6 +66,15 @@ __device__ __forceinline__ float dact_f(float z, int act) {
   }
 }
 
+// The error a launch entry returns, with the thread's last error cleared:
+// a failed cudaFuncSetAttribute or cudaLaunchKernelEx leaves it set, and
+// the library's next cudaGetLastError() would report it against a launch
+// that did not fail.
+inline cudaError_t cleared(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
 // Dispatch a templated launcher on the dtype code.
 #define RT_DISPATCH(dtype, T, ...)                                   \
   switch (dtype) {                                                   \

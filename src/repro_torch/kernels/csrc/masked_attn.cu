@@ -676,7 +676,7 @@ head_dw_kernel(DwArgs a, DwGeom g, const float* __restrict__ mask, int M, int H)
   extern __shared__ __align__(16) unsigned char dw_sm[];
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const int q = (int)cluster.block_rank(), cs = g.cs, tid = threadIdx.x;
-  const int h = blockIdx.y % H, chunk = blockIdx.y / H, c = blockIdx.z;
+  const int h = blockIdx.y, chunk = blockIdx.x / cs, c = blockIdx.z;
   const int CJ = 1 << g.cj_log, CI = g.ci;
   const int i0 = chunk / g.ncj * CI * MI, j0 = chunk % g.ncj * CJ * MJ;
   const int bi = min(CI * MI, a.I - i0), bj = min(CJ * MJ, a.J - j0);
@@ -871,7 +871,9 @@ cudaError_t launch_dw(const DwArgs& a, const float* mask, int C, int M, int H,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.cs, g.nci * g.ncj * H, C);
+  // a cluster's cs blocks are consecutive along x, the slab's chunks
+  // follow them there (up to 2^31 - 1 blocks; y and z stop at 65535)
+  cfg.gridDim = dim3(g.cs * g.nci * g.ncj, H, C);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = g.smem;
   cfg.stream = s;
@@ -924,7 +926,7 @@ extern "C" int masked_head_proj_launch(const void* x, const void* w,
     err = launch_slab<T, false>(x, w, mask, y, C, M, din, H, hd,
                                  static_cast<cudaStream_t>(stream));
   });
-  return err;
+  return rt::cleared(err);
 }
 
 // dx (C, M, din) = Σ_kept h gy[:, h] (C, M, N) · w[:, h]ᵀ, w (C, din, N).
@@ -937,7 +939,7 @@ extern "C" int masked_head_proj_dx_launch(const void* gy, const void* w,
     err = launch_sum<T, true>(gy, w, mask, dx, C, M, din, H, hd,
                                static_cast<cudaStream_t>(stream));
   });
-  return err;
+  return rt::cleared(err);
 }
 
 // dw (C, din, N): dw[:, h] = Σ_tiles x_tᵀ · gy_t[:, h]; gy (C, M, N),
@@ -952,7 +954,7 @@ extern "C" int masked_head_proj_dw_launch(const void* gy, const void* x,
   RT_DISPATCH(dtype, T, {
     err = launch_dw<T>(a, mask, C, M, H, static_cast<cudaStream_t>(stream));
   });
-  return err;
+  return rt::cleared(err);
 }
 
 // y (C, M, d) = Σ_kept h a[:, h] (C, M, N) · w[h, :], w (C, N, d).
@@ -965,7 +967,7 @@ extern "C" int masked_head_merge_launch(const void* a, const void* w,
     err = launch_sum<T, false>(a, w, mask, y, C, M, d, H, hd,
                                 static_cast<cudaStream_t>(stream));
   });
-  return err;
+  return rt::cleared(err);
 }
 
 // da (C, M, N): da[:, h] = gy (C, M, d) · w[h, :]ᵀ, w (C, N, d); dropped
@@ -979,7 +981,7 @@ extern "C" int masked_head_merge_da_launch(const void* gy, const void* w,
     err = launch_slab<T, true>(gy, w, mask, da, C, M, d, H, hd,
                                 static_cast<cudaStream_t>(stream));
   });
-  return err;
+  return rt::cleared(err);
 }
 
 // dw (C, N, d): dw[h, :] = Σ_tiles a_t[:, h]ᵀ · gy_t; gy (C, M, d),
@@ -995,5 +997,5 @@ extern "C" int masked_head_merge_dw_launch(const void* gy, const void* a,
   RT_DISPATCH(dtype, T, {
     err = launch_dw<T>(args, mask, C, M, H, static_cast<cudaStream_t>(stream));
   });
-  return err;
+  return rt::cleared(err);
 }

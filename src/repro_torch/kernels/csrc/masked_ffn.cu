@@ -624,7 +624,7 @@ extern "C" int masked_ffn_batch_launch(
     const auto* bg = static_cast<const bf16*>(w_gate);
     const auto* bo = static_cast<const bf16*>(w_out);
     auto* by = static_cast<bf16*>(y);
-    return launch_tc(bx, bi, bg, bo, mask, keep, hbuf, by, M, d, F, act, ks, fs, s);
+    return rt::cleared(launch_tc(bx, bi, bg, bo, mask, keep, hbuf, by, M, d, F, act, ks, fs, s));
   }
   if (dtype != rt::kF32) return cudaErrorInvalidValue;
   using T = float;

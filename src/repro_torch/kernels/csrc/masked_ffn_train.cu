@@ -1273,7 +1273,7 @@ extern "C" int masked_ffn_train_fwd_launch(
     err = dispatch_fd<T, false>(nullptr, x, w_in, w_gate, w_out, mask, keep, part, y, C, M, d,
                                 F, act, G, s);
   });
-  return err;
+  return rt::cleared(err);
 }
 
 extern "C" int masked_ffn_dx_launch(
@@ -1286,7 +1286,7 @@ extern "C" int masked_ffn_dx_launch(
     err = dispatch_fd<T, true>(gy, x, w_in, w_gate, w_out, mask, keep, part, dx, C, M, d, F,
                                act, G, s);
   });
-  return err;
+  return rt::cleared(err);
 }
 
 // Whether the forward (bwd = 0) or dx (bwd = 1) keeps the whole f-block
@@ -1314,5 +1314,5 @@ extern "C" int masked_ffn_dw_launch(
                  : launch_dw<T, false>(gy, x, w_in, w_gate, w_out, mask, dw_in, dw_gate,
                                        dw_out, scratch, core, C, M, d, F, act, G, s);
   });
-  return err;
+  return rt::cleared(err);
 }

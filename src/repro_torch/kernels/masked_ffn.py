@@ -116,20 +116,43 @@ def _ct(t):
     return t.to(torch.float64 if t.dtype == torch.float64 else torch.float32)
 
 
+def _block_keep(keep):
+    """(..., M, F) bool -> (..., M, F/128, 1) bool: whether a row keeps any
+    neuron of each 128-neuron block."""
+    return keep.unflatten(-1, (-1, BLOCK_NEURONS)).any(-1)[..., None]
+
+
 def masked_ffn_batch_plain(x, w_in, w_out, row_mask, w_gate=None, act="silu"):
     """Plain version of the forward kernels' arithmetic, for either form
-    (leading client axis or none): fp32 products, hidden activations times
-    each row's own mask, rounded to x.dtype before the down product as the
-    Pallas ``_fwd_kernel`` rounds them. In fp32 this is
-    ``repro/kernels/ref.py::masked_ffn_batch_ref`` exactly."""
+    (leading client axis or none): fp32 products, each row's hidden
+    activations selected by its own mask, rounded to x.dtype before the
+    down product as the Pallas ``_fwd_kernel`` rounds them, and the down
+    product summed over 128-neuron blocks in block order, as the kernels
+    add their f-block partials.
+
+    It selects and never multiplies by the mask: a dropped hidden unit is
+    exactly 0 and a block a row keeps no neuron of stays out of that row's
+    down product, so a non-finite weight in a dropped block never reaches
+    the output. On finite inputs this is
+    ``repro/kernels/ref.py::masked_ffn_batch_ref``'s arithmetic summed in
+    block order. The reference's per-row kernel multiplies by the mask
+    inside a tile that some row of its 8-row m-tile keeps, so for a
+    non-finite weight in such a partly kept tile it gives NaN where this
+    gives 0."""
     xf = _ct(x)
+    keep = row_mask > 0
     h = xf @ _ct(w_in)
     if w_gate is not None:
         h = _ACTS[act](xf @ _ct(w_gate)) * h
     else:
         h = _ACTS[act](h)
-    h = (h * _ct(row_mask)).to(x.dtype)
-    return (_ct(h) @ _ct(w_out)).to(x.dtype)
+    h = _ct(torch.where(keep, h, 0).to(x.dtype))
+    keep_b = _block_keep(keep)
+    y = torch.zeros(h.shape[:-1] + (w_out.shape[-1],), dtype=h.dtype, device=x.device)
+    for b, f0 in enumerate(range(0, h.shape[-1], BLOCK_NEURONS)):
+        f = slice(f0, f0 + BLOCK_NEURONS)
+        y = torch.where(keep_b[..., b, :], y + h[..., f] @ _ct(w_out[..., f, :]), y)
+    return y.to(x.dtype)
 
 
 def ffn_geometry(M, d, F, n_sm):
@@ -249,29 +272,36 @@ def _validate_train(x, w_in, w_out, w_gate, mask):
 
 
 def _bwd_core_plain(gy, x, w_in, w_out, row_mask, w_gate, act):
-    """(hm, dzh, dzg) of repro ``_bwd_core``, recomputed from the inputs."""
-    xf, rm = _ct(x), _ct(row_mask)
+    """(hm, dzh, dzg) of repro ``_bwd_core``, recomputed from the inputs;
+    each selected by the row mask (a dropped entry exactly 0, whatever the
+    weights hold there)."""
+    xf, keep = _ct(x), row_mask > 0
+    sel = lambda t: torch.where(keep, t, 0)
     zh = xf @ _ct(w_in)
-    ghm = (_ct(gy) @ _ct(w_out).transpose(-1, -2)) * rm
+    ghm = sel(_ct(gy) @ _ct(w_out).transpose(-1, -2))
     if w_gate is not None:
         zg = xf @ _ct(w_gate)
         a = _ACTS[act](zg)
-        return a * zh * rm, ghm * a, ghm * zh * _DACTS[act](zg)
-    return _ACTS[act](zh) * rm, ghm * _DACTS[act](zh), None
+        return sel(a * zh), sel(ghm * a), sel(ghm * zh * _DACTS[act](zg))
+    return sel(_ACTS[act](zh)), sel(ghm * _DACTS[act](zh)), None
 
 
 def masked_ffn_dx_plain(gy, x, w_in, w_out, row_mask, w_gate=None,
                         act="silu"):
     """Plain version of the dx kernel: the sum over 128-neuron blocks, in
     block order as the kernel and ``_dx_kernel`` add them, of
-    dzh·W_inᵀ (+ dzg·W_gateᵀ), in fp32; returned in x.dtype."""
+    dzh·W_inᵀ (+ dzg·W_gateᵀ), in fp32; returned in x.dtype. A block a row
+    keeps no neuron of stays out of that row's sum (selected, never
+    multiplied by the mask), as in the forward's down product."""
     _, dzh, dzg = _bwd_core_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
-    dx = 0
-    for f0 in range(0, dzh.shape[-1], BLOCK_NEURONS):
+    keep_b = _block_keep(row_mask > 0)
+    dx = torch.zeros(dzh.shape[:-1] + (x.shape[-1],), dtype=dzh.dtype, device=x.device)
+    for b, f0 in enumerate(range(0, dzh.shape[-1], BLOCK_NEURONS)):
         f = slice(f0, f0 + BLOCK_NEURONS)
-        dx = dx + dzh[..., f] @ _ct(w_in[..., f]).transpose(-1, -2)
+        nxt = dx + dzh[..., f] @ _ct(w_in[..., f]).transpose(-1, -2)
         if w_gate is not None:
-            dx = dx + dzg[..., f] @ _ct(w_gate[..., f]).transpose(-1, -2)
+            nxt = nxt + dzg[..., f] @ _ct(w_gate[..., f]).transpose(-1, -2)
+        dx = torch.where(keep_b[..., b, :], nxt, dx)
     return dx.to(x.dtype)
 
 
@@ -288,7 +318,8 @@ def masked_ffn_dw_plain(gy, x, w_in, w_out, row_mask, w_gate=None,
                         act="silu"):
     """Plain version of the dW kernel: (dW_in, dW_out, dW_gate) = (xᵀ·dzh,
     hmᵀ·gy, xᵀ·dzg) in fp32, each in its weight's dtype (dW_gate None when
-    ungated)."""
+    ungated). hm, dzh and dzg are selected by the mask (never multiplied by
+    it), so a dropped block's dW is exactly 0 whatever its weights hold."""
     hm, dzh, dzg = _bwd_core_plain(gy, x, w_in, w_out, row_mask, w_gate, act)
     xf = _ct(x)
     dw_in = _sum_mtiles(xf, dzh).to(w_in.dtype)

@@ -225,14 +225,23 @@ class ServeEngine:
         tree_map(lambda c, n: c[:, slot].copy_(n[:, 0]), self.caches, new)
 
     def _decode_chunk(self):
-        """``chunk`` greedy steps over every slot; one host sync at the end."""
-        idx = torch.from_numpy(self.row).to(self.device)
+        """``chunk`` greedy steps over every slot: the slots' rows, tokens
+        and positions go to the device, ``_decode_program`` runs there, and
+        its tokens and positions come back in one host sync at the end."""
+        toks, pos = self._decode_program(
+            *(torch.from_numpy(a).to(self.device) for a in (self.row, self.tok, self.pos)))
+        self.stats["decode_steps"] += self.chunk
+        return toks.cpu().numpy(), pos.cpu().numpy()
+
+    def _decode_program(self, idx, tok, pos):
+        """The chunk's device program (the reference's jitted chunk): from
+        the slots' bank rows ``idx``, last tokens and positions, ``chunk``
+        greedy steps; returns (tokens (B, chunk), next positions (B,)) on
+        the device, with no host sync."""
         # bank leaf (K, R, f) -> per-slot (R, B, 1, f): layer r sees (B, 1, f)
         masks = tree_map(
             lambda b: b[idx].transpose(0, 1)[:, :, None].contiguous(),
             self.bank.stacked())
-        tok = torch.from_numpy(self.tok).to(self.device)
-        pos = torch.from_numpy(self.pos).to(self.device)
         toks = []
         for _ in range(self.chunk):
             logits, _ = model_lib.decode_step(self.params, self.cfg,
@@ -242,8 +251,7 @@ class ServeEngine:
             tok = torch.argmax(logits[:, -1], -1)[:, None]
             toks.append(tok)
             pos = pos + 1
-        self.stats["decode_steps"] += self.chunk
-        return torch.cat(toks, 1).cpu().numpy(), pos.cpu().numpy()
+        return torch.cat(toks, 1), pos
 
     # ------------------------------------------------------------------ API
     def submit(self, req: ServeRequest) -> int:

@@ -1372,3 +1372,75 @@ def test_rwkv_chunk_bf16_form_matches_plain(dev, dtype, B, S, H, N, chunk):
     assert torch.equal(y, y2)
     assert float((y - yp).norm() / yp.norm()) <= 5e-4
     assert _rel_err(y, yp) <= 1e-2 and _rel_err(st, sp) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# repro_torch.analysis on the card: the dropped-dW NaN poison through B1-B9
+# at the zoo's widths, host-sync regions, mask-as-data
+
+def _zoo_ffn_shapes():
+    from repro_torch.configs.base import all_configs
+    out = {}
+    for arch, cfg in sorted(all_configs().items()):
+        for F in sorted({cfg.d_ff, cfg.moe_ff}):
+            out.setdefault((cfg.d_model, F), (cfg.ffn_kind, arch))
+    return [(d, F, kind) for (d, F), (kind, _) in sorted(out.items())]
+
+
+def _zoo_head_layouts():
+    from repro_torch.analysis.kernel_contracts import head_layouts
+    return sorted(head_layouts())
+
+
+@pytest.mark.parametrize("d,F,kind", _zoo_ffn_shapes() + [(64, 1024, "gelu"), (64, 256, "gelu")])
+def test_ffn_poisoned_dropped_blocks_at_zoo_widths(dev, d, F, kind):
+    """B1-B3 through ops.masked_ffn, bf16, M 8, every other 128-block of
+    w_in / w_out / w_gate NaN: a finite forward, the dropped dW exactly 0,
+    the rest within 1e-2 of the plain versions on clean weights; a width
+    that is not 128-aligned (DeepSeek-V2-Lite's dense 10944) refused."""
+    from repro_torch.analysis import contracts
+    res = contracts.ffn_poison_case(F, kind, "cuda", d=d, M=8, dtype=torch.bfloat16)
+    if F % 128:
+        assert "multiple of BLOCK_NEURONS=128" in res["refused"]
+        return
+    assert contracts.ffn_case_violations("x", res, torch.bfloat16) == []
+    assert all(res["dropped_zero"].values())
+
+
+@pytest.mark.parametrize("H,hd,d", _zoo_head_layouts())
+def test_attention_poisoned_dropped_heads_at_zoo_layouts(dev, H, hd, d):
+    """B4-B9 through ops.masked_attention at C 1, bf16, B 1, S 8, every
+    other head's Q/K/V columns and O rows NaN: a finite forward, the dropped
+    dW exactly 0, the rest within 1e-2 of the plain versions on clean
+    weights. (64, 128, 8192) needs the dW kernels' chunks on the grid's x
+    axis (65536 blocks along y would exceed its 65535)."""
+    from repro_torch.analysis import contracts
+    res = contracts.attn_poison_case(H, "cuda", B=1, S=8, d=d, hd=hd, dtype=torch.bfloat16)
+    assert contracts.attn_case_violations("x", res, torch.bfloat16) == []
+    assert all(res["dropped_zero"].values())
+
+
+def test_head_dw_kernels_take_more_than_65535_chunks_a_client(dev):
+    """The dW slab of (H 64, hd 128, d 8192): 16 x 64 chunks a head, 65536
+    (client, head, chunk) blocks, against the plain versions in fp32."""
+    C, M, H, hd, d = 1, 8, 64, 128, 8192
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(C, M, d, generator=g, device=dev)
+    gy = torch.randn(C, M, H * hd, generator=g, device=dev)
+    a = torch.randn(C, M, H * hd, generator=g, device=dev)
+    gd = torch.randn(C, M, d, generator=g, device=dev)
+    mask = (torch.arange(H, device=dev) % 3 != 1).float()[None]
+    assert _rel_err(attn.proj_dw(gy, x, mask), attn.masked_head_proj_dw_plain(gy, x, mask)) <= 1e-4
+    assert _rel_err(attn.merge_dw(gd, a, mask), attn.masked_head_merge_dw_plain(gd, a, mask)) <= 1e-4
+
+
+def test_analysis_contracts_clean_on_the_card(dev):
+    from repro_torch.analysis import contracts
+    assert contracts.run_contracts(device="cuda", only=["dw-zero-ffn", "dw-zero-attn",
+                                                        "no-host-sync"]) == []
+
+
+def test_mask_as_data_contracts_clean_on_the_card(dev):
+    from repro_torch.analysis import contracts
+    names = [n for n in contracts.CHECKS if n.startswith("mask-as-data")]
+    assert contracts.run_contracts(device="cuda", only=names) == []
