@@ -8,6 +8,7 @@ SeamlessM4T-Large v2 at full width through the reference's static-batch
 ``serve``, train StableLM-2-12B at full width (8 of its 40 layers) with
 its masked FFN through the training kernels, run FLuID training on both
 kernel workloads and on the paper's own workloads through ``repro_torch``,
+run the example twins and the paper's experiment drivers,
 hold the meta-device dry-run against the card's own counts, train
 RWKV-6-3B at full width (2 of its 32 layers) against the CPU, run
 repro_torch.analysis's contracts on the card (the dropped-dW NaN poison
@@ -218,6 +219,26 @@ the seconds the phase took (``phase_s``):
              masked train step at smoke size under three masks: the same op
              sequence and launches, nothing built. Its launches on its own
              line.
+  paper      the five example twins (examples/*_torch.py) through their
+             main() at the reference examples' sizes: the four FL and train
+             twins launch no kernel (the dynamic twin's assertion holds),
+             the serve twin serves StableLM-2-12B's smoke config (bf16, d
+             256, F 512, 4/4 heads of 32) through B1 and B11, every launch
+             held against its plain version (1e-2), its launches on this
+             line; the paper's drivers (scripts/paper_experiments_torch.py):
+             Table 2 at r 0.75 and 0.5, seeds 0 and 1, 12 rounds, Fig 4a
+             (6 rounds), Fig 4b (12) and Table 3 (thresholds 0.002-0.05)
+             at the paper's 5 clients and n_data 2000, Fig 6, Fig 5 (10
+             clients) and the one-shot-pruning probe at the validation
+             pass's sizes: every param finite, evaluated accuracies above
+             chance (1/62), Fig 4a within 10%, Fig 4b's FLuID time below
+             the static and baseline times (the static arm still on client
+             0, FLuID's on 3), Table 3 non-decreasing, Fig 6 in [0, 1], no
+             kernel launched; Table 2's ordering reported. Then Table 2's
+             run (invariant, r 0.75, 6 rounds) twice under the default cuDNN
+             flags and twice under cudnn.deterministic (the flags
+             restored): repeats and ms a client step; the deterministic
+             pair must repeat bitwise.
 
 Any failure exits non-zero. Before the last three lines a ``total`` line
 gives the seconds of the whole run. The last three lines are the per-kernel
@@ -3898,6 +3919,281 @@ def phase_analysis(torch, np, regions):
             "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}}
 
 
+# ---------------------------------------------------------------------------
+# the paper phase: the example twins (examples/*_torch.py) and the paper's
+# experiment drivers (scripts/paper_experiments_torch.py) on the card
+
+# The phase keeps to ~240 s: Table 2 runs 12 rounds (the validation pass
+# 20, whose 12 runs took 164 s on an H100), Fig 4a and 4b their drivers'
+# default 6 and 12 rounds (the validation pass 10 and 16)
+PAPER_COHORT = dict(n_data=2000)    # CohortConfig's default, 5 clients: the paper's scale
+PAPER_TABLE2 = dict(rates=(0.75, 0.5), rounds=12, seeds=(0, 1))
+PAPER_FIG4 = dict(fig4a=6, fig4b=12)                              # rounds
+PAPER_TABLE3 = dict(rounds=6, thresholds=(0.002, 0.005, 0.01, 0.02, 0.05))
+PAPER_SMALL = dict(fig6=dict(rounds=20, n_data=800),              # the validation pass's sizes
+                   fig5=dict(n_clients=10, rounds=10, n_data=1200),
+                   insight=dict())                                # its defaults: 15 rounds, 1500
+PAPER_DET = dict(rate=0.75, rounds=6)     # Table 2's femnist run, invariant, twice per setting
+FEMNIST_CHANCE = 1 / 62
+FL_TWINS = ("quickstart", "compare_dropout_methods", "dynamic_stragglers", "fluid_datacenter")
+# per launch, relative ∞-norm: the twin serves the example's bf16 smoke
+# config, so the bf16 tolerance of every held launch (phase_small's 1e-3
+# holds fp32 logits)
+SERVE_TWIN_TOL = 1e-2
+
+
+def load_file(name, rel):
+    """The module at ``rel`` in the checkout, imported under ``name``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def printed(fn, *args):
+    """(fn(*args), the lines it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    return res, buf.getvalue().splitlines()
+
+
+def paper_twins(torch, np, dev="cuda"):
+    """The five example twins through their main() at the reference's own
+    sizes. The four FL and train twins launch no hand-written kernel (the
+    sequential backend and the dense train step), and the dynamic one's
+    assertion holds; the serve twin serves StableLM-2-12B's smoke config
+    through B1 and B11, every launch held against its plain version."""
+    from repro_torch.kernels import ops
+    out = {}
+    for name in FL_TWINS:
+        twin = load_file(f"{name}_torch", f"examples/{name}_torch.py")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res, lines = printed(twin.main, ["--device", dev])
+        except AssertionError as e:
+            raise SmokeFailure(f"paper: {name}_torch: {e}") from e
+        counts = ops.launch_counts()
+        check(set(counts.values()) == {0}, f"paper: {name}_torch launched a kernel: {counts}")
+        out[name] = {"s": time.perf_counter() - t0, "lines": lines}
+        if name == "compare_dropout_methods":
+            out[name]["accuracy"] = res
+        elif name == "fluid_datacenter":
+            out[name]["modelled_full_fluid"] = list(res[:2])
+            check(all(np.isfinite(loss) for loss, _, _ in res[2]),
+                  "paper: fluid_datacenter_torch: non-finite loss")
+    twin = load_file("serve_example_torch", "examples/serve_example_torch.py")
+    worst = {"masked_ffn_batch": 0.0, "decode_gqa": 0.0}
+    held = {}
+    ops.reset_launch_counts()                  # the serve twin's path starts here
+    t0 = time.perf_counter()
+    undo = hold_each_launch(ops, worst, held)
+    try:
+        (results, summ), lines = printed(twin.main, ["--device", dev])
+    finally:
+        undo()
+    counts = {k: ops.launch_counts()[k] for k in SERVE_KERNELS}    # and ends here
+    from repro_torch.configs import get_config
+    layers = get_config("stablelm-12b").smoke().n_layers
+    for k in SERVE_KERNELS:
+        check(counts[k] == layers * summ["decode_steps"] and held.get(k) == counts[k],
+              f"paper: serve_example_torch {k}: {counts[k]} launches, {held.get(k)} held, "
+              f"expected {layers} x {summ['decode_steps']} decode steps")
+    check(max(worst.values()) <= SERVE_TWIN_TOL,
+          f"paper: serve_example_torch per-launch kernel vs plain {worst}")
+    check(sorted(results) == list(range(5)), "paper: serve_example_torch lost a request")
+    out["serve_example"] = {"s": time.perf_counter() - t0, "lines": lines,
+                            "launches": counts, "held": held, "per_launch_rel_err": worst,
+                            "decode_steps": summ["decode_steps"]}
+    return out
+
+
+def recording_sims(pe, built):
+    """Wrap the drivers' ``_sim`` so every simulation they build is kept."""
+    inner = pe._sim
+
+    def _sim(*a, **kw):
+        sim = inner(*a, **kw)
+        built.append(sim)
+        return sim
+    pe._sim = _sim
+    return lambda: setattr(pe, "_sim", inner)
+
+
+def hold_sims(torch, name, built, accuracy=True):
+    """Every parameter of every simulation finite; each final accuracy
+    (where the run evaluated) above chance. Returns the accuracies."""
+    from repro_torch.core.tree import tree_leaves
+    accs = []
+    for sim in built:
+        check(all(bool(torch.isfinite(p).all()) for p in tree_leaves(sim.server.params)),
+              f"paper: {name}: non-finite params")
+        acc = sim.server.history[-1].accuracy
+        if accuracy and acc == acc:
+            check(acc > FEMNIST_CHANCE, f"paper: {name}: final accuracy {acc} not above "
+                  f"chance ({FEMNIST_CHANCE})")
+            accs.append(acc)
+    return accs
+
+
+def determinism_run(torch, pe, dev):
+    """Table 2's femnist run (invariant, r 0.75, 5 clients, n_data 2000):
+    keep-maps by round, final params, ms a client SGD step."""
+    from repro_torch.core.tree import tree_leaves
+    with RoundRecorder(torch) as rec:
+        sim = pe._sim("femnist", method="invariant", fixed_rate=PAPER_DET["rate"],
+                      seed=0, device=dev, **PAPER_COHORT)
+        hist = sim.server.run(PAPER_DET["rounds"], eval_every=PAPER_DET["rounds"])
+    return {"keep_maps": [r["keep_maps"] for r in rec.log],
+            "params": [p.clone() for p in tree_leaves(sim.server.params)],
+            "ms_per_client_step": ms_per_step(rec.log, "client_steps"),
+            "accuracy": hist[-1].accuracy}
+
+
+def repeat_of(np, a, b):
+    same_km = [same_keep_maps(np, x, y) for x, y in zip(a["keep_maps"], b["keep_maps"])]
+    diff = max(float((p - q).abs().max()) for p, q in zip(a["params"], b["params"]))
+    return {"keep_maps_equal_by_round": same_km,
+            "params_bitwise": all(bool((p == q).all()) for p, q in zip(a["params"], b["params"])),
+            "params_max_abs_diff": diff,
+            "ms_per_client_step": [a["ms_per_client_step"], b["ms_per_client_step"]],
+            "accuracy": [a["accuracy"], b["accuracy"]]}
+
+
+def paper_determinism(torch, np, pe, dev="cuda"):
+    """The same run twice under the default cuDNN flags, then twice under
+    cudnn.deterministic = True with benchmark = False (the flags restored
+    after): whether keep-maps and params repeat bitwise, and the ms of a
+    client SGD step under each. The deterministic pair must repeat bitwise
+    (it did on the H100; the default pair parts in round 2)."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    out = {"default_flags": {"deterministic": saved[0], "benchmark": saved[1]}}
+    out["default"] = repeat_of(np, determinism_run(torch, pe, dev),
+                               determinism_run(torch, pe, dev))
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        out["deterministic"] = repeat_of(np, determinism_run(torch, pe, dev),
+                                         determinism_run(torch, pe, dev))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    check((cudnn.deterministic, cudnn.benchmark) == saved, "paper: cuDNN flags not restored")
+    det = out["deterministic"]
+    check(det["params_bitwise"] and all(det["keep_maps_equal_by_round"]),
+          f"paper: the deterministic cuDNN runs did not repeat bitwise: {det}")
+    return out
+
+
+def paper_drivers(torch, np, pe, dev="cuda"):
+    """The seven drivers: Table 2, Fig 4a, Fig 4b and Table 3 at the
+    paper's scale (5 clients, n_data 2000), Fig 6, Fig 5 and the
+    one-shot-pruning probe at the validation pass's sizes; each gated by
+    the reference's own claims or identities."""
+    out = {}
+    built = []
+    undo = recording_sims(pe, built)
+    try:
+        t0 = time.perf_counter()
+        t2 = pe.table2_accuracy(n_data=PAPER_COHORT["n_data"], device=dev, **PAPER_TABLE2)
+        accs = hold_sims(torch, "table2", built)
+        check(len(accs) == len(built) == 3 * len(PAPER_TABLE2["rates"]) * len(PAPER_TABLE2["seeds"]),
+              "paper: table2: a run did not evaluate")
+        by_rate = {}
+        for r in PAPER_TABLE2["rates"]:
+            mean = {m: t2[(m, r)][0] for m in pe.METHODS}
+            by_rate[str(r)] = {
+                **{m: {"mean": t2[(m, r)][0], "std": t2[(m, r)][1]} for m in pe.METHODS},
+                "invariant_ge_ordered_ge_random":
+                    mean["invariant"] >= mean["ordered"] >= mean["random"]}
+        out["table2"] = {"s": time.perf_counter() - t0, "seeds": list(PAPER_TABLE2["seeds"]),
+                         "rounds": PAPER_TABLE2["rounds"], **PAPER_COHORT, "by_rate": by_rate,
+                         "per_run_accuracy": accs}
+        built.clear()
+
+        t0 = time.perf_counter()
+        f4a = pe.fig4a_straggler_time(rounds=PAPER_FIG4["fig4a"], device=dev, **PAPER_COHORT)
+        hold_sims(torch, "fig4a", built, accuracy=False)
+        check(f4a["within_10pct"], f"paper: fig4a: straggler time not within 10% of T_target {f4a}")
+        out["fig4a"] = {"s": time.perf_counter() - t0, "rounds": PAPER_FIG4["fig4a"], **f4a}
+        built.clear()
+
+        t0 = time.perf_counter()
+        f4b = pe.fig4b_dynamic_stragglers(rounds=PAPER_FIG4["fig4b"], device=dev, **PAPER_COHORT)
+        hold_sims(torch, "fig4b", built, accuracy=False)
+        check(f4b["t_fluid"] < f4b["t_static_straggler"] and f4b["t_fluid"] < f4b["t_baseline"],
+              f"paper: fig4b: FLuID not faster than the static and baseline runs {f4b}")
+        _, static, fluid = built
+        switch = PAPER_FIG4["fig4b"] // 2
+        stragglers = {arm: [h.stragglers for h in sim.server.history[switch + 1:]]
+                      for arm, sim in (("static", static), ("fluid", fluid))}
+        check(all(s == [0] for s in stragglers["static"]),
+              f"paper: fig4b: the static arm left client 0: {stragglers['static']}")
+        check(stragglers["fluid"][-1] == [3], f"paper: fig4b: FLuID did not move to client 3: "
+              f"{stragglers['fluid']}")
+        out["fig4b"] = {"s": time.perf_counter() - t0, "rounds": PAPER_FIG4["fig4b"], **f4b,
+                        "stragglers_after_switch": stragglers}
+        built.clear()
+
+        t0 = time.perf_counter()
+        t3 = pe.table3_threshold(rounds=PAPER_TABLE3["rounds"], device=dev,
+                                 thresholds=PAPER_TABLE3["thresholds"], **PAPER_COHORT)
+        hold_sims(torch, "table3", built, accuracy=False)
+        fr = [t3[th] for th in PAPER_TABLE3["thresholds"]]
+        check(all(a <= b for a, b in zip(fr, fr[1:])), f"paper: table3: fractions fall {t3}")
+        out["table3"] = {"s": time.perf_counter() - t0, "rounds": PAPER_TABLE3["rounds"],
+                         "fractions": {str(th): v for th, v in t3.items()}}
+        built.clear()
+
+        t0 = time.perf_counter()
+        f6 = pe.fig6_invariant_evolution(device=dev, **PAPER_SMALL["fig6"])
+        hold_sims(torch, "fig6", built, accuracy=False)
+        check(all(0.0 <= f <= 1.0 for f in f6["invariant_frac_by_round"]),
+              f"paper: fig6: a fraction outside [0, 1] {f6}")
+        out["fig6"] = {"s": time.perf_counter() - t0, **PAPER_SMALL["fig6"], **f6}
+        built.clear()
+
+        t0 = time.perf_counter()
+        f5 = pe.fig5_scalability(device=dev, **PAPER_SMALL["fig5"])
+        hold_sims(torch, "fig5", built)
+        out["fig5"] = {"s": time.perf_counter() - t0, **PAPER_SMALL["fig5"], **f5}
+        built.clear()
+
+        t0 = time.perf_counter()
+        ins = pe.insight_oneshot_pruning(device=dev, **PAPER_SMALL["insight"])
+        hold_sims(torch, "insight", built, accuracy=False)
+        check(ins["full"] > FEMNIST_CHANCE,
+              f"paper: insight: the full model's accuracy {ins['full']} not above chance")
+        out["insight"] = {"s": time.perf_counter() - t0, **ins}
+        built.clear()
+    finally:
+        undo()
+    return out
+
+
+def phase_paper(torch, np, dev="cuda"):
+    """The five example twins and the paper's seven experiment drivers on
+    the card, then cuDNN's determinism on Table 2's run. Only the serve
+    twin reaches a hand-written kernel (B1 and B11, each launch held; its
+    counts on this line); the twins' and drivers' FL runs launch none."""
+    from repro_torch.kernels import ops
+    smi = nvidia_smi()
+    out = {"card": smi, "twins": paper_twins(torch, np, dev)}
+    pe = load_file("paper_experiments_torch", "scripts/paper_experiments_torch.py")
+    ops.reset_launch_counts()
+    out["drivers"] = paper_drivers(torch, np, pe, dev)
+    t0 = time.perf_counter()
+    out["cudnn_determinism"] = paper_determinism(torch, np, pe, dev)
+    out["cudnn_determinism"]["s"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(set(counts.values()) == {0}, f"paper: the drivers launched a kernel: {counts}")
+    out["launches"] = out["twins"]["serve_example"]["launches"]
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
@@ -4012,6 +4308,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         # repro_torch.analysis on the card: its launches stay on its own line
         emit("analysis", **phase_analysis(torch, np, regions))
+        # the example twins and the paper's drivers: their launches (the
+        # serve twin's) stay on their own line
+        torch.cuda.empty_cache()
+        emit("paper", **phase_paper(torch, np))
         # launches: serving's kernels summed over the serve phases (StableLM,
         # MiniCPM3, RecurrentGemma, Command-R, Arctic, SeamlessM4T; DeepSeek's
         # launches none) and Granite's step, the chunked
