@@ -1033,7 +1033,9 @@ def phase_rwkv_kernels(torch, np, dev="cuda"):
     SFU_EXP_PER_S, each of the function's least work (rwkv_work); the
     largest bounds the kernel. The chunked form's own count is reported
     beside it. invariant_stats' launches are those of its checks here,
-    counted before any timing."""
+    two calls a shape (one counted launch each, the same bits), counted
+    before any timing."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import invariant_stats as stats
     from repro_torch.kernels import rwkv_chunk as rwkv
     dev = torch.device(dev)
@@ -1092,25 +1094,31 @@ def phase_rwkv_kernels(torch, np, dev="cuda"):
         run = lambda: stats.invariant_stats(w0, w1)
         plain = lambda: stats.invariant_stats_plain(w0, w1)
         n0 = stats.launches.n
-        got, want = run(), plain()
+        got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
+        check(stats.launches.n - n0 == 2, f"invariant_stats[{d_in}x{n}/{dt}]: "
+              f"{stats.launches.n - n0} launches counted for 2 calls")
+        check(torch.equal(got, again), f"invariant_stats[{d_in}x{n}/{dt}]: two calls differ")
         stats_launches += stats.launches.n - n0
         err = rel_inf(got, want)
         tol = 1e-5 if dtype == torch.float32 else 5e-2
         check(err <= tol, f"invariant_stats[{d_in}x{n}/{dt}] rel err {err}")
         elem = w0.element_size()
         b_ms, b_by = bound_ms(2 * d_in * n * elem + n * 4, 4 * d_in * n, FP32_FLOPS)
+        t_ms = graph_ms(run, torch)
         per.append({"case": f"{d_in}x{n}/{dt}", "rel_err": err,
                     "max_abs_err": float((got - want).abs().max()),
-                    "ms": graph_ms(run, torch), "plain_ms": graph_ms(plain, torch),
+                    "ms": t_ms, "call_ms": time_ms(run, torch),
+                    "plain_ms": graph_ms(plain, torch),
                     "host_ms": time_loop_ms(run, torch),
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / t_ms,
+                    "geometry": stats.launch_geometry(d_in, n, elem, _build.sm_count(dev))})
     head = per[0]
     out.append({"name": "invariant_stats", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/invariant_stats.cu",
                 "replaces": "src/repro/kernels/invariant_stats.py:28",
                 "max_abs_err": max(p["max_abs_err"] for p in per),
-                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": None, "launches": stats_launches,
                 "launches_from": "its checks in the kernels phase, before timing "
@@ -1128,9 +1136,11 @@ def rwkv_bf16_kernel(torch, rwkv, r, k, v, logw, u):
     score whose bf16 rounding flips is a sparse error: a 1e-7 relative
     change of logw moves the plain form by ~3e-5 in 2-norm; the fp32 form
     lies ~2e-3 away, reported as ``fp32_form_rel_err_2``), the state
-    1e-4, two calls the same bits. Bound: bytes, and the literal form's
-    exponentials at SFU_EXP_PER_S (rwkv_work), which this form must take:
-    each (t, j, n)'s decay is rounded on its own."""
+    1e-4, two calls the same bits; its packed r·k (mul.rn.bf16x2) the
+    bits of the fp32 product rounded to bf16 for every pair of bf16 values.
+    Bound: bytes, and the literal form's exponentials at SFU_EXP_PER_S
+    (rwkv_work), which this form must take: each (t, j, n)'s decay is
+    rounded on its own. ``share_of_bound`` is bound_ms / ms."""
     c = RWKV_SCAN_SHAPE["chunk"]
     B, S, H, N = r.shape
     run = lambda: rwkv.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=c)
@@ -1138,7 +1148,10 @@ def rwkv_bf16_kernel(torch, rwkv, r, k, v, logw, u):
                                                chunk_dtype=torch.bfloat16)
     (y, st), (y2, st2), (yp, sp) = run(), run(), plain()
     y32, _ = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=c)
+    product = rwkv.bf16_product_check()
     torch.cuda.synchronize()
+    check(product["pairs_differing"] == 0,
+          f"rwkv_out_bf16_kernel's packed r·k differs from the fp32 product rounded: {product}")
     check(bool(torch.isfinite(y).all()), "rwkv_chunk_scan_bf16 not finite")
     check(torch.equal(y, y2) and torch.equal(st, st2), "rwkv_chunk_scan_bf16: two calls differ")
     errs = {"rel2": rel2(y, yp), "inf": rel_inf(y, yp), "state": rel_inf(st, sp)}
@@ -1148,15 +1161,19 @@ def rwkv_bf16_kernel(torch, rwkv, r, k, v, logw, u):
     exps = chunked["literal_form_exponentials"]
     terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "exp_ms": exps / SFU_EXP_PER_S * 1e3}
     b_ms = max(terms.values())
+    t_ms = graph_ms(run, torch)
     return {"name": "rwkv_chunk_scan_bf16", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rwkv_chunk.cu",
             "replaces": "src/repro/models/rwkv6.py:113",
             "max_abs_err": max(float((y - yp).abs().max()), float((st - sp).abs().max())),
-            "ms": graph_ms(run, torch), "call_ms": time_ms(run, torch),
+            "ms": t_ms, "call_ms": time_ms(run, torch),
             "plain_ms": time_ms(plain, torch, n=10), "bound_ms": b_ms,
             "bound_by": "bytes" if terms["bytes_ms"] >= b_ms else "operations",
-            "bound_terms": terms, "library_ms": None, "rel_err": errs,
-            "fp32_form_rel_err_2": rel2(yp, y32), "shape": RWKV_SCAN_SHAPE}
+            "bound_terms": terms, "share_of_bound": b_ms / t_ms, "library_ms": None,
+            "rel_err": errs, "fp32_form_rel_err_2": rel2(yp, y32),
+            "packed_product_check": product,
+            "blocks": rwkv.bf16_items(B, S, H, c),
+            "shape": RWKV_SCAN_SHAPE}
 
 
 def plain_train(torch):

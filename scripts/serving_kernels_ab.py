@@ -3,7 +3,7 @@
 
     python3 scripts/serving_kernels_ab.py --a PARENT_CHECKOUT [--b CHECKOUT]
         [--variants JSON] [--profile] [--out FILE]
-        [--set serving|scan_dw|fwd_dx|zoo_train|gqa_bits]
+        [--set serving|scan_dw|fwd_dx|zoo_train|gqa_bits|bf16_scan_stats]
 
 Each turn is a fresh process that puts one checkout's ``src/`` first on
 ``sys.path``, builds that checkout's ``masked_ffn`` and ``decode_gqa``
@@ -50,6 +50,17 @@ B, B, A; ``chip_smoke.zoo_kernel_times``: each held to its plain version,
 ``ms`` one call between two CUDA events, the median of 10), beside the
 dense route's forward and backward, and each CUDA kernel's device time a
 call (torch.profiler).
+
+``--set bf16_scan_stats`` times B12's bf16 chunk form
+(rwkv_chunk_scan_bf16, ``rwkv_out_bf16_kernel``) at RWKV-6-3B's prefill
+shape (chip_smoke's RWKV_SCAN_SHAPE: B 1, S 512, H 40, N 64, chunk 128,
+bf16) and B10 (invariant_stats) at chip_smoke's STATS_SHAPES (1024 x 1024
+fp32 and bf16, 2560 x 8960 bf16) the same way (A, B, B, A), with B12's fp32
+form (rwkv_chunk_scan, which shares the state pass) beside them: each held to
+its plain version (RWKV_BF16_TOL; 1e-5 fp32 and 5e-2 bf16) and to a second
+call's bits, ``ms`` device time from a CUDA graph of calls, ``call_ms`` one
+call between two CUDA events, ``by_kernel`` each CUDA kernel's device time
+a call (torch.profiler).
 
 ``--set gqa_bits`` checks that decode_gqa gives the same bits in both
 checkouts at the group sizes G ∈ {1, 2, 4, 8} (fp32 and bf16, hd 64 and
@@ -239,13 +250,70 @@ def gqa_bits(torch, np, cs, gqa):
     return out
 
 
+def bf16_scan_stats(torch, np, cs):
+    """Device and call times of rwkv_chunk_scan_bf16 at RWKV_SCAN_SHAPE
+    (inputs drawn as chip_smoke's kernels phase draws them) and of
+    invariant_stats at STATS_SHAPES, each held to its plain version and to a
+    second call's bits."""
+    from repro_torch.kernels import invariant_stats as stats
+    from repro_torch.kernels import rwkv_chunk as rwkv
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    B, S, H, N, c = (cs.RWKV_SCAN_SHAPE[k] for k in ("B", "S", "H", "N", "chunk"))
+    r, k, v = (torch.randn(B, S, H, N, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    u = 0.1 * torch.randn(H, N, generator=g, device=dev)
+    logw = -torch.exp(torch.rand(H, N, generator=g, device=dev) * 5 - 6
+                      + 0.1 * torch.randn(B, S, H, N, generator=g, device=dev))
+    run = lambda: rwkv.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=c)
+    (y, st), (y2, st2) = run(), run()
+    yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=c, chunk_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    errs = {"rel2": cs.rel2(y, yp), "inf": cs.rel_inf(y, yp), "state": cs.rel_inf(st, sp)}
+    if not all(errs[key] <= tol for key, tol in cs.RWKV_BF16_TOL.items()):
+        raise SystemExit(f"rwkv_chunk_scan_bf16 vs its plain form {errs}")
+    if not (torch.equal(y, y2) and torch.equal(st, st2)):
+        raise SystemExit("rwkv_chunk_scan_bf16: two calls differ")
+    out["rwkv_chunk_scan_bf16"] = {"ms": cs.graph_ms(run, torch), "call_ms": cs.time_ms(run, torch),
+                                   "rel_err": errs, "by_kernel": by_kernel(torch, cs, run)}
+    run = lambda: rwkv.rwkv_chunk_scan(r, k, v, logw, u, chunk=c)   # the fp32 form: the same state pass
+    out["rwkv_chunk_scan"] = {"ms": cs.graph_ms(run, torch), "call_ms": cs.time_ms(run, torch),
+                              "by_kernel": by_kernel(torch, cs, run)}
+    del r, k, v, u, logw
+    for d_in, n, dt in cs.STATS_SHAPES:
+        dtype = getattr(torch, dt)
+        w0 = torch.randn(d_in, n, generator=g, device=dev)
+        w1 = (w0 + 0.02 * torch.randn(d_in, n, generator=g, device=dev)).to(dtype)
+        w0 = w0.to(dtype)
+        run = lambda: stats.invariant_stats(w0, w1)
+        got, again = run(), run()
+        err = cs.rel_inf(got, stats.invariant_stats_plain(w0, w1))
+        if not err <= (1e-5 if dtype == torch.float32 else 5e-2):
+            raise SystemExit(f"invariant_stats[{d_in}x{n}/{dt}] rel err {err}")
+        if not torch.equal(got, again):
+            raise SystemExit(f"invariant_stats[{d_in}x{n}/{dt}]: two calls differ")
+        out[f"invariant_stats/{d_in}x{n}/{dt}"] = {
+            "ms": cs.graph_ms(run, torch), "call_ms": cs.time_ms(run, torch), "rel_err": err,
+            "by_kernel": by_kernel(torch, cs, run, watch=("stats",))}
+    return out
+
+
 def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> dict:
-    sys.path.insert(0, str(Path(src).resolve() / "src"))
-    sys.path.insert(1, str(ROOT))
+    checkout = str(Path(src).resolve() / "src")
+    sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
     import chip_smoke as cs
+    # chip_smoke puts this checkout's src/ first and imports repro_torch when
+    # it is imported: the turn's checkout goes first again, its own package
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[name]
+    sys.path[:] = [x for x in sys.path if x != str(ROOT / "src")]
+    sys.path.insert(0, checkout)
     from repro_torch.kernels import _build
+    if Path(_build.__file__).resolve().parents[2] != Path(checkout):
+        raise SystemExit(f"serving_kernels_ab: imported {_build.__file__}, not {checkout}")
     from repro_torch.kernels import decode_gqa as gqa
     from repro_torch.kernels import masked_ffn as ffn
     if not torch.cuda.is_available():
@@ -263,6 +331,14 @@ def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> 
                 "ptxas": [ln for ln in _build.build_log.get("masked_ffn_train", "").splitlines()
                           if "registers" in ln or "spill" in ln],
                 "kernels": zoo_train(torch, np, cs)}
+    if which == "bf16_scan_stats":
+        t0 = time.perf_counter()
+        _build.build_all(["rwkv_chunk", "invariant_stats"])
+        return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
+                "ptxas": [ln for name in ("rwkv_chunk", "invariant_stats")
+                          for ln in _build.build_log.get(name, "").splitlines()
+                          if "registers" in ln or "spill" in ln],
+                "kernels": bf16_scan_stats(torch, np, cs)}
     if which == "gqa_bits":
         t0 = time.perf_counter()
         _build.build_all(["decode_gqa"])
@@ -388,7 +464,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--out")
     ap.add_argument("--set", default="serving",
-                    choices=("serving", "scan_dw", "fwd_dx", "zoo_train", "gqa_bits"),
+                    choices=("serving", "scan_dw", "fwd_dx", "zoo_train", "gqa_bits",
+                             "bf16_scan_stats"),
                     help="the kernels to time")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--tune", default="{}", help=argparse.SUPPRESS)

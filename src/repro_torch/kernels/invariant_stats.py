@@ -2,25 +2,40 @@
 ``repro/kernels/invariant_stats.py``).
 
 ``invariant_stats`` dispatches on where its tensors lie: on a CUDA tensor
-it launches the hand-written kernels in ``csrc/invariant_stats.cu`` (which
-replace the Pallas ``_kernel``: slab partials, then a fixed-order sum) and
-counts the launch; on a CPU tensor it runs ``invariant_stats_plain``, on
-a meta tensor the launch's checks and then ``invariant_stats_plain``.
-There is no fallback from the card to the plain version. Like the
-reference's, it is an entry point that no main path calls: the server's
-calibration computes its statistic over several leaves in plain torch
-(``core/invariant.py``).
+it launches the hand-written kernel in ``csrc/invariant_stats.cu`` (which
+replaces the Pallas ``_kernel``: one launch, a thread-block cluster per
+strip of columns whose blocks take slabs of rows and sum in a fixed order;
+``launch_geometry`` says how a shape is cut) and counts the launch;
+on a CPU tensor it runs ``invariant_stats_plain``, on a meta tensor the
+launch's checks and then ``invariant_stats_plain``. There is no fallback
+from the card to the plain version. Like the reference's, it is an entry
+point that no main path calls: the server's calibration computes its
+statistic over several leaves in plain torch (``core/invariant.py``).
 """
 from __future__ import annotations
 
 import ctypes
+import re
+from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import _build
 
 EPS = 1e-8
-SLAB_ROWS = 32                 # csrc/invariant_stats.cu SLAB
+
+
+def _source_constants(*names):
+    """The values of ``constexpr int`` constants of csrc/invariant_stats.cu,
+    read from the source, so that the geometry below cannot drift from it."""
+    src = (Path(__file__).parent / "csrc" / "invariant_stats.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+                 for name in names)
+
+
+# threads a block, rows a thread has in flight, blocks of a cluster at most
+THREADS, UNROLL, MAX_CLUSTER = _source_constants("THREADS", "UNROLL", "MAX_CLUSTER")
+LANES_PER_ROW = (32, 16, 8)    # a row group's lanes, widest first
 
 launches = _build.LaunchCounter()
 
@@ -34,9 +49,29 @@ def invariant_stats_plain(w0, w1):
     return num / (den + EPS)
 
 
+def launch_geometry(d_in, n, elem, n_sm=132):
+    """How the kernel cuts a (d_in, n) pair of elem-byte weights: ``vb``
+    bytes a lane loads (the widest of 16, 8, 4, 2 that divides a row's
+    bytes) and ``vec`` columns a lane; ``lpr`` lanes a row group, the
+    widest of 32, 16, 8 that still gives the n_sm SMs a block each (else
+    8), so ``groups`` row groups a block and ``cols`` columns a strip;
+    ``strips``; ``cs`` blocks a cluster, a block per slab of ``rows`` rows
+    (fewer than 8 where d_in is below 8 rounds of a block's rows)."""
+    vb = next(w for w in (16, 8, 4, 2) if (n * elem) % w == 0)
+    for lpr in LANES_PER_ROW:
+        groups = THREADS // lpr
+        cs = max(1, min(MAX_CLUSTER, -(-d_in // (groups * UNROLL))))
+        cols = lpr * vb // elem
+        strips = -(-n // cols)
+        if strips * cs >= n_sm:
+            break
+    return {"vb": vb, "vec": vb // elem, "lpr": lpr, "groups": groups, "cols": cols,
+            "strips": strips, "cs": cs, "rows": -(-d_in // cs)}
+
+
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.invariant_stats_launch.argtypes = [p] * 4 + [i] * 3 + [p]
+    lib.invariant_stats_launch.argtypes = [p] * 3 + [i] * 6 + [p]
     lib.invariant_stats_launch.restype = i
 
 
@@ -55,12 +90,11 @@ def _check(w0, w1):
 def _launch(w0, w1):
     d_in, n = w0.shape
     dtype, dev = w0.dtype, w0.device
-    slabs = -(-d_in // SLAB_ROWS)
-    partials = torch.empty((2, slabs, n), dtype=torch.float32, device=dev)
+    geo = launch_geometry(d_in, n, w0.element_size(), _build.sm_count(dev))
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     err = _build.load("invariant_stats").invariant_stats_launch(
-        w0.data_ptr(), w1.data_ptr(), partials.data_ptr(), out.data_ptr(), d_in, n,
-        _build.DTYPE_CODE[dtype], torch.cuda.current_stream(dev).cuda_stream)
+        w0.data_ptr(), w1.data_ptr(), out.data_ptr(), d_in, n, _build.DTYPE_CODE[dtype],
+        geo["vb"], geo["lpr"], geo["cs"], torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"invariant_stats kernel launch failed: CUDA error {err}")
     launches.n += 1

@@ -15,7 +15,11 @@ initial state (``tmix_seq``'s ``state_in``).
 tensor and the intra-chunk scores rounded to bf16 as the reference's
 ``_chunk_core`` rounds them. On the card it runs the same state pass and
 carry and ``rwkv_out_bf16_kernel``, which takes each (t, j, n)'s
-exponential literally; it has its own launch counter.
+exponential literally (a block a pair of 16-row sub-blocks, r·k and D
+formed two at a time in bf16 and summed over n on the tensor core); it has
+its own launch counter. ``bf16_product_check`` runs that kernel's packed
+bf16 product over every pair of bf16 values against the fp32 product
+rounded to bf16, as the plain form rounds r ⊗ k.
 
 The kernels have no backward (nor has the reference's Pallas kernel). On a
 CUDA or meta tensor, an input that requires grad with grad mode on raises
@@ -103,6 +107,8 @@ def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rwkv_chunk_launch.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.rwkv_chunk_launch.restype = i
+    lib.rwkv_bf16_product_check.argtypes = [p] * 3
+    lib.rwkv_bf16_product_check.restype = i
 
 
 _build.register_binding("rwkv_chunk", _bind)
@@ -125,21 +131,27 @@ def _check(r, k, v, logw, u, chunk, state):
         _build.check_operand("state", state, torch.float32, dev)
 
 
+def bf16_items(B, S, H, chunk):
+    """Blocks of the bf16 form's output kernel, one an item: a (b·h, chunk)
+    and a pair of its 16-row sub-blocks."""
+    return B * H * (S // chunk) * ((-(-chunk // 16) + 1) // 2)
+
+
 def _launch(r, k, v, logw, u, chunk, state, bf16_scores):
     B, S, H, N = r.shape
     dtype, dev = r.dtype, r.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     y = torch.empty((B, S, H, N), dtype=torch.float32, device=dev)
     s_out = torch.empty((B, H, N, N), dtype=torch.float32, device=dev)
     # each chunk's local state term and total log decay, for the output pass
     nc = S // chunk
     ds = torch.empty((B * H * nc * N * N,), dtype=torch.float32, device=dev)
     ltot = torch.empty((B * H * nc * N,), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = _build.load("rwkv_chunk").rwkv_chunk_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-        None if state is None else state.data_ptr(), ds.data_ptr(), ltot.data_ptr(),
-        y.data_ptr(), s_out.data_ptr(),
-        B, S, H, N, chunk, _build.DTYPE_CODE[dtype], int(bf16_scores),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(state), ds.data_ptr(), ltot.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+        B, S, H, N, chunk, _build.DTYPE_CODE[dtype], int(bf16_scores), stream)
     if err != 0:
         raise RuntimeError(f"rwkv_chunk_scan kernel launch failed: CUDA error {err}")
     (bf16_launches if bf16_scores else launches).n += 1
@@ -199,3 +211,22 @@ def rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=64, state=None):
     and the state in fp32. On the card ``rwkv_out_bf16_kernel`` takes the
     output pass; launches are counted in ``bf16_launches``."""
     return _scan(r, k, v, logw, u, chunk, state, bf16_scores=True)
+
+
+def bf16_product_check(device="cuda"):
+    """``rwkv_out_bf16_kernel``'s r·k (``mul.rn.bf16x2``: the exact product
+    rounded once) against the product in fp32 rounded to bf16, over every
+    pair of bf16 bit patterns but NaNs (2^32 pairs), on the card. Returns
+    {"pairs_differing", "normal_pairs_differing" (fp32 product >= 2^-126),
+    "first" (a, b bit patterns of one differing pair, or None)}. Not a
+    launch of the scan: no counter moves."""
+    dev = torch.device(device)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    first = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    err = _build.load("rwkv_chunk").rwkv_bf16_product_check(
+        counts.data_ptr(), first.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv_bf16_product_check launch failed: CUDA error {err}")
+    f = int(first.item()) & 0xFFFFFFFF
+    return {"pairs_differing": int(counts[0]), "normal_pairs_differing": int(counts[1]),
+            "first": None if f == 0xFFFFFFFF else (f >> 16, f & 0xFFFF)}

@@ -874,10 +874,13 @@ def test_rwkv_chunk_kernel_repeats_bitwise_at_prefill_shape(dev, with_state):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(64, 128), (300, 200), (1024, 96), (17, 384),
-                                   (1, 1), (33, 129), (2560, 8960)])
+                                   (1, 1), (33, 129), (2560, 8960), (1024, 1023),
+                                   (2560, 8961)])
 def test_invariant_stats_kernel_matches_plain(dev, dtype, shape):
-    """Ragged d_in and n included; fp32 sums in another order than the
-    plain version's (1e-5)."""
+    """Ragged d_in and n included, and rows whose stride is not a multiple
+    of 16 bytes (narrower loads: (1024, 1023), (2560, 8961), (33, 129));
+    fp32 sums in another order than the plain version's (1e-5); one
+    counted launch a call."""
     g = torch.Generator(device=dev).manual_seed(shape[0] + shape[1])
     w0 = torch.randn(*shape, generator=g, device=dev)
     w1 = (w0 + 0.02 * torch.randn(*shape, generator=g, device=dev)).to(dtype)
@@ -889,6 +892,18 @@ def test_invariant_stats_kernel_matches_plain(dev, dtype, shape):
     want = stats.invariant_stats_plain(w0, w1)
     assert got.dtype == torch.float32 and got.shape == (shape[1],)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d_in,n,dtype", [(1024, 1024, torch.float32),
+                                           (1024, 1024, torch.bfloat16),
+                                           (2560, 8960, torch.bfloat16)])
+def test_invariant_stats_kernel_repeats_bitwise(dev, d_in, n, dtype):
+    """Two calls give the same bits: the row groups' and the cluster's
+    blocks' partials are added in a fixed order, with no atomics."""
+    g = torch.Generator(device=dev).manual_seed(d_in + n)
+    w0 = torch.randn(d_in, n, generator=g, device=dev).to(dtype)
+    w1 = (w0.float() + 0.02 * torch.randn(d_in, n, generator=g, device=dev)).to(dtype)
+    assert torch.equal(ops.invariant_stats(w0, w1), ops.invariant_stats(w0, w1))
 
 
 def test_rwkv_and_stats_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -1347,31 +1362,93 @@ def test_rwkv_chunk_kernel_refuses_autograd(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,S,H,N,chunk", [(1, 512, 40, 64, 128), (2, 96, 3, 32, 48),
-                                           (1, 40, 2, 16, 40), (1, 256, 2, 64, 256)])
-def test_rwkv_chunk_bf16_form_matches_plain(dev, dtype, B, S, H, N, chunk):
+@pytest.mark.parametrize("B,S,H,N,chunk,with_state", [
+    (1, 512, 40, 64, 128, False), (2, 96, 3, 32, 48, False), (1, 40, 2, 16, 40, False),
+    (1, 256, 2, 64, 256, False), (1, 512, 40, 64, 128, True), (2, 96, 3, 32, 48, True),
+    (2, 256, 3, 16, 128, True), (1, 256, 4, 16, 64, False), (1, 1024, 2, 16, 512, False),
+    (1, 1024, 1, 64, 1024, True), (2, 16, 3, 32, 1, True)])
+def test_rwkv_chunk_bf16_form_matches_plain(dev, dtype, B, S, H, N, chunk, with_state):
     """B12's bf16 chunk form (rwkv_out_bf16_kernel) against its plain form:
     relative 2-norm <= 5e-4 and ∞-norm <= 1e-2 (a score whose bf16
     rounding flips between the two is a sparse error: a 1e-7 relative
     change of logw moves the plain form by ~3e-5 in 2-norm, while the fp32
     form lies ~2e-3 away), the state as the fp32 form's (1e-4); its own
-    launch counter; two calls the same bits."""
+    launch counter; two calls the same bits. Chunks past 128 take several
+    key tiles; a non-zero state feeds the inter term."""
     g = torch.Generator(device=dev).manual_seed(S + N)
     r, k, v = (torch.randn(B, S, H, N, generator=g, device=dev).to(dtype) for _ in range(3))
     u = 0.1 * torch.randn(H, N, generator=g, device=dev)
     logw = -torch.exp(torch.rand(H, N, generator=g, device=dev) * 5 - 6
                       + 0.1 * torch.randn(B, S, H, N, generator=g, device=dev))
+    state = 0.5 * torch.randn(B, H, N, N, generator=g, device=dev) if with_state else None
     ops.reset_launch_counts()
     with torch.no_grad():
-        y, st = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=chunk)
-        y2, _ = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=chunk)
+        y, st = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=chunk, state=state)
+        y2, _ = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=chunk, state=state)
     assert ops.launch_counts()["rwkv_chunk_scan_bf16"] == 2
     assert ops.launch_counts()["rwkv_chunk_scan"] == 0
-    yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk,
+    yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, state=state,
                                         chunk_dtype=torch.bfloat16)
     assert torch.equal(y, y2)
     assert float((y - yp).norm() / yp.norm()) <= 5e-4
     assert _rel_err(y, yp) <= 1e-2 and _rel_err(st, sp) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rwkv_chunk_bf16_form_strong_decay_finite(dev, dtype):
+    """logw = -8 over 128-token chunks in the bf16 form: the masked pairs
+    (j >= t) have exponents up to +1016, whose e^x is inf; the kernel
+    selects 0 for them, so y is finite and within the bf16 form's bounds."""
+    r, k, v, logw, u = _rwkv_inputs(1, 256, 2, 64, dtype, dev, 8, logw=-8.0)
+    y, st = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=128)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yp, sp = rwkv.rwkv_chunk_scan_plain(r, k, v, logw, u, chunk=128,
+                                        chunk_dtype=torch.bfloat16)
+    assert float((y - yp).norm() / yp.norm()) <= 5e-4
+    assert _rel_err(y, yp) <= 1e-2 and _rel_err(st, sp) <= 1e-4
+
+
+def test_rwkv_chunk_bf16_form_graphs_on_two_streams(dev):
+    """The bf16 form keeps no state between launches: two CUDA graphs of it
+    (captured on one capture stream) replayed at once on two streams, while
+    an eager call runs on the current stream, each give the eager call's
+    bits."""
+    r, k, v, logw, u = _rwkv_inputs(1, 512, 8, 64, torch.bfloat16, dev, 5)
+    with torch.no_grad():
+        want, _ = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=128)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):              # warm-up off the capture
+            ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=128)
+        torch.cuda.current_stream().wait_stream(side)
+        graphs, outs = [], []
+        for _ in range(2):
+            graphs.append(torch.cuda.CUDAGraph())
+            with torch.cuda.graph(graphs[-1]):
+                outs.append(ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=128)[0])
+        streams = [torch.cuda.Stream() for _ in graphs]
+        for s, graph in zip(streams, graphs):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                for _ in range(4):
+                    graph.replay()
+        eager, _ = ops.rwkv_chunk_scan_bf16(r, k, v, logw, u, chunk=128)
+        for s in streams:
+            torch.cuda.current_stream().wait_stream(s)
+        torch.cuda.synchronize()
+    assert torch.equal(eager, want)
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+def test_rwkv_bf16_packed_product_rounds_as_fp32(dev):
+    """rwkv_out_bf16_kernel forms bf16(r)·bf16(k) with mul.rn.bf16x2 (the
+    exact product rounded once); the plain form multiplies in fp32 and
+    rounds to bf16. Over every pair of bf16 values but NaNs, subnormals
+    included, the two give the same bits."""
+    res = rwkv.bf16_product_check()
+    assert res["pairs_differing"] == 0, res
 
 
 # ---------------------------------------------------------------------------
