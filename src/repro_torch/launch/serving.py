@@ -22,10 +22,21 @@ recurrent engine (RWKV-6, RG-LRU) takes prompts of exactly
 Masking the FFN hidden activation equals serving the extracted sub-model
 (act(0) = 0 for every supported activation): ``apply_masks_to_params`` is
 that reference.
+
+Spans (``repro_torch.tracing``, when recording is on): per request
+``serve.request`` (submit until its tokens are in the results) and
+``serve.queued`` (submit until its admission starts), each with ``rid``;
+``serve.admit`` (``rid``) around an admission, holding ``serve.bank_row``,
+``serve.prefill`` and ``serve.insert``; ``serve.decode_chunk`` around a
+chunk, holding ``serve.chunk_issue`` (the copies to the device until every
+launch of ``_decode_program`` is enqueued) and ``serve.chunk_sync`` (the
+host reads at its end); ``serve.retire`` around the bookkeeping after it.
+``stats["prefill_s"]`` and ``stats["decode_s"]`` sum the durations of
+``serve.prefill`` and ``serve.decode_chunk``, clocked whether recording is
+on or off.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -33,6 +44,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import transformer_hooks as hooks
 from repro_torch.core.dropout import keep_count
@@ -205,6 +217,7 @@ class ServeEngine:
         self.queue: deque = deque()
         self.live: Dict[int, dict] = {}
         self._next_rid = 0
+        self._spans: Dict[int, tuple] = {}     # rid -> (request, queued) tokens
         self.stats = {"prefills": 0, "chunks": 0, "decode_steps": 0,
                       "decode_tokens": 0, "decode_s": 0.0, "prefill_s": 0.0}
 
@@ -228,10 +241,12 @@ class ServeEngine:
         """``chunk`` greedy steps over every slot: the slots' rows, tokens
         and positions go to the device, ``_decode_program`` runs there, and
         its tokens and positions come back in one host sync at the end."""
-        toks, pos = self._decode_program(
-            *(torch.from_numpy(a).to(self.device) for a in (self.row, self.tok, self.pos)))
+        with tracing.span("serve.chunk_issue"):
+            toks, pos = self._decode_program(
+                *(torch.from_numpy(a).to(self.device) for a in (self.row, self.tok, self.pos)))
         self.stats["decode_steps"] += self.chunk
-        return toks.cpu().numpy(), pos.cpu().numpy()
+        with tracing.span("serve.chunk_sync"):
+            return toks.cpu().numpy(), pos.cpu().numpy()
 
     def _decode_program(self, idx, tok, pos):
         """The chunk's device program (the reference's jitted chunk): from
@@ -269,31 +284,42 @@ class ServeEngine:
                              f"[1, {self.max_gen_len}]")
         req.rid = self._next_rid
         self._next_rid += 1
+        if tracing.enabled():
+            self._spans[req.rid] = (tracing.begin("serve.request", rid=req.rid),
+                                    tracing.begin("serve.queued", rid=req.rid))
         self.queue.append(req)
         return req.rid
 
+    def _finish(self, results, rid: int, out: np.ndarray):
+        results[rid] = out
+        tracing.end(self._spans.pop(rid, (None,))[0])
+
     def _admit(self, slot: int, req: ServeRequest):
-        in_use = [s["row"] for s in self.live.values()]
-        row = self.bank.row_for(req.fingerprint(), lambda: req.masks,
-                                in_use=in_use)
-        L = len(req.tokens)
-        toks = np.zeros((1, self.max_prompt_len), np.int64)
-        toks[0, :L] = np.asarray(req.tokens, np.int64)
-        t0 = time.perf_counter()
-        first, cache1 = self._prefill(torch.from_numpy(toks).to(self.device),
-                                      L, row)
-        self.stats["prefill_s"] += time.perf_counter() - t0
-        self.stats["prefills"] += 1
-        state = {"req": req, "row": row, "out": [first],
-                 "remaining": req.gen_len - 1}
-        if state["remaining"] > 0:
-            self._insert(cache1, slot)
-            self.tok[slot, 0] = first
-            self.pos[slot] = L
-            self.row[slot] = row
-            self.live[slot] = state
-            return None
-        return np.asarray(state["out"], np.int32)     # gen_len == 1
+        tracing.end(self._spans.get(req.rid, (None, None))[1])
+        with tracing.span("serve.admit", rid=req.rid):
+            with tracing.span("serve.bank_row"):
+                in_use = [s["row"] for s in self.live.values()]
+                row = self.bank.row_for(req.fingerprint(), lambda: req.masks,
+                                        in_use=in_use)
+            L = len(req.tokens)
+            toks = np.zeros((1, self.max_prompt_len), np.int64)
+            toks[0, :L] = np.asarray(req.tokens, np.int64)
+            with tracing.timed("serve.prefill") as t:
+                first, cache1 = self._prefill(torch.from_numpy(toks).to(self.device),
+                                              L, row)
+            self.stats["prefill_s"] += t.seconds
+            self.stats["prefills"] += 1
+            state = {"req": req, "row": row, "out": [first],
+                     "remaining": req.gen_len - 1}
+            if state["remaining"] > 0:
+                with tracing.span("serve.insert"):
+                    self._insert(cache1, slot)
+                self.tok[slot, 0] = first
+                self.pos[slot] = L
+                self.row[slot] = row
+                self.live[slot] = state
+                return None
+            return np.asarray(state["out"], np.int32)     # gen_len == 1
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drain the queue; returns {rid: generated tokens (gen_len,)}."""
@@ -304,34 +330,40 @@ class ServeEngine:
                 req = self.queue.popleft()
                 done = self._admit(free[0], req)
                 if done is not None:
-                    results[req.rid] = done
+                    self._finish(results, req.rid, done)
                 else:
                     free.pop(0)
             if not self.live:
                 continue
-            t0 = time.perf_counter()
-            toks, pos = self._decode_chunk()
-            self.stats["decode_s"] += time.perf_counter() - t0
-            self.stats["chunks"] += 1
-            self.tok[:, 0] = toks[:, -1]
-            self.pos[:] = pos
-            for slot in list(self.live):
-                st = self.live[slot]
-                take = min(self.chunk, st["remaining"])
-                st["out"].extend(toks[slot, :take].tolist())
-                st["remaining"] -= take
-                self.stats["decode_tokens"] += take
-                if st["remaining"] == 0:
-                    results[st["req"].rid] = np.asarray(st["out"], np.int32)
-                    del self.live[slot]
-            # park retired/empty slots at position 0 so their (discarded)
-            # decode activity never ring-wraps the cache
-            for s in range(self.B):
-                if s not in self.live:
-                    self.pos[s] = 0
-                    self.tok[s, 0] = 0
-                    self.row[s] = 0
+            with tracing.timed("serve.decode_chunk") as t:
+                toks, pos = self._decode_chunk()
+            self.stats["decode_s"] += t.seconds
+            with tracing.span("serve.retire"):
+                self._retire(results, toks, pos)
         return results
+
+    def _retire(self, results, toks, pos):
+        """After a chunk: each live slot takes its tokens, finished requests
+        go into ``results``, and free slots are parked."""
+        self.stats["chunks"] += 1
+        self.tok[:, 0] = toks[:, -1]
+        self.pos[:] = pos
+        for slot in list(self.live):
+            st = self.live[slot]
+            take = min(self.chunk, st["remaining"])
+            st["out"].extend(toks[slot, :take].tolist())
+            st["remaining"] -= take
+            self.stats["decode_tokens"] += take
+            if st["remaining"] == 0:
+                self._finish(results, st["req"].rid, np.asarray(st["out"], np.int32))
+                del self.live[slot]
+        # park retired/empty slots at position 0 so their (discarded)
+        # decode activity never ring-wraps the cache
+        for s in range(self.B):
+            if s not in self.live:
+                self.pos[s] = 0
+                self.tok[s, 0] = 0
+                self.row[s] = 0
 
     def summary(self) -> dict:
         """Counters of the run, and the serving kernels' launch counts

@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch.sharding import train_kernels_context
@@ -22,14 +23,18 @@ def make_grads_fn(cfg: ModelConfig, use_kernels: bool = False):
     loss and its gradients (a tree like params), both computed inside
     ``train_kernels_context(ffn=use_kernels)`` so that a block-remat
     recompute in the backward takes the forward's FFN route. The params
-    are not changed and need no ``requires_grad``."""
+    are not changed and need no ``requires_grad``. Spans (``tracing``):
+    ``train.forward`` around the loss, ``train.backward`` around its
+    gradients (a remat recompute included)."""
     def grads_of(params, batch, masks=None):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(live)
         with train_kernels_context(ffn=use_kernels):
-            loss, metrics = model_lib.loss_fn(live, cfg, batch, masks=masks)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+            with tracing.span("train.forward"):
+                loss, metrics = model_lib.loss_fn(live, cfg, batch, masks=masks)
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
         by_leaf = dict(zip(map(id, leaves), grads))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), tree_map(lambda p: by_leaf[id(p)], live)
@@ -45,12 +50,15 @@ def make_train_step(cfg: ModelConfig, with_masks: bool = False,
     only meaningful with with_masks=True. With cfg.grad_accum > 1 the batch
     is split into that many microbatches, taken in order: gradients summed
     into zeros of the params' dtype and divided by the count, the loss
-    their mean, the other metrics the last microbatch's."""
+    their mean, the other metrics the last microbatch's. Spans
+    (``tracing``): ``train.step`` around the whole, holding
+    ``make_grads_fn``'s, ``train.accumulate`` around each microbatch's
+    gradient sum and ``train.optimizer`` around the update."""
     opt = make_optimizer(cfg.optimizer)
     accum = max(cfg.grad_accum, 1)
     grads_of = make_grads_fn(cfg, use_kernels)
 
-    def step(params, opt_state, batch, masks=None):
+    def update(params, opt_state, batch, masks):
         if accum > 1:
             gsum = tree_map(torch.zeros_like, params)
             loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
@@ -58,15 +66,21 @@ def make_train_step(cfg: ModelConfig, with_masks: bool = False,
                 mb = tree_map(lambda x: x.reshape(accum, x.shape[0] // accum,
                                                   *x.shape[1:])[k], batch)
                 (loss_k, metrics), g = grads_of(params, mb, masks)
-                for a, gg in zip(tree_leaves(gsum), tree_leaves(g)):
-                    a.add_(gg.to(a.dtype))
-                loss = loss + loss_k
+                with tracing.span("train.accumulate"):
+                    for a, gg in zip(tree_leaves(gsum), tree_leaves(g)):
+                        a.add_(gg.to(a.dtype))
+                    loss = loss + loss_k
             grads = tree_map(lambda g: g.div_(accum), gsum)
             loss = loss / accum
         else:
             (loss, metrics), grads = grads_of(params, batch, masks)
-        params, opt_state = opt.update(grads, opt_state, params, cfg.learning_rate)
+        with tracing.span("train.optimizer"):
+            params, opt_state = opt.update(grads, opt_state, params, cfg.learning_rate)
         return params, opt_state, dict(metrics, loss=loss)
+
+    def step(params, opt_state, batch, masks=None):
+        with tracing.span("train.step"):
+            return update(params, opt_state, batch, masks)
 
     if with_masks:
         return step
