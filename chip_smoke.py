@@ -342,6 +342,10 @@ RWKV_NOISE_SEEDS = (1, 2, 3)
 E2E_GAP_FACTOR, E2E_AGREEMENT_MARGIN = 3.0, 0.2
 SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa")
 TRAIN_KERNELS = ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")
+# the forward's and dx's calls that took the tensor-core route (bf16, M >= 128)
+TC_KERNELS = ("masked_ffn_train_fwd_tc", "masked_ffn_dx_tc")
+# the fleet's launches an SGD step (fp32, small M: none on the tensor cores)
+FLEET_PER_STEP = {**dict.fromkeys(TRAIN_KERNELS, 1), **dict.fromkeys(TC_KERNELS, 0)}
 # the head-masked kernels and their launches per SGD step (Q, K, V or O)
 ATTN_KERNELS = {"masked_head_proj": 3, "masked_head_proj_dx": 3,
                 "masked_head_proj_dw": 3, "masked_head_merge": 1,
@@ -2636,7 +2640,8 @@ def phase_train_zoo(torch, np, dev="cuda", regions=None):
     b = train.synth_batch(rng, cfg, B, S + 1, dev)
     routes = compare_routes(torch, cfg, params, b, masks)
     L = cfg.n_layers
-    per_step = {"masked_ffn_train_fwd": 2 * L, "masked_ffn_dx": L, "masked_ffn_dw": L}
+    per_step = {"masked_ffn_train_fwd": 2 * L, "masked_ffn_dx": L, "masked_ffn_dw": L,
+                "masked_ffn_train_fwd_tc": 2 * L, "masked_ffn_dx_tc": L}
     check(routes["launches_dense"] == zero,
           f"train_zoo: the dense route launched {routes['launches_dense']}")
     check(all(routes["launches_kernel"][k] == v for k, v in per_step.items()),
@@ -3028,8 +3033,7 @@ def fl_phase(torch, np, name, workload, per_step, dev="cuda"):
 def phase_train(torch, np, dev="cuda"):
     """femnist_kernel (KernelMLP): each masked-FFN training kernel launches
     once per SGD step."""
-    return fl_phase(torch, np, "train", "femnist_kernel",
-                    {k: 1 for k in TRAIN_KERNELS}, dev)
+    return fl_phase(torch, np, "train", "femnist_kernel", dict(FLEET_PER_STEP), dev)
 
 
 def phase_train_attn(torch, np, dev="cuda"):
@@ -3037,7 +3041,7 @@ def phase_train_attn(torch, np, dev="cuda"):
     kernel launches 3 times per SGD step (Q, K, V), each merge kernel once
     (O), each masked-FFN training kernel once."""
     return fl_phase(torch, np, "train_attn", "femnist_attn",
-                    {**{k: 1 for k in TRAIN_KERNELS}, **ATTN_KERNELS}, dev)
+                    {**FLEET_PER_STEP, **ATTN_KERNELS}, dev)
 
 
 # rounds, and the accuracy a run must end above (chance). Shakespeare's LSTM
@@ -3492,7 +3496,7 @@ def phase_population(torch, np, dev="cuda"):
     from repro_torch.kernels import ops
     name = "population"
     cohort = POP_CFG["cohort_size"]
-    per_step = {k: 1 for k in TRAIN_KERNELS}
+    per_step = dict(FLEET_PER_STEP)
     ops.reset_launch_counts()                  # main path starts here
     with HoldLaunches(torch) as hold:
         sim, log, timer, victim = pop_run(torch, POP_ROUNDS, dev, drift_at=POP_DRIFT_AT)
@@ -3679,7 +3683,7 @@ def phase_async(torch, np, dev="cuda"):
     from repro_torch.fl.population import PopulationConfig, build_population
     from repro_torch.kernels import ops
     name = "async"
-    per_step = {k: 1 for k in TRAIN_KERNELS}
+    per_step = dict(FLEET_PER_STEP)
     ops.reset_launch_counts()                  # main path starts here
     with HoldLaunches(torch) as hold:
         run = async_run(torch, np, ASYNC_ARGS, ASYNC_BUFFERS, dev)

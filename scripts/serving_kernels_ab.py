@@ -99,7 +99,7 @@ def by_kernel(torch, cs, run, n=10, watch=("rwkv", "dw")):
     eager calls."""
     torch.cuda.synchronize()
     rows = cs.busy_share(torch, lambda: [run() for _ in range(n)], watch=watch)
-    name = lambda k: re.search(r"(\w+_kernel)", k).group(1) if "_kernel" in k else k[:60]
+    name = lambda k: re.search(r"(\w+_kernel\w*)", k).group(1) if "_kernel" in k else k[:60]
     return {name(r["kernel"]): r["us_per_call"] for r in rows.get("watched", [])}
 
 
@@ -324,11 +324,15 @@ def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> 
         _build.build_all(["rwkv_chunk", "masked_ffn_train"])
         return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
                 "kernels": scan_dw(torch, np, cs)}
+    # the training forward's and dx's sources: masked_ffn_train, and where the
+    # checkout has it the tensor-core route's masked_ffn_train_tc
+    train_srcs = [n for n in _build.sources() if n.startswith("masked_ffn_train")]
     if which == "zoo_train":
         t0 = time.perf_counter()
-        _build.build_all(["masked_ffn_train"])
+        _build.build_all(train_srcs)
         return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
-                "ptxas": [ln for ln in _build.build_log.get("masked_ffn_train", "").splitlines()
+                "ptxas": [ln for name in train_srcs
+                          for ln in _build.build_log.get(name, "").splitlines()
                           if "registers" in ln or "spill" in ln],
                 "kernels": zoo_train(torch, np, cs)}
     if which == "bf16_scan_stats":
@@ -348,9 +352,10 @@ def child(src: str, tune: dict, profile: bool, rotate_ffn: bool, which: str) -> 
         if "cover" in tune:
             ffn.FD_COVER = tune["cover"]
         t0 = time.perf_counter()
-        _build.build_all(["masked_ffn_train"])
+        _build.build_all(train_srcs)
         return {"src": src, "tune": tune, "build_s": time.perf_counter() - t0,
-                "ptxas": [ln for ln in _build.build_log.get("masked_ffn_train", "").splitlines()
+                "ptxas": [ln for name in train_srcs
+                          for ln in _build.build_log.get(name, "").splitlines()
                           if "registers" in ln or "spill" in ln],
                 "kernels": fwd_dx(torch, np, cs, ffn)}
     if "ts" in tune:

@@ -21,7 +21,9 @@ card to the plain version:
   Pallas ``_fwd_kernel``, ``_dx_kernel`` and ``_dw_kernel`` under
   ``jax.vmap``). The backward recomputes the pre-activations from the
   saved (x, weights, mask) — the reference's recompute policy — and the
-  mask gets no gradient.
+  mask gets no gradient. The forward and dx of bf16 clients of at least
+  TC_ROWS rows (``tc_route``) run instead on the tensor cores
+  (``csrc/masked_ffn_train_tc.cu``), in two launches each.
 * ``masked_ffn`` — the reference's block-masked entry: x (M, d), one
   (F/128,) 0/1 mask for every row, differentiable. It is the training
   form at C = 1 with the block mask expanded to a row mask, so it runs the
@@ -48,6 +50,10 @@ DW_ROWS = 64                   # rows of d a dW block covers (DW_DK)
 FD_WARPS = 8                   # warps a block has (FD_WARPS)
 FD_WT = 4                      # warps an m-tile takes, 32 of its 128 neurons each (FD_WT)
 FD_COVER = 1                   # blocks wanted per SM
+# the tensor-core route of the forward and dx (tc_route, csrc/masked_ffn_train_tc.cu)
+TC_ROWS = 128                  # rows of a row tile; a client needs at least this many
+TC_DEPTH = 64                  # d must be a multiple of it (a ring stage's depth)
+TC_PLANES = 3                  # bf16 terms dx splits each fp32 dzh / dzg into
 
 _ACTS = {"relu": torch.relu,
          "relu2": lambda h: torch.square(torch.relu(h)),
@@ -75,8 +81,10 @@ _DACTS = {"relu": lambda z: (z > 0).to(z.dtype),
           "silu": _dsilu}
 
 launches = _build.LaunchCounter()          # masked_ffn_batch (serving)
-train_fwd_launches = _build.LaunchCounter()
+train_fwd_launches = _build.LaunchCounter()     # every call, either route
 dx_launches = _build.LaunchCounter()
+train_fwd_tc_launches = _build.LaunchCounter()  # the calls that took the tensor-core route
+dx_tc_launches = _build.LaunchCounter()
 dw_launches = _build.LaunchCounter()
 
 
@@ -378,9 +386,44 @@ def _aligned(t):
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
+def tc_route(x):
+    """Whether the training forward and dx of x (C, M, d) run on the tensor
+    cores (``csrc/masked_ffn_train_tc.cu``): bf16, at least TC_ROWS rows a
+    client and d a multiple of TC_DEPTH, where the products are bound by
+    operations. Every other call (fp32, small M: bound by latency and fp32
+    FMA) runs ``csrc/masked_ffn_train.cu``. fp32 never goes to the tensor
+    cores: TF32 would lose precision."""
+    return (x.dtype == torch.bfloat16 and x.shape[-2] >= TC_ROWS
+            and x.shape[-1] % TC_DEPTH == 0)
+
+
+def _launch_fd_tc(name, gy, x, w_in, w_out, row_mask, w_gate, act):
+    """Two launches: the up kernel (each kept (row tile, f-block)'s
+    pre-activations, masked, into bf16 scratch: the hidden activation, or
+    dzh and dzg split into TC_PLANES bf16 terms each) and the down kernel
+    (the sum over the kept f-blocks, in f order, in one fp32 accumulator)."""
+    dev, (C, M, d), Fh = x.device, x.shape, w_in.shape[2]
+    lib = _build.load("masked_ffn_train_tc")
+    keep = torch.empty((C, -(-M // TC_ROWS), Fh // BLOCK_NEURONS), dtype=torch.int32,
+                       device=dev)
+    planes = 1 if gy is None else TC_PLANES * (1 if w_gate is None else 2)
+    scratch = torch.empty((C, planes, M, Fh), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((C, M, d), dtype=x.dtype, device=dev)
+    err = lib.masked_ffn_train_tc_launch(
+        _ptr(gy), x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
+        row_mask.data_ptr(), keep.data_ptr(), scratch.data_ptr(), out.data_ptr(), C, M, d, Fh,
+        _ACT_CODE[act], torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    (train_fwd_tc_launches if gy is None else dx_tc_launches).n += 1
+    return out
+
+
 def _launch_fd(name, gy, x, w_in, w_out, row_mask, w_gate, act):
     dtype, dev, (C, M, d), Fh = x.dtype, x.device, x.shape, w_in.shape[2]
     w_in, w_out, row_mask, w_gate = (_aligned(t) for t in (w_in, w_out, row_mask, w_gate))
+    if tc_route(x):
+        return _launch_fd_tc(name, gy, x, w_in, w_out, row_mask, w_gate, act)
     lib = _build.load("masked_ffn_train")
     geo = fwd_dx_launch_geometry(C, M, d, Fh, _build.sm_count(dev))
     nfb = Fh // BLOCK_NEURONS           # the f-blocks' fp32 partials, for the reduce
@@ -474,6 +517,15 @@ def _bind_train(lib):
 _build.register_binding("masked_ffn_train", _bind_train)
 
 
+def _bind_train_tc(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.masked_ffn_train_tc_launch.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.masked_ffn_train_tc_launch.restype = i
+
+
+_build.register_binding("masked_ffn_train_tc", _bind_train_tc)
+
+
 def masked_ffn_train_fwd(x, w_in, w_out, row_mask, w_gate=None, *,
                          act="silu"):
     """Forward of the training form (no autograd): CUDA tensors launch the
@@ -533,8 +585,9 @@ def masked_ffn_train(x, w_in, w_out, row_mask, w_gate=None, *,
     (d, F) and ``w_out[c]`` (F, d) under its own ``row_mask[c]`` (M, F).
     Returns (C, M, d) in ``x.dtype``. F must be a multiple of 128.
     One forward launch, and one dx and one dW launch in the backward, cover
-    all C clients. Tiles that no row of an 8-row m-tile keeps are skipped;
-    their dW is exactly 0."""
+    all C clients (the forward and dx: two on the tensor-core route,
+    ``tc_route``). Tiles that no row of an 8-row m-tile (a 128-row tile on
+    that route) keeps are skipped; their dW is exactly 0."""
     _validate_train(x, w_in, w_out, w_gate, row_mask)
     if act not in _ACTS:
         raise ValueError(f"act must be one of {sorted(_ACTS)}, got {act!r}")

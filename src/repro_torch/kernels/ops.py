@@ -26,6 +26,8 @@ LAUNCHES = {"masked_ffn_batch": _masked_ffn_mod.launches,
             "decode_gqa": _decode_gqa_mod.launches,
             "masked_ffn_train_fwd": _masked_ffn_mod.train_fwd_launches,
             "masked_ffn_dx": _masked_ffn_mod.dx_launches,
+            "masked_ffn_train_fwd_tc": _masked_ffn_mod.train_fwd_tc_launches,
+            "masked_ffn_dx_tc": _masked_ffn_mod.dx_tc_launches,
             "masked_ffn_dw": _masked_ffn_mod.dw_launches,
             **_masked_attn_mod.LAUNCHES,
             "rwkv_chunk_scan": _rwkv_chunk_mod.launches,
