@@ -1,8 +1,10 @@
 """Model configuration schema + registry (port of ``repro/configs/base.py``).
 
-The schema is the reference's field for field, so ``smoke()`` cuts every
-config to the same shapes in both packages. Every architecture of the
-reference is registered, and ``models.model`` builds and runs each.
+The schema is the reference's field for field, plus ``PORT_ONLY``: fields
+of published blocks the reference does not model, whose defaults keep the
+reference's behaviour. ``smoke()`` cuts every config to the same shapes in
+both packages. Every architecture of the reference is registered, and
+``models.model`` builds and runs each.
 """
 from __future__ import annotations
 
@@ -36,6 +38,10 @@ class ModelConfig:
     parallel_block: bool = False   # command-r style parallel attn+ffn
     norm_kind: str = "rmsnorm"     # rmsnorm | layernorm
     rope_theta: float = 10000.0
+    # YaRN (DeepSeek-V2's ``rope_scaling``), read by MLA's rotary slice and
+    # softmax scale: None, or the published dict, kept as sorted (key,
+    # value) pairs so the config stays hashable; ``yarn`` gives the dict
+    rope_scaling: Optional[Tuple[Tuple[str, object], ...]] = None
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
 
@@ -59,6 +65,8 @@ class ModelConfig:
     dense_ff_residual: bool = False
     first_k_dense: int = 0
     router_aux_coef: float = 0.001
+    norm_topk_prob: bool = True    # top-k weights over their sum; else raw probs
+    seq_aux: bool = False          # balance loss per sequence, then the mean
     moe_impl: str = "capacity"
     moe_token_chunk: int = 8192
     moe_expert_chunk: int = 0
@@ -91,7 +99,28 @@ class ModelConfig:
     remat: str = "none"
     grad_accum: int = 1
 
+    def reference_fields(self) -> dict:
+        """``dataclasses.asdict`` without ``PORT_ONLY``: the reference's
+        schema. Raises where a port-only field is off its default, which
+        that schema cannot state."""
+        out = dataclasses.asdict(self)
+        for f in dataclasses.fields(self):
+            if f.name in PORT_ONLY:
+                if out.pop(f.name) != f.default:
+                    raise ValueError(f"{f.name} is set; the reference's schema "
+                                     f"has no such field")
+        return out
+
+    def __post_init__(self):
+        if isinstance(self.rope_scaling, dict):
+            object.__setattr__(self, "rope_scaling",
+                               tuple(sorted(self.rope_scaling.items())))
+
     # derived -------------------------------------------------------------------
+    @property
+    def yarn(self) -> Optional[dict]:
+        return dict(self.rope_scaling) if self.rope_scaling else None
+
     @property
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
@@ -158,6 +187,8 @@ class ModelConfig:
             over.update(enc_layers=2, n_layers=2)
         return self.with_overrides(**over)
 
+
+PORT_ONLY = ("rope_scaling", "norm_topk_prob", "seq_aux")
 
 # ---------------------------------------------------------------------------
 # Registry

@@ -35,6 +35,7 @@ from repro_torch.models.layers import cdtype
 from repro_torch.optim import make_optimizer
 
 FFN_KEYS = ("w_in", "w_gate", "w_out")   # the leaves ffn_unit_stats reads
+MOE_KEYS = ("w_in",)                     # ... of an MoE layer's experts
 
 
 def _device(device):
@@ -63,14 +64,15 @@ def synth_batch(rng, cfg, batch, seq, device="cuda"):
 
 def ffn_snapshot(params, cfg):
     """Clones of the FFN leaves ``hooks.ffn_unit_stats`` reads, in its
-    params layout. The optimizer updates params in place, so the previous
-    calibration's weights must be copied, not aliased."""
+    params layout: a dense FFN's or channel mix's three matrices, an MoE
+    layer's experts' w_in alone. The optimizer updates params in place, so
+    the previous calibration's weights must be copied, not aliased."""
     out = {}
     for si, seg in enumerate(transformer.build_segments(cfg)):
         sp = params["stack"][f"seg{si}"]
         out[f"seg{si}"] = {
             f"l{i}": {key: {k: w.clone() for k, w in sp[f"l{i}"][key].items()
-                            if k in FFN_KEYS}
+                            if k in (MOE_KEYS if key == "moe" else FFN_KEYS)}
                       for key in ("ffn", "cmix", "moe") if key in sp[f"l{i}"]}
             for i in range(len(seg.unit))}
     return {"stack": out}

@@ -97,22 +97,60 @@ def rope_freqs(dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
 
 
+def yarn_mscale(scale: float, m: float = 1.0) -> float:
+    """YaRN's magnitude factor 0.1 · m · ln(scale) + 1 (1 at scale <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+
+def yarn_freqs(dim: int, theta: float, yarn: dict):
+    """DeepSeek-V2's YaRN frequencies of a ``dim``-wide rotary slice: the
+    interpolated frequencies (over ``factor``) below the correction range,
+    the original ones above it, and a linear ramp between, the range from
+    ``beta_fast`` and ``beta_slow`` rotations at the original length."""
+    s, L0 = yarn["factor"], yarn["original_max_position_embeddings"]
+    extra = rope_freqs(dim, theta)
+    inter = extra / np.float32(s)
+
+    def corr(rotations):
+        return dim * math.log(L0 / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+    low = max(math.floor(corr(yarn["beta_fast"])), 0)
+    high = min(math.ceil(corr(yarn["beta_slow"])), dim - 1)
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float32) - low)
+                   / np.float32(max(high - low, 1e-3)), 0, 1)
+    return (inter * ramp + extra * (1 - ramp)).astype(np.float32)
+
+
+def yarn_cos_scale(yarn: dict) -> float:
+    """The factor on YaRN's cos and sin: mscale(s, mscale) over
+    mscale(s, mscale_all_dim)."""
+    s = yarn["factor"]
+    return (yarn_mscale(s, yarn.get("mscale", 1.0))
+            / yarn_mscale(s, yarn.get("mscale_all_dim", 0.0)))
+
+
 @functools.lru_cache(maxsize=None)
-def _rope_freqs_on(dim: int, theta: float, device: torch.device):
+def _rope_freqs_on(dim: int, theta: float, device: torch.device, scaling=None):
     # cached per device: a host-to-device copy per call would block the
     # host until the card's queue drains, every layer of every decode step
-    return torch.from_numpy(rope_freqs(dim, theta)).to(device)
+    f = rope_freqs(dim, theta) if scaling is None else yarn_freqs(dim, theta, dict(scaling))
+    return torch.from_numpy(f).to(device)
 
 
-def apply_rope(x, positions, theta: float, has_heads: bool = True):
+def apply_rope(x, positions, theta: float, has_heads: bool = True, scaling=None):
     """Split-halves RoPE. x: (..., S, H, hd) if has_heads else (..., S, hd);
-    positions: (..., S)."""
+    positions: (..., S). ``scaling``: a config's ``rope_scaling`` (YaRN's
+    frequencies, and its factor on cos and sin where that is not 1), or
+    None."""
     hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, theta, x.device)
+    freqs = _rope_freqs_on(hd, theta, x.device, scaling)
     ang = positions[..., None].float() * freqs          # (..., S, hd/2)
     if has_heads:
         ang = ang[..., None, :]                          # heads axis
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None:
+        k = yarn_cos_scale(dict(scaling))
+        if k != 1.0:
+            cos, sin = cos * k, sin * k
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -11,6 +11,16 @@ Two decode paths:
                  attend directly in latent space
 The reference has no Pallas kernel here: every op is plain torch, as it
 is plain jnp there. Decode updates the cache in place.
+
+A config's ``rope_scaling`` (DeepSeek-V2's YaRN, beyond the reference)
+sets the rotary slice's frequencies and multiplies the softmax scale by
+mscale(factor, mscale_all_dim)^2.
+
+Spans (``tracing``): ``mla.layer`` around a prefill or training call,
+holding ``mla.project`` (the query and latent projections) and
+``mla.attend`` (its attributes the queries and keys); ``mla.backward``
+from the backward's arrival at the call's output to its departure from
+the input.
 """
 from __future__ import annotations
 
@@ -18,10 +28,11 @@ import math
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import NEG, Q_CHUNK, slot_positions, write_slot
 from repro_torch.models.layers import (TensorSpec, apply_rope, cdtype,
-                                       dense_init, pdtype)
+                                       dense_init, pdtype, yarn_mscale)
 
 
 def init_mla(gen, cfg: ModelConfig, device, dtype, repeats=None):
@@ -62,7 +73,8 @@ def _queries(p, x, cfg: ModelConfig, positions):
     else:
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta,
+                              scaling=cfg.rope_scaling)
 
 
 def _latent(p, x, cfg: ModelConfig, positions):
@@ -71,7 +83,7 @@ def _latent(p, x, cfg: ModelConfig, positions):
     ckv_full = x @ p["w_dkv"].to(dt)
     c_kv = _rms(ckv_full[..., :lora], p["kv_norm"])
     k_rope = apply_rope(ckv_full[..., lora:], positions, cfg.rope_theta,
-                        has_heads=False)
+                        has_heads=False, scaling=cfg.rope_scaling)
     return c_kv, k_rope
 
 
@@ -84,7 +96,11 @@ def _mask(s, q_pos, kv_pos):
 
 
 def _scale(cfg: ModelConfig):
-    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    yarn = cfg.yarn
+    if yarn and yarn.get("mscale_all_dim"):
+        scale = scale * yarn_mscale(yarn["factor"], yarn["mscale_all_dim"]) ** 2
+    return scale
 
 
 def _attend(p, q_nope, q_rope, c_kv, k_rope, cfg, q_pos, kv_pos):
@@ -105,19 +121,24 @@ def mla_seq(p, x, cfg: ModelConfig, positions):
     """Prefill. Returns (y, (c_kv, k_rope)) for the cache; queries go in
     chunks of Q_CHUNK (1024) above that length, as in the reference."""
     S = x.shape[1]
-    q_nope, q_rope = _queries(p, x, cfg, positions)
-    c_kv, k_rope = _latent(p, x, cfg, positions)
-    if S <= Q_CHUNK:
-        y = _attend(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, positions)
-    else:
-        if S % Q_CHUNK:
-            raise ValueError(f"sequence length {S} must be a multiple of "
-                             f"{Q_CHUNK} above {Q_CHUNK}")
-        y = torch.cat([
-            _attend(p, q_nope[:, i:i + Q_CHUNK], q_rope[:, i:i + Q_CHUNK],
-                    c_kv, k_rope, cfg, positions[i:i + Q_CHUNK], positions)
-            for i in range(0, S, Q_CHUNK)], dim=1)
-    return y, (c_kv, k_rope)
+    if S > Q_CHUNK and S % Q_CHUNK:
+        raise ValueError(f"sequence length {S} must be a multiple of "
+                         f"{Q_CHUNK} above {Q_CHUNK}")
+    mark_input, mark_output = tracing.backward_marks("mla.backward")
+    with tracing.span("mla.layer"):
+        x = mark_input(x)
+        with tracing.span("mla.project"):
+            q_nope, q_rope = _queries(p, x, cfg, positions)
+            c_kv, k_rope = _latent(p, x, cfg, positions)
+        with tracing.span("mla.attend", queries=x.shape[0] * S, keys=x.shape[0] * S):
+            if S <= Q_CHUNK:
+                y = _attend(p, q_nope, q_rope, c_kv, k_rope, cfg, positions, positions)
+            else:
+                y = torch.cat([
+                    _attend(p, q_nope[:, i:i + Q_CHUNK], q_rope[:, i:i + Q_CHUNK],
+                            c_kv, k_rope, cfg, positions[i:i + Q_CHUNK], positions)
+                    for i in range(0, S, Q_CHUNK)], dim=1)
+        return mark_output(y), (c_kv, k_rope)
 
 
 def mla_decode(p, x, cfg: ModelConfig, cache, pos, absorb=False):

@@ -14,6 +14,12 @@ span open around it (None at the top), ``attrs`` a dict.
   recording is on or off, for callers that keep the duration themselves
   (``.seconds``); on, its span has the same two readings.
 
+- ``backward_marks(name)`` gives two identity functions for a layer's
+  input and output; differentiated, the output's opens span ``name`` on
+  the call stack when the backward reaches the layer and the input's
+  closes it when the backward leaves it. Only while recording: off, they
+  return their argument and add nothing to autograd's graph.
+
 Off is the default. Off, ``span`` and ``begin`` test one module flag and
 return a shared no-op (or None): no clock is read, nothing is kept.
 ``enable()`` turns recording on, ``disable()`` off, and ``drain()`` hands
@@ -24,6 +30,8 @@ from __future__ import annotations
 import itertools
 import time
 from typing import NamedTuple, Optional
+
+import torch
 
 _on = False
 _done: list = []
@@ -130,3 +138,47 @@ def end(token):
         return
     name, start, sid, attrs = token
     _done.append(Span(name, start, time.time_ns(), sid, None, attrs))
+
+
+class _Mark(torch.autograd.Function):
+    """Identity whose backward opens (``opens``) or closes the span held in
+    ``box``, a list the two marks of one layer share."""
+
+    @staticmethod
+    def forward(ctx, x, name, box, opens):
+        ctx.name, ctx.box, ctx.opens = name, box, opens
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.opens:
+            if _on:
+                ctx.box.append(_Open(ctx.name, {}, True).__enter__())
+        elif ctx.box:
+            ctx.box.pop().__exit__(None, None, None)
+        return g, None, None, None
+
+
+def _same(x):
+    return x
+
+
+def backward_marks(name: str):
+    """(mark_input, mark_output) of one layer's call: see the module's
+    docstring. Identity functions that change nothing while off or where
+    no gradient is taken."""
+    if not (_on and torch.is_grad_enabled()):
+        return _same, _same
+    box: list = []
+    armed: list = []
+
+    def mark_input(x):
+        if not x.requires_grad:
+            return x
+        armed.append(True)
+        return _Mark.apply(x, name, box, False)
+
+    def mark_output(y):
+        # opened only where the input's mark will close it
+        return _Mark.apply(y, name, box, True) if armed and y.requires_grad else y
+    return mark_input, mark_output

@@ -94,13 +94,13 @@ def test_config_schema_matches_reference():
     field for field; the MoE and encoder-decoder ones build at smoke size
     on the CPU with the reference's param keys and shapes."""
     jcfg, tcfg = _cfgs()
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert tcfg.reference_fields() == dataclasses.asdict(jcfg)
     assert ARCH_IDS == jax_arch_ids
     assert list(all_configs()) == list(jax_all_configs())
     for arch in ARCH_IDS:
         want, got = jax_get_config(arch), get_config(arch)
-        assert dataclasses.asdict(got) == dataclasses.asdict(want), arch
-        assert dataclasses.asdict(got.smoke()) == dataclasses.asdict(want.smoke()), arch
+        assert got.reference_fields() == dataclasses.asdict(want), arch
+        assert got.smoke().reference_fields() == dataclasses.asdict(want.smoke()), arch
         assert got.lru_dim == want.lru_dim
         assert got.layer_kinds() == want.layer_kinds(), arch
     for arch in ("deepseek-v2-lite-16b", "seamless-m4t-large-v2"):
