@@ -342,8 +342,8 @@ RWKV_NOISE_SEEDS = (1, 2, 3)
 E2E_GAP_FACTOR, E2E_AGREEMENT_MARGIN = 3.0, 0.2
 SERVE_KERNELS = ("masked_ffn_batch", "decode_gqa")
 TRAIN_KERNELS = ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")
-# the forward's and dx's calls that took the tensor-core route (bf16, M >= 128)
-TC_KERNELS = ("masked_ffn_train_fwd_tc", "masked_ffn_dx_tc")
+# the forward's, dx's and dW's calls that took the tensor-core route (bf16, M >= 128)
+TC_KERNELS = ("masked_ffn_train_fwd_tc", "masked_ffn_dx_tc", "masked_ffn_dw_tc")
 # the fleet's launches an SGD step (fp32, small M: none on the tensor cores)
 FLEET_PER_STEP = {**dict.fromkeys(TRAIN_KERNELS, 1), **dict.fromkeys(TC_KERNELS, 0)}
 # the head-masked kernels and their launches per SGD step (Q, K, V or O)
@@ -2641,7 +2641,7 @@ def phase_train_zoo(torch, np, dev="cuda", regions=None):
     routes = compare_routes(torch, cfg, params, b, masks)
     L = cfg.n_layers
     per_step = {"masked_ffn_train_fwd": 2 * L, "masked_ffn_dx": L, "masked_ffn_dw": L,
-                "masked_ffn_train_fwd_tc": 2 * L, "masked_ffn_dx_tc": L}
+                "masked_ffn_train_fwd_tc": 2 * L, "masked_ffn_dx_tc": L, "masked_ffn_dw_tc": L}
     check(routes["launches_dense"] == zero,
           f"train_zoo: the dense route launched {routes['launches_dense']}")
     check(all(routes["launches_kernel"][k] == v for k, v in per_step.items()),

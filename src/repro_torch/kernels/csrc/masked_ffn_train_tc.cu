@@ -1,33 +1,37 @@
-// The masked FFN's training forward and dx for bf16 at large M, on Hopper's
-// tensor cores (sm_90a): for C clients, each with its own weights and row
-// masks,
+// The masked FFN's training forward, dx and dW for bf16 at large M, on
+// Hopper's tensor cores (sm_90a): for C clients, each with its own weights and
+// row masks,
 //   forward  y  = ((act(x·Wg) ⊙ x·Wi) ⊙ row_mask) · Wo     (act(x·Wi) ungated)
 //   dx       dx = dzh · Wiᵀ + dzg · Wgᵀ                      (dzh alone ungated)
+//   dW       dWi = xᵀ·dzh, dWg = xᵀ·dzg, dWo = hmᵀ·gy
 // x, gy (C, M, d), Wi/Wg (C, d, F), Wo (C, F, d) bf16; row_mask (C, M, F) fp32.
 //
 // Replaces, for bf16 inputs with at least 128 rows a client and d a
 // multiple of 64 (kernels/masked_ffn.py tc_route), the Pallas kernels of
 // repro/kernels/masked_ffn.py
-//   train_fwd_kernel_tc_up / _down  <- _fwd_kernel (:107, via _fwd_impl :289)
-//   train_dx_kernel_tc_up / _down   <- _dx_kernel  (:165, via _dx_impl :327)
+//   train_fwd_kernel_tc_up / _down    <- _fwd_kernel (:107, via _fwd_impl :289)
+//   train_dx_kernel_tc_up / _down     <- _dx_kernel  (:165, via _dx_impl :327)
+//   train_dw_kernel_tc_up / _prod     <- _dw_kernel  (:193, via _dw_impl :367)
 // with their semantics: a (row tile, 128-neuron f-block) tile is skipped
 // when no row of the tile keeps any neuron of the block, and none of its
 // weight bytes is read; kept tiles apply the exact per-row mask; the forward
 // rounds the masked hidden activation to bf16 before the down product
-// (:129); dx recomputes the pre-activations and keeps dzh and dzg in fp32
-// (_bwd_core :144); every sum is fp32, in a fixed order (no atomics: two
-// calls give the same bits). Every other call (fp32, small M, d not a
-// multiple of 64) runs masked_ffn_train.cu, which shares no code with this.
+// (:129); dx and dW recompute the pre-activations and keep hm, dzh and dzg
+// in fp32 (_bwd_core :144); every sum is fp32, in a fixed order (no atomics:
+// two calls give the same bits); a dW tile of an f-block no row keeps is
+// written as exact zeros. Every other call (fp32, small M, d not a multiple
+// of 64) runs masked_ffn_train.cu, which shares no code with this.
 //
 // What bounds them on an H100: operations. At StableLM-2-12B's FFN (C 1, M
 // 1024, d 5120, F 13824, silu gated, 81 of 108 blocks kept) the forward is
 // 326 GFLOP (0.330 ms at 989 TFLOP/s bf16) on ~0.4 GB (0.12 ms at 3.35 TB/s),
-// dx 543 GFLOP as the roofline counts it (0.550 ms); dx's down products run
-// three times over (below), 978 GFLOP of products. So the products run on
-// wgmma (m64nNk16, bf16 operands from shared memory, fp32 accumulators in
-// registers), the card's only way to its full tensor-core rate (mma.sync
-// reached ~300 TFLOP/s with these tiles on an H100), and nothing of the
-// size of the output goes through device memory in fp32.
+// dx 543 GFLOP as the roofline counts it (0.550 ms), dW 652 (0.660 ms); dx's
+// down products and dW's weight products run three times over (below): 978
+// GFLOP of products each. So the products run on wgmma (m64nNk16, bf16
+// operands from shared memory, fp32 accumulators in registers), the card's
+// only way to its full tensor-core rate (mma.sync reached ~300 TFLOP/s with
+// these tiles on an H100), and nothing of the size of the output goes
+// through device memory in fp32.
 //
 // Two launches a call, each a grid of blocks of two warpgroups:
 //   up:   grid (128-row tiles, F / BF, C), warpgroup w taking the tile's
@@ -39,18 +43,19 @@
 //         cp.async ring, in wgmma's 128-byte swizzled layouts (16-byte chunk
 //         c of a 128-byte row r at chunk c ^ (r & 7), 1024-byte atoms; weight
 //         rows along F in 64-column groups), and runs the f-block's products:
-//           forward: zh = x·Wi and zg = x·Wg, BF = 128 neurons a block;
-//           dx:      zh, zg and ghm = gy·Woᵀ, BF = 64 neurons a block.
+//           forward:   zh = x·Wi and zg = x·Wg, BF = 128 neurons a block;
+//           dx and dW: zh, zg and ghm = gy·Woᵀ, BF = 64 neurons a block.
 //         Each thread then applies mask and activation to its accumulators
 //         as masked_ffn_train.cu does and writes
 //           forward: h = bf16(act-and-gate(z) ⊙ mask) into h (C, M, F) bf16;
 //           dx:      dzh (and dzg) in fp32, each split into three bf16 terms
 //                    whose sum is exactly the fp32 value (split3, below), into
-//                    planes (C, 3 or 6, M, F) bf16.
-//   down: an output tile a block, the forward's 128 x 128 (warpgroup w
-//         taking its rows 64w ..), dx's 64 x 256 (warpgroup w taking its
-//         columns 128w ..: dx stages three A tiles a step, and the wider
-//         tile reads fewer bytes a product); grid (ceil(M / rows),
+//                    planes (C, 3 or 6, M, F) bf16;
+//           dW:      the same, then hm's three terms: (C, 6 or 9, M, F).
+//   down (forward, dx): an output tile a block, the forward's 128 x 128
+//         (warpgroup w taking its rows 64w ..), dx's 64 x 256 (warpgroup w
+//         taking its columns 128w ..: dx stages three A tiles a step, and the
+//         wider tile reads fewer bytes a product); grid (ceil(M / rows),
 //         ceil(d / columns), C). Warp 0 lists the kept f-blocks of the
 //         block's 128-row tile from `keep`, in f order, and only their rows
 //         of h (or planes) and of the weights are staged: dropped blocks'
@@ -62,17 +67,35 @@
 //         one fp32 accumulator an output element over every kept f-block in
 //         f order, rounded once to bf16. A row no kept block covers comes
 //         out exactly 0.
+//   prod (dW): a 256 (d) x 128 (f) tile of one product a block, warpgroup w
+//         taking its rows 128w .. as two 64-row halves; grid (ceil(d / 256),
+//         F / 128, C · products), products dWi [, dWg], dWo, the last
+//         computed as dWoᵀ = gyᵀ·hm and stored transposed. Warp 0 lists the
+//         f-block's kept row tiles from `keep`, in row order; 32-row stages
+//         of x (or gy) and of the three planes of the f-block stream through
+//         a PNS-stage ring, both operands MN-major (xᵀ and the planes read
+//         from their row-major (M, ·) layout, in 64-column groups, as the
+//         weights above), and each 16-deep step runs the hi, mid and lo terms
+//         against the one staged xᵀ tile:
+//           dWi[:, f] = Σ_m xᵀ[:, m]·(dzh_hi + dzh_mid + dzh_lo)[m, f]
+//         one fp32 accumulator an output element over the kept row tiles in
+//         row order, rounded once to bf16. An f-block with no kept row tile
+//         reads nothing and writes zeros; a dropped row tile's planes, never
+//         written, are never read. The tile is wide in d because the planes
+//         are read three times a product: 20 KB staged a 16-deep step for 3.1
+//         MFLOP (a 128 x 128 tile of dWi and dWg sharing xᵀ: 28 KB).
 // Each stage i: wait for its copies and pass a barrier (by then every
 // warpgroup has awaited stage i - 2's products), issue the copies of stage
-// i + 2 into stage i - 2's buffer, issue and commit the warpgroup's products
-// of stage i, and await stage i - 1's.
+// i + NS - 2 into stage i - 2's buffer, issue and commit the warpgroup's
+// products of stage i, and await stage i - 1's.
 // split3: hi = the top 16 bits of v (bf16 by truncation), mid = the same of
 // v - hi, lo = v - hi - mid; each subtraction is exact and lo has at most 8
 // significant bits, so hi + mid + lo == v for every finite v with |v| >=
 // 2^-110 (below that, bits under bf16's least subnormal 2^-133 are lost);
-// inf and NaN go whole into hi. Each term times a bf16 weight is exact in
-// fp32, so the products are dzh·Wiᵀ's, and only the order of the sum
-// differs from the FFMA kernel's.
+// inf and NaN go whole into hi. Each term times a bf16 weight (or x, or gy)
+// is exact in fp32, so dx's products are dzh·Wiᵀ's and dW's are xᵀ·dzh's
+// and hmᵀ·gy's in fp32, as _dw_kernel's, and only the order of the sum
+// differs from the FFMA kernels'.
 #include "common.cuh"
 
 namespace {
@@ -88,7 +111,10 @@ constexpr int THREADS = 256;     // two warpgroups
 constexpr int TILE_B = BM * KC * 2;   // bytes of a 128 x 64 bf16 tile, either way round
 constexpr int ATOM = 1024;       // bytes of a swizzle atom: 8 rows of 128 bytes
 constexpr int NS = 4;            // cp.async ring stages: two in flight ahead of the products
-constexpr int PLANES = 3;        // bf16 terms of an fp32 value in dx's down product
+constexpr int PLANES = 3;        // bf16 terms of an fp32 value in dx's and dW's products
+constexpr int PW = 256;          // rows of d of a dW product tile: two warpgroups of 2 x 64
+constexpr int PD = 32;           // rows of M of a dW product stage
+constexpr int PNS = 5;           // dW product ring stages: three in flight ahead of the products
 constexpr size_t MAX_SMEM = 227 * 1024;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -153,26 +179,26 @@ __device__ __forceinline__ uint64_t desc_k(const char* p) { return desc(p, 16); 
 __device__ __forceinline__ uint64_t desc_n(const char* p) { return desc(p, KC * 128); }
 
 // d (+)= a·b over 16 of k for a warpgroup's 64 rows and N columns: a
-// K-major, b K-major (TB 0) or N-major (TB 1); d as mma.sync's fragments, an
-// n8 column block j in d[4j .. 4j + 3].
-template <int TB>
+// K-major (TA 0) or M-major (TA 1), b K-major (TB 0) or N-major (TB 1); d as
+// mma.sync's fragments, an n8 column block j in d[4j .. 4j + 3].
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1), "n"(TB));
+      : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
 }
 
-template <int TB>
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -181,7 +207,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t 
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -193,13 +219,13 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t a, uint64_t 
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1), "n"(TB));
+      : "l"(a), "l"(b), "r"(1), "n"(TB), "n"(TA));
 }
 
-template <int N, int TB>
+template <int N, int TB, int TA = 0>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b) {
-  if constexpr (N == 64) wgmma_n64<TB>(d, a, b);
-  else wgmma_n128<TB>(d, a, b);
+  if constexpr (N == 64) wgmma_n64<TB, TA>(d, a, b);
+  else wgmma_n128<TB, TA>(d, a, b);
 }
 
 // A K-major tile: R rows of KC elements, row r from src + r·ld (rows >=
@@ -215,18 +241,19 @@ __device__ __forceinline__ void stage_k(char* dst, const bf16* src, size_t ld, i
   }
 }
 
-// An N-major tile: KC rows (k) of W columns (n), row k from src + k·ld
-// (16-byte chunks >= chunks_ok are zeros), as W / 64 groups of 64 columns,
-// KC rows of 128 bytes each; chunk c of a group's row k at c ^ (k & 7).
-template <int W>
+// An N-major (or M-major) tile: R rows (k) of W columns (n), row k from src
+// + k·ld (16-byte chunks >= chunks_ok and rows >= rows_ok are zeros), as W /
+// 64 groups of 64 columns, R rows of 128 bytes each; chunk c of a group's
+// row k at c ^ (k & 7).
+template <int W, int R = KC>
 __device__ __forceinline__ void stage_n(char* dst, const bf16* src, size_t ld, int chunks_ok,
-                                        int tid) {
+                                        int tid, int rows_ok = R) {
   constexpr int CH = W / 8;
 #pragma unroll
-  for (int i = 0; i < KC * CH / THREADS; ++i) {
+  for (int i = 0; i < R * CH / THREADS; ++i) {
     const int e = tid + i * THREADS, r = e / CH, c = e % CH;
-    const bool ok = c < chunks_ok;
-    cp16(dst + (c >> 3) * (KC * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4),
+    const bool ok = c < chunks_ok && r < rows_ok;
+    cp16(dst + (c >> 3) * (R * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4),
          ok ? src + (size_t)r * ld + c * 8 : src, ok);
   }
 }
@@ -276,8 +303,8 @@ struct Up {
 };
 
 // grid (row tiles, F / BF, C). out: h (C, M, F), or the planes (C, 3 or 6,
-// M, F): dzh's hi, mid, lo, then dzg's.
-template <bool BWD, bool GATED>
+// M, F): dzh's hi, mid, lo, then dzg's; with HM (dW) hm's after them.
+template <bool BWD, bool GATED, bool HM = false>
 __device__ __forceinline__ void up_body(const bf16* __restrict__ gy, const bf16* __restrict__ x,
                                         const bf16* __restrict__ w_in,
                                         const bf16* __restrict__ w_gate,
@@ -362,7 +389,8 @@ __device__ __forceinline__ void up_body(const bf16* __restrict__ gy, const bf16*
 
   // mask and activation, as masked_ffn_train.cu's warp_finish
   const int g = lane >> 2, t = lane & 3;
-  bf16* out_c = out + (size_t)c * (BWD ? (GATED ? 2 : 1) * PLANES : 1) * MF;
+  constexpr int NMAT = GATED ? 2 : 1;      // dz planes: dzh [, dzg]
+  bf16* out_c = out + (size_t)c * (BWD ? (NMAT + (HM ? 1 : 0)) * PLANES : 1) * MF;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int m = grp * 64 + (warp & 3) * 16 + g + 8 * hh;
@@ -373,7 +401,7 @@ __device__ __forceinline__ void up_body(const bf16* __restrict__ gy, const bf16*
       const int f = f0 + 8 * j + 2 * t;
       const float2 rm2 = *reinterpret_cast<const float2*>(mask_c + row + f);
       const float rm[2] = {rm2.x, rm2.y};
-      float o0[2], o1[2];
+      float o0[2], o1[2], hm[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int k = 4 * j + 2 * hh + e;
@@ -385,8 +413,10 @@ __device__ __forceinline__ void up_body(const bf16* __restrict__ gy, const bf16*
           const float zg = acc[1][k], ghm = acc[NP - 1][k] * rm[e], a = act_f(zg, act);
           o0[e] = ghm * a;
           o1[e] = ghm * zh * dact_f(zg, act);
+          if constexpr (HM) hm[e] = a * zh * rm[e];
         } else {
           o0[e] = acc[NP - 1][k] * rm[e] * dact_f(zh, act);
+          if constexpr (HM) hm[e] = act_f(zh, act) * rm[e];
         }
       }
       if constexpr (!BWD) {
@@ -394,6 +424,7 @@ __device__ __forceinline__ void up_body(const bf16* __restrict__ gy, const bf16*
       } else {
         store_split(out_c + row + f, MF, o0[0], o0[1]);
         if constexpr (GATED) store_split(out_c + PLANES * MF + row + f, MF, o1[0], o1[1]);
+        if constexpr (HM) store_split(out_c + NMAT * PLANES * MF + row + f, MF, hm[0], hm[1]);
       }
     }
   }
@@ -524,6 +555,132 @@ __device__ __forceinline__ void down_body(const bf16* __restrict__ a, const bf16
   }
 }
 
+// ---------------------------------------------------------------------------
+// prod (dW)
+
+template <bool GATED>
+struct Prod {
+  static constexpr int NPROD = GATED ? 3 : 2;          // dWi [, dWg], dWo
+  static constexpr int SUB = BM / PD;                  // stages of a row tile
+  static constexpr int A_BYTES = PD * PW * 2;          // xᵀ (or gyᵀ): 4 groups of 64 rows of d
+  static constexpr int P_BYTES = PD * BN * 2;          // a plane: 2 groups of 64 neurons
+  static constexpr int STAGE = A_BYTES + PLANES * P_BYTES;
+  static size_t smem(int nrt) { return (size_t)PNS * STAGE + ATOM + (size_t)nrt * sizeof(int); }
+};
+
+// grid (ceil(d / PW), F / BN, C · NPROD); planes (C, 3·NPROD, M, F) as the
+// dW up kernel writes them. Block (dt, fb, c·NPROD + p) computes rows d0 ..
+// d0 + PW of d and the f-block's 128 neurons of product p: a·planes[3p ..
+// 3p + 2], a = x (dWi, dWg) or gy (dWo, stored transposed). Stage i takes
+// kept row tile list[i / SUB], its (i % SUB)-th 32 rows.
+template <bool GATED>
+__device__ __forceinline__ void prod_body(const bf16* __restrict__ x, const bf16* __restrict__ gy,
+                                          const bf16* __restrict__ planes,
+                                          const int* __restrict__ keep, bf16* __restrict__ dw_in,
+                                          bf16* __restrict__ dw_gate, bf16* __restrict__ dw_out,
+                                          int M, int d, int F) {
+  using P = Prod<GATED>;
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = atom_aligned(smem_raw);
+  __shared__ int s_n;
+  const int nrt = (M + BM - 1) / BM, nfb = F / BN;
+  const int d0 = blockIdx.x * PW, fb = blockIdx.y, f0 = fb * BN;
+  const int c = blockIdx.z / P::NPROD, p = blockIdx.z % P::NPROD;
+  const bool out_prod = p == P::NPROD - 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, grp = warp >> 2;
+  const size_t MF = (size_t)M * F, dF = (size_t)d * F;
+  int* list = reinterpret_cast<int*>(smem + (size_t)PNS * P::STAGE);   // kept row tiles, in order
+
+  if (warp == 0) {                       // the f-block's kept row tiles
+    int cnt = 0;
+    for (int base = 0; base < nrt; base += 32) {
+      const int rt = base + lane;
+      const bool k = rt < nrt && keep[((size_t)c * nrt + rt) * nfb + fb] != 0;
+      const unsigned bal = __ballot_sync(0xffffffffu, k);
+      if (k) list[cnt + __popc(bal & ((1u << lane) - 1u))] = rt;
+      cnt += __popc(bal);
+    }
+    // a ragged last row tile, kept, takes only the stages that hold rows
+    const int tail = keep[((size_t)c * nrt + nrt - 1) * nfb + fb] != 0
+                         ? P::SUB - (M - (nrt - 1) * BM + PD - 1) / PD : 0;
+    if (lane == 0) s_n = cnt * P::SUB - tail;
+  }
+  __syncthreads();
+  const int n = s_n;
+  const bf16* a_c = (out_prod ? gy : x) + (size_t)c * M * d + d0;
+  const bf16* p_c = planes + ((size_t)c * P::NPROD + p) * PLANES * MF + f0;
+  const int chunks_ok = min(PW, d - d0) / 8;
+
+  auto issue = [&](int i) {
+    char* st = smem + (size_t)(i % PNS) * P::STAGE;
+    const int m0 = list[i / P::SUB] * BM + (i % P::SUB) * PD, rows = M - m0;
+    stage_n<PW, PD>(st, a_c + (size_t)m0 * d, d, chunks_ok, tid, rows);
+#pragma unroll
+    for (int t = 0; t < PLANES; ++t)
+      stage_n<BN, PD>(st + P::A_BYTES + t * P::P_BYTES, p_c + t * MF + (size_t)m0 * F, F, BN / 8,
+                      tid, rows);
+  };
+#pragma unroll
+  for (int i = 0; i < PNS - 2; ++i) {
+    if (i < n) issue(i);
+    commit_group();
+  }
+  float acc[2][BN / 2];                  // the warpgroup's two 64-row halves of d
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[h][j] = 0.f;
+    fence_regs(acc[h]);
+  }
+  for (int i = 0; i < n; ++i) {
+    wait_groups<PNS - 3>();
+    fence_async_smem();
+    __syncthreads();                       // stage i landed; stage i - 2's products are done
+    if (i + PNS - 2 < n) issue(i + PNS - 2);
+    commit_group();
+    const char* st = smem + (size_t)(i % PNS) * P::STAGE;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < PD; kk += 16) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t a = desc(st + (2 * grp + h) * (PD * 128) + kk * 128, PD * 128);
+#pragma unroll
+        for (int t = 0; t < PLANES; ++t)   // hi, mid, lo against one xᵀ tile
+          wgmma<BN, 1, 1>(acc[h], a, desc(st + P::A_BYTES + t * P::P_BYTES + kk * 128, PD * 128));
+      }
+    }
+    wg_commit();
+    wg_wait<1>();
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) fence_regs(acc[h]);
+
+  const int g = lane >> 2, t = lane & 3;
+  bf16* dst = (out_prod ? dw_out : p == 0 ? dw_in : dw_gate) + c * dF;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int k = d0 + 128 * grp + 64 * h + (warp & 3) * 16 + g + 8 * hh;   // row of d
+      if (k >= d) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int f = f0 + 8 * j + 2 * t;
+        const float v0 = acc[h][4 * j + 2 * hh], v1 = acc[h][4 * j + 2 * hh + 1];
+        if (out_prod) {
+          dst[(size_t)f * d + k] = __float2bfloat16_rn(v0);
+          dst[(size_t)(f + 1) * d + k] = __float2bfloat16_rn(v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)k * F + f) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+  }
+}
+
 // The kernels, named as the forward's and dx's (the benchmark's readers
 // match these names).
 template <bool GATED>
@@ -545,6 +702,16 @@ train_dx_kernel_tc_up(const bf16* __restrict__ gy, const bf16* __restrict__ x,
   up_body<true, GATED>(gy, x, w_in, w_gate, w_out, mask, keep, planes, M, d, F, act);
 }
 
+template <bool GATED>
+__global__ void __launch_bounds__(THREADS, 1)
+train_dw_kernel_tc_up(const bf16* __restrict__ gy, const bf16* __restrict__ x,
+                      const bf16* __restrict__ w_in, const bf16* __restrict__ w_gate,
+                      const bf16* __restrict__ w_out, const float* __restrict__ mask,
+                      int* __restrict__ keep, bf16* __restrict__ planes, int M, int d, int F,
+                      int act) {
+  up_body<true, GATED, true>(gy, x, w_in, w_gate, w_out, mask, keep, planes, M, d, F, act);
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 train_fwd_kernel_tc_down(const bf16* __restrict__ h, const bf16* __restrict__ w_out,
                          const int* __restrict__ keep, bf16* __restrict__ y, int M, int d,
@@ -558,6 +725,15 @@ train_dx_kernel_tc_down(const bf16* __restrict__ planes, const bf16* __restrict_
                         const bf16* __restrict__ w_gate, const int* __restrict__ keep,
                         bf16* __restrict__ dx, int M, int d, int F) {
   down_body<true, GATED>(planes, w_in, w_gate, keep, dx, M, d, F);
+}
+
+template <bool GATED>
+__global__ void __launch_bounds__(THREADS, 1)
+train_dw_kernel_tc_prod(const bf16* __restrict__ x, const bf16* __restrict__ gy,
+                        const bf16* __restrict__ planes, const int* __restrict__ keep,
+                        bf16* __restrict__ dw_in, bf16* __restrict__ dw_gate,
+                        bf16* __restrict__ dw_out, int M, int d, int F) {
+  prod_body<GATED>(x, gy, planes, keep, dw_in, dw_gate, dw_out, M, d, F);
 }
 
 // Lets `kern` take as much dynamic shared memory as a block may have beside
@@ -609,6 +785,32 @@ cudaError_t launch(const bf16* gy, const bf16* x, const bf16* w_in, const bf16* 
   return cudaGetLastError();
 }
 
+template <bool GATED>
+cudaError_t launch_dw(const bf16* gy, const bf16* x, const bf16* w_in, const bf16* w_gate,
+                      const bf16* w_out, const float* mask, int* keep, bf16* planes,
+                      bf16* dw_in, bf16* dw_gate, bf16* dw_out, int C, int M, int d, int F,
+                      int act, cudaStream_t s) {
+  using U = Up<true, GATED>;
+  using P = Prod<GATED>;
+  const int nrt = (M + BM - 1) / BM;
+  static bool allowed = false;
+  if (!allowed) {
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(train_dw_kernel_tc_up<GATED>));
+    if (err == cudaSuccess)
+      err = allow_smem(reinterpret_cast<const void*>(train_dw_kernel_tc_prod<GATED>));
+    if (err != cudaSuccess) return err;
+    allowed = true;
+  }
+  train_dw_kernel_tc_up<GATED><<<dim3(nrt, F / U::BF, C), THREADS, U::SMEM, s>>>(
+      gy, x, w_in, w_gate, w_out, mask, keep, planes, M, d, F, act);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  train_dw_kernel_tc_prod<GATED><<<dim3((d + PW - 1) / PW, F / BN, C * P::NPROD), THREADS,
+                                   P::smem(nrt), s>>>(x, gy, planes, keep, dw_in, dw_gate,
+                                                      dw_out, M, d, F);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The forward (gy null) or dx of the training form on the tensor cores. All
@@ -640,5 +842,36 @@ extern "C" int masked_ffn_train_tc_launch(const void* gy, const void* x, const v
   else
     err = w_gate ? launch<true, true>(bg, bx, bi, bgt, bo, mask, keep, sc, o, C, M, d, F, act, s)
                  : launch<true, false>(bg, bx, bi, bgt, bo, mask, keep, sc, o, C, M, d, F, act, s);
+  return rt::cleared(err);
+}
+
+// dW of the training form on the tensor cores: dw_in, dw_gate (C, d, F) and
+// dw_out (C, F, d) bf16, dw_gate null when ungated; the other pointers as
+// masked_ffn_train_tc_launch's. Scratch from the caller: keep (C,
+// ceil(M/128), F/128) int32 and planes (C, 3·(2 or 3), M, F) bf16 (dzh's,
+// [dzg's,] hm's three terms). Requires d % 64 == 0 and F % 128 == 0. Returns
+// the first nonzero error of the two launches; allocates nothing, never
+// synchronises.
+extern "C" int masked_ffn_dw_tc_launch(const void* gy, const void* x, const void* w_in,
+                                       const void* w_gate, const void* w_out, const float* mask,
+                                       int* keep, void* planes, void* dw_in, void* dw_gate,
+                                       void* dw_out, int C, int M, int d, int F, int act,
+                                       void* stream) {
+  if (C <= 0 || M <= 0) return cudaSuccess;
+  if (d <= 0 || d % KC || F <= 0 || F % BN) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* bg = static_cast<const bf16*>(gy);
+  const auto* bx = static_cast<const bf16*>(x);
+  const auto* bi = static_cast<const bf16*>(w_in);
+  const auto* bgt = static_cast<const bf16*>(w_gate);
+  const auto* bo = static_cast<const bf16*>(w_out);
+  auto* pl = static_cast<bf16*>(planes);
+  auto* di = static_cast<bf16*>(dw_in);
+  auto* dg = static_cast<bf16*>(dw_gate);
+  auto* dout = static_cast<bf16*>(dw_out);
+  const cudaError_t err =
+      w_gate ? launch_dw<true>(bg, bx, bi, bgt, bo, mask, keep, pl, di, dg, dout, C, M, d, F, act, s)
+             : launch_dw<false>(bg, bx, bi, bgt, bo, mask, keep, pl, di, dg, dout, C, M, d, F, act,
+                                s);
   return rt::cleared(err);
 }

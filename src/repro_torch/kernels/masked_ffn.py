@@ -21,8 +21,8 @@ card to the plain version:
   Pallas ``_fwd_kernel``, ``_dx_kernel`` and ``_dw_kernel`` under
   ``jax.vmap``). The backward recomputes the pre-activations from the
   saved (x, weights, mask) — the reference's recompute policy — and the
-  mask gets no gradient. The forward and dx of bf16 clients of at least
-  TC_ROWS rows (``tc_route``) run instead on the tensor cores
+  mask gets no gradient. The forward, dx and dW of bf16 clients of at
+  least TC_ROWS rows (``tc_route``) run instead on the tensor cores
   (``csrc/masked_ffn_train_tc.cu``), in two launches each.
 * ``masked_ffn`` — the reference's block-masked entry: x (M, d), one
   (F/128,) 0/1 mask for every row, differentiable. It is the training
@@ -50,10 +50,10 @@ DW_ROWS = 64                   # rows of d a dW block covers (DW_DK)
 FD_WARPS = 8                   # warps a block has (FD_WARPS)
 FD_WT = 4                      # warps an m-tile takes, 32 of its 128 neurons each (FD_WT)
 FD_COVER = 1                   # blocks wanted per SM
-# the tensor-core route of the forward and dx (tc_route, csrc/masked_ffn_train_tc.cu)
+# the tensor-core route of the forward, dx and dW (tc_route, csrc/masked_ffn_train_tc.cu)
 TC_ROWS = 128                  # rows of a row tile; a client needs at least this many
 TC_DEPTH = 64                  # d must be a multiple of it (a ring stage's depth)
-TC_PLANES = 3                  # bf16 terms dx splits each fp32 dzh / dzg into
+TC_PLANES = 3                  # bf16 terms dx and dW split each fp32 hm / dzh / dzg into
 
 _ACTS = {"relu": torch.relu,
          "relu2": lambda h: torch.square(torch.relu(h)),
@@ -86,6 +86,7 @@ dx_launches = _build.LaunchCounter()
 train_fwd_tc_launches = _build.LaunchCounter()  # the calls that took the tensor-core route
 dx_tc_launches = _build.LaunchCounter()
 dw_launches = _build.LaunchCounter()
+dw_tc_launches = _build.LaunchCounter()
 
 
 def _validate(x, w_in, w_out, w_gate, mask, per_row=True):
@@ -387,7 +388,7 @@ def _aligned(t):
 
 
 def tc_route(x):
-    """Whether the training forward and dx of x (C, M, d) run on the tensor
+    """Whether the training forward, dx and dW of x (C, M, d) run on the tensor
     cores (``csrc/masked_ffn_train_tc.cu``): bf16, at least TC_ROWS rows a
     client and d a multiple of TC_DEPTH, where the products are bound by
     operations. Every other call (fp32, small M: bound by latency and fp32
@@ -475,7 +476,31 @@ def dw_launch_geometry(C, M, d, F, n_sm=132):
             "grid": (groups, nfb * ndk, C), "core_pass": ndk > 1}
 
 
-def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
+def _launch_dw_tc(gy, x, w_in, w_out, row_mask, w_gate, act):
+    """Two launches: the up kernel (each kept (row tile, f-block)'s hm, dzh
+    and dzg, masked, each split into TC_PLANES bf16 terms into scratch) and
+    the product kernel (a 256 x 128 tile of one dW a block, the sum over the
+    f-block's kept row tiles, in row order, in one fp32 accumulator)."""
+    dev, (C, M, d), Fh = x.device, x.shape, w_in.shape[2]
+    lib = _build.load("masked_ffn_train_tc")
+    keep = torch.empty((C, -(-M // TC_ROWS), Fh // BLOCK_NEURONS), dtype=torch.int32,
+                       device=dev)
+    planes = torch.empty((C, TC_PLANES * (2 if w_gate is None else 3), M, Fh),
+                         dtype=torch.bfloat16, device=dev)
+    dw_in, dw_out = torch.empty_like(w_in), torch.empty_like(w_out)
+    dw_gate = None if w_gate is None else torch.empty_like(w_gate)
+    err = lib.masked_ffn_dw_tc_launch(
+        gy.data_ptr(), x.data_ptr(), w_in.data_ptr(), _ptr(w_gate), w_out.data_ptr(),
+        row_mask.data_ptr(), keep.data_ptr(), planes.data_ptr(), dw_in.data_ptr(),
+        _ptr(dw_gate), dw_out.data_ptr(), C, M, d, Fh, _ACT_CODE[act],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"masked_ffn_dw kernel launch failed: CUDA error {err}")
+    dw_tc_launches.n += 1
+    return dw_in, dw_out, dw_gate
+
+
+def _launch_dw_ffma(gy, x, w_in, w_out, row_mask, w_gate, act):
     dtype, dev, (C, M, d), Fh = x.dtype, x.device, x.shape, w_in.shape[2]
     lib = _build.load("masked_ffn_train")
     geo = dw_launch_geometry(C, M, d, Fh, _build.sm_count(dev))
@@ -498,8 +523,16 @@ def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"masked_ffn_dw kernel launch failed: CUDA error {err}")
-    dw_launches.n += 1
     return dw_in, dw_out, dw_gate
+
+
+def _launch_dw(gy, x, w_in, w_out, row_mask, w_gate, act):
+    if tc_route(x):
+        dws = _launch_dw_tc(gy, x, w_in, w_out, row_mask, w_gate, act)
+    else:
+        dws = _launch_dw_ffma(gy, x, w_in, w_out, row_mask, w_gate, act)
+    dw_launches.n += 1
+    return dws
 
 
 def _bind_train(lib):
@@ -521,6 +554,8 @@ def _bind_train_tc(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.masked_ffn_train_tc_launch.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.masked_ffn_train_tc_launch.restype = i
+    lib.masked_ffn_dw_tc_launch.argtypes = [p] * 11 + [i] * 5 + [p]
+    lib.masked_ffn_dw_tc_launch.restype = i
 
 
 _build.register_binding("masked_ffn_train_tc", _bind_train_tc)
@@ -585,8 +620,7 @@ def masked_ffn_train(x, w_in, w_out, row_mask, w_gate=None, *,
     (d, F) and ``w_out[c]`` (F, d) under its own ``row_mask[c]`` (M, F).
     Returns (C, M, d) in ``x.dtype``. F must be a multiple of 128.
     One forward launch, and one dx and one dW launch in the backward, cover
-    all C clients (the forward and dx: two on the tensor-core route,
-    ``tc_route``). Tiles that no row of an 8-row m-tile (a 128-row tile on
+    all C clients (each two on the tensor-core route, ``tc_route``). Tiles that no row of an 8-row m-tile (a 128-row tile on
     that route) keeps are skipped; their dW is exactly 0."""
     _validate_train(x, w_in, w_out, w_gate, row_mask)
     if act not in _ACTS:

@@ -29,6 +29,7 @@ LAUNCHES = {"masked_ffn_batch": _masked_ffn_mod.launches,
             "masked_ffn_train_fwd_tc": _masked_ffn_mod.train_fwd_tc_launches,
             "masked_ffn_dx_tc": _masked_ffn_mod.dx_tc_launches,
             "masked_ffn_dw": _masked_ffn_mod.dw_launches,
+            "masked_ffn_dw_tc": _masked_ffn_mod.dw_tc_launches,
             **_masked_attn_mod.LAUNCHES,
             "rwkv_chunk_scan": _rwkv_chunk_mod.launches,
             "rwkv_chunk_scan_bf16": _rwkv_chunk_mod.bf16_launches,

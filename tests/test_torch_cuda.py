@@ -406,6 +406,7 @@ def test_masked_ffn_train_autograd_launches_each_kernel_once(dev):
     counts = ops.launch_counts()
     assert [counts[k] for k in ("masked_ffn_train_fwd", "masked_ffn_dx",
                                 "masked_ffn_dw")] == [1, 1, 1]
+    assert counts["masked_ffn_dw_tc"] == 0          # fp32: the FFMA kernels
     gy = 2 * y.detach()
     args = (x.detach(), w_in.detach(), w_out.detach(), mask)
     assert _rel_err(x.grad, ffn.masked_ffn_dx_plain(gy, *args, None, "gelu")) <= 1e-4
@@ -591,32 +592,34 @@ def test_masked_ffn_fwd_dx_read_no_skipped_block(dev, dtype, C, M, d, F, gated):
     assert _rel_err(y, want_y) <= _tol(dtype) and _rel_err(dx, want_dx) <= _tol(dtype)
 
 
+_TC_COUNTED = ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")
+
+
 def _tc_counts():
-    return {k: ops.LAUNCHES[k].n for k in ("masked_ffn_train_fwd", "masked_ffn_dx",
-                                           "masked_ffn_train_fwd_tc", "masked_ffn_dx_tc")}
+    return {k: ops.LAUNCHES[k].n for k in _TC_COUNTED + tuple(k + "_tc" for k in _TC_COUNTED)}
 
 
 def _tc_fd(gy, x, w_in, w_out, mask, w_gate, act, tc):
-    """The forward and dx, each call counted once, and on the tensor cores
-    (the _tc counters) where ``tc``."""
+    """The forward, dx and dW, each call counted once, and on the tensor
+    cores (the _tc counters) where ``tc``."""
     before = _tc_counts()
     y = ffn.masked_ffn_train_fwd(x, w_in, w_out, mask, w_gate, act=act)
     dx = ffn.masked_ffn_dx(gy, x, w_in, w_out, mask, w_gate, act=act)
+    dws = ffn.masked_ffn_dw(gy, x, w_in, w_out, mask, w_gate, act=act)
     torch.cuda.synchronize()
     assert ffn.tc_route(x) is tc
     assert {k: v - before[k] for k, v in _tc_counts().items()} == {
-        "masked_ffn_train_fwd": 1, "masked_ffn_dx": 1,
-        "masked_ffn_train_fwd_tc": int(tc), "masked_ffn_dx_tc": int(tc)}
-    return y, dx
+        **dict.fromkeys(_TC_COUNTED, 1), **{k + "_tc": int(tc) for k in _TC_COUNTED}}
+    return y, dx, dws
 
 
 @pytest.mark.parametrize("M", [1024, 1000])
 def test_masked_ffn_tc_route_at_stablelm_width(dev, M):
-    """B1's training form and B2 on the tensor cores at StableLM-2-12B's FFN
-    (d 5120, F 13824, silu gated, bf16, 81 of 108 blocks kept by every row)
-    and a ragged M: within 1e-2 of the plain versions, the same bits on a
-    second call, and the same bits with every weight of the dropped blocks
-    NaN (no dropped byte is read)."""
+    """B1's training form, B2 and B3 on the tensor cores at StableLM-2-12B's
+    FFN (d 5120, F 13824, silu gated, bf16, 81 of 108 blocks kept by every
+    row) and a ragged M: within 1e-2 of the plain versions, the same bits on
+    a second call, and the same bits with every weight of the dropped blocks
+    NaN (no dropped byte is read); the dropped blocks' dW exactly 0."""
     d, F, nb = 5120, 13824, 108
     g = torch.Generator(device=dev).manual_seed(M)
     r = lambda *s, fan: (torch.randn(*s, generator=g, device=dev) / math.sqrt(fan)).to(
@@ -626,17 +629,20 @@ def test_masked_ffn_tc_route_at_stablelm_width(dev, M):
     keep = torch.zeros(nb, device=dev)
     keep[torch.randperm(nb, generator=g, device=dev)[:81]] = 1.0
     mask = keep.repeat_interleave(128).expand(1, M, F).contiguous()
-    y, dx = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "silu", True)
+    y, dx, dws = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "silu", True)
     assert _rel_err(y, ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, "silu")) <= 1e-2
     assert _rel_err(dx, ffn.masked_ffn_dx_plain(gy, x, w_in, w_out, mask, w_gate, "silu")) <= 1e-2
-    y2, dx2 = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "silu", True)
-    assert torch.equal(y, y2) and torch.equal(dx, dx2)
+    _check_dw(dws, ffn.masked_ffn_dw_plain(gy, x, w_in, w_out, mask, w_gate, "silu"), mask,
+              torch.bfloat16)
+    y2, dx2, dws2 = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "silu", True)
+    same = lambda a, b: all(torch.equal(s, t) for s, t in zip(a, b))
+    assert torch.equal(y, y2) and torch.equal(dx, dx2) and same(dws, dws2)
     cols = (keep == 0).repeat_interleave(128)
     w_in[0][:, cols] = math.nan
     w_gate[0][:, cols] = math.nan
     w_out[0][cols] = math.nan
-    y3, dx3 = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "silu", True)
-    assert torch.equal(y, y3) and torch.equal(dx, dx3)
+    y3, dx3, dws3 = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "silu", True)
+    assert torch.equal(y, y3) and torch.equal(dx, dx3) and same(dws, dws3)
 
 
 @pytest.mark.parametrize("C,M,d,F,act,gated", [(5, 200, 128, 512, "gelu", True),
@@ -645,13 +651,16 @@ def test_masked_ffn_tc_route_at_stablelm_width(dev, M):
 def test_masked_ffn_tc_route_per_row_masks(dev, C, M, d, F, act, gated):
     """The tensor-core route under per-row masks (all kept, half the blocks,
     scattered neurons, row by row with an all-zero row, nothing), a ragged
-    last row tile and d not a multiple of 128: within 1e-2 of the plain
-    versions; rows that keep nothing exactly 0."""
+    last row tile and d not a multiple of 128 (nor, for dW's 256-row tiles,
+    of 256): within 1e-2 of the plain versions; rows that keep nothing
+    exactly 0, and so is the dW of f-blocks that no row keeps."""
     gy, x, w_in, w_out, _, w_gate = _dw_case(C, M, torch.bfloat16, gated, dev, d=d, F=F)
     mask = _train_masks(C, M, F, torch.Generator(device=dev).manual_seed(M), dev)
-    y, dx = _tc_fd(gy, x, w_in, w_out, mask, w_gate, act, True)
+    y, dx, dws = _tc_fd(gy, x, w_in, w_out, mask, w_gate, act, True)
     assert _rel_err(y, ffn.masked_ffn_batch_plain(x, w_in, w_out, mask, w_gate, act)) <= 1e-2
     assert _rel_err(dx, ffn.masked_ffn_dx_plain(gy, x, w_in, w_out, mask, w_gate, act)) <= 1e-2
+    _check_dw(dws, ffn.masked_ffn_dw_plain(gy, x, w_in, w_out, mask, w_gate, act), mask,
+              torch.bfloat16)
     dead = mask.sum(dim=2) == 0
     assert dead.any() and (y[dead] == 0).all() and (dx[dead] == 0).all()
 
@@ -661,13 +670,14 @@ def test_masked_ffn_tc_route_per_row_masks(dev, C, M, d, F, act, gated):
 def test_masked_ffn_tc_route_not_taken(dev, dtype, M, d):
     """The fleet's fp32 shapes, a bf16 client of fewer than 128 rows and a d
     that is not a multiple of 64 run the present kernels: the _tc counters
-    do not move."""
+    (masked_ffn_dw_tc among them) do not move."""
     C, F = 3, 256
     gy, x, w_in, w_out, mask, w_gate = _dw_case(C, M, dtype, True, dev, d=d, F=F)
-    y, dx = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "gelu", False)
+    y, dx, dws = _tc_fd(gy, x, w_in, w_out, mask, w_gate, "gelu", False)
     args = (x, w_in, w_out, mask, w_gate, "gelu")
     assert _rel_err(y, ffn.masked_ffn_batch_plain(*args)) <= _tol(dtype)
     assert _rel_err(dx, ffn.masked_ffn_dx_plain(gy, *args)) <= _tol(dtype)
+    _check_dw(dws, ffn.masked_ffn_dw_plain(gy, *args), mask, dtype)
 
 
 def _head_masks(C, H, dev):
