@@ -60,11 +60,9 @@ the seconds the phase took (``phase_s``):
              Arctic, SeamlessM4T (frames through the encoder)
   serve      24 mixed-rate requests at full width (serving's main path)
   step       every launch of a full-width decode step against its plain version
-  decode_routes the same step under decode_cache_context("seq")
-             (_sdpa_grouped, no decode_gqa launch) and, with every row at
-             position 240, under uniform_pos_context(True) (one slot
-             write), each against the default route (relative 2-norm
-             <= 2e-2 of the hidden state and the logits)
+  decode_routes the same step with grouped_decode=True (_sdpa_grouped,
+             no decode_gqa launch) against the default route (relative
+             2-norm <= 2e-2 of the hidden state and the logits)
   profile    device time by kernel over a few decode steps
   serve_rwkv RWKV-6-3B at full width: 16 mixed-rate requests of exactly 512
              tokens, the chunked scan launched once per layer per prefill;
@@ -1472,50 +1470,38 @@ def phase_step(torch, np, params, cfg):
 
 
 def phase_decode_routes(torch, np, params, cfg, state):
-    """The decode routes the dry-run's variants select, on the step phase's
-    full-width StableLM-2-12B decode step, each held against the default
-    route (B11) at the step phase's gate (relative 2-norm <= 2e-2 of the
-    hidden state and the logits): decode_cache_context("seq") (the grouped
-    attention _sdpa_grouped, which launches no decode_gqa) on the step's
-    own rows, and uniform_pos_context(True) (one slot written for every
-    row) on the same caches with every row at position 240."""
+    """The decode route the dry-run's sequence-sharded-cache variants
+    select, on the step phase's full-width StableLM-2-12B decode step, held
+    against the default route (B11) at the step phase's gate (relative
+    2-norm <= 2e-2 of the hidden state and the logits): grouped_decode=True
+    (the grouped attention _sdpa_grouped, which launches no decode_gqa) on
+    the step's own rows."""
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels import ops
-    from repro_torch.launch.sharding import decode_cache_context, uniform_pos_context
     from repro_torch.models import layers, model
     caches, tok, pos, masks = state
     saved = tree_map(lambda t: t.clone(), caches)
 
-    def hidden(p, t):
+    def hidden(grouped):
         tree_map(lambda c, s0: c.copy_(s0), caches, saved)
         ops.reset_launch_counts()
-        h = model.decode_hidden(params, cfg, caches, t, p, masks=masks)
+        h = model.decode_hidden(params, cfg, caches, tok, pos, masks=masks,
+                                grouped_decode=grouped)
         return h, layers.lm_logits(params["tok"], h, cfg), ops.launch_counts()["decode_gqa"]
 
-    out = {}
-    hd, ld, nd = hidden(pos, tok)
-    with decode_cache_context("seq"):
-        hs, ls, ns = hidden(pos, tok)
+    hd, ld, nd = hidden(False)
+    hs, ls, ns = hidden(True)
     check(nd == cfg.n_layers and ns == 0,
           f"decode_routes: decode_gqa launched {nd} (default) and {ns} (seq) times")
-    out["seq"] = {"hidden_rel_err_2": rel2(hs, hd), "logits_rel_err_2": rel2(ls, ld),
-                  "greedy_agreement": float((ls.argmax(-1) == ld.argmax(-1)).float().mean()),
-                  "decode_gqa_launches": ns}
-    upos = torch.full_like(pos, 240)
-    utok = tok.clone()
-    hd, ld, _ = hidden(upos, utok)
-    with uniform_pos_context(True):
-        hu, lu, nu = hidden(upos, utok)
-    out["uniform_pos"] = {"hidden_rel_err_2": rel2(hu, hd), "logits_rel_err_2": rel2(lu, ld),
-                          "bitwise": bool(torch.equal(lu, ld)), "position": 240,
-                          "decode_gqa_launches": nu}
+    seq = {"hidden_rel_err_2": rel2(hs, hd), "logits_rel_err_2": rel2(ls, ld),
+           "greedy_agreement": float((ls.argmax(-1) == ld.argmax(-1)).float().mean()),
+           "decode_gqa_launches": ns}
     tree_map(lambda c, s0: c.copy_(s0), caches, saved)
     del saved
     torch.cuda.synchronize()
-    for name, r in out.items():
-        check(r["hidden_rel_err_2"] <= 2e-2 and r["logits_rel_err_2"] <= 2e-2,
-              f"decode_routes: {name} route vs the default route {r}")
-    return out
+    check(seq["hidden_rel_err_2"] <= 2e-2 and seq["logits_rel_err_2"] <= 2e-2,
+          f"decode_routes: seq route vs the default route {seq}")
+    return {"seq": seq}
 
 
 def phase_dryrun(torch, np, zoo):

@@ -38,7 +38,6 @@ from repro_torch.configs.shapes import InputShape, window_override_for
 from repro_torch.core import transformer_hooks as hooks
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch import roofline as rl
-from repro_torch.launch import sharding as shlib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models.layers import cdtype
@@ -48,9 +47,10 @@ CARD = "NVIDIA H100 80GB HBM3"
 DEFAULT_OUT = os.path.join("build", "dryrun_torch")
 
 # The reference's variants (EXPERIMENTS.md §Perf), by the same names. On one
-# card "no_fsdp" changes nothing (there is no ZeRO sharding to drop), and
-# "cache_seq_shard" / "uniform_pos" select decode routes of
-# models/attention.attn_decode, not a sharding (see ``routes``).
+# card "no_fsdp" changes nothing (there is no ZeRO sharding to drop),
+# "cache_seq_shard" selects the grouped decode attention of
+# models/attention.attn_decode, not a sharding, and "uniform_pos" changes
+# nothing: the per-row cache write fills the same slots (see ``routes``).
 VARIANTS = {
     "base": {},
     "serve_tp_bf16": {"no_fsdp": True,
@@ -129,13 +129,13 @@ def routes(cfg, shape, variant) -> dict:
     """What the variant's switches select on one card."""
     out = {"fsdp": "none on one card (no_fsdp changes nothing)"}
     if shape.mode == "decode":
-        out["decode_attention"] = ("_sdpa_grouped (decode_cache_context('seq'))"
+        out["decode_attention"] = ("_sdpa_grouped (grouped_decode=True)"
                                    if variant.get("cache_seq_shard")
                                    else "decode_gqa (B11), windowed layers plain _sdpa")
-        out["cache_write"] = ("one slot pos[0] % C for every row (uniform_pos_context); "
-                              "on one card the per-row write's slots when the rows share "
-                              "a position" if variant.get("uniform_pos")
-                              else "slot pos % C of each row")
+        out["cache_write"] = "slot pos % C of each row"
+        if variant.get("uniform_pos"):
+            out["cache_write"] += ("; on one card the per-row write, which gives the "
+                                   "same bits when the rows share a position")
     if cfg.block_pattern and "rwkv" in cfg.block_pattern and shape.mode != "decode":
         out["rwkv_chunk"] = {"chunk": cfg.rwkv_chunk, "dtype": cfg.rwkv_chunk_dtype}
     return out
@@ -166,7 +166,8 @@ def dry_step(cfg, shape: InputShape, variant=None):
         args = (params, specs["batch"])
     else:
         fn = steps_lib.make_serve_step(cfg, mla_absorb=variant.get("mla_absorb", False),
-                                       window_override=wo)
+                                       window_override=wo,
+                                       grouped_decode=bool(variant.get("cache_seq_shard")))
         args = (params, specs["caches"], specs["token"], specs["pos"])
     parts["inputs"] = _bytes(args) - sum(parts.values())
     arg_keys = {t.untyped_storage()._cdata for t in tree_leaves(args)}
@@ -178,9 +179,7 @@ def dry_step(cfg, shape: InputShape, variant=None):
             saved[k] = t.untyped_storage().nbytes()
         return t
 
-    with shlib.decode_cache_context("seq" if variant.get("cache_seq_shard") else "auto"), \
-            shlib.uniform_pos_context(variant.get("uniform_pos", False)), \
-            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         _, terms, mem = rl.count_terms(fn, *args, peak=rl.peak_flops(cdtype(cfg)))
     memory = {"argument_bytes": mem["argument_bytes"], "argument_breakdown": parts,
               "output_bytes": mem["output_bytes"], "written_bytes": mem["written_bytes"],

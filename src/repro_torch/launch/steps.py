@@ -13,28 +13,27 @@ import torch
 from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.launch.sharding import train_kernels_context
 from repro_torch.models import model as model_lib
 from repro_torch.optim import make_optimizer
 
 
 def make_grads_fn(cfg: ModelConfig, use_kernels: bool = False):
     """grads_of(params, batch, masks=None) -> ((loss, metrics), grads): the
-    loss and its gradients (a tree like params), both computed inside
-    ``train_kernels_context(ffn=use_kernels)`` so that a block-remat
-    recompute in the backward takes the forward's FFN route. The params
-    are not changed and need no ``requires_grad``. Spans (``tracing``):
+    loss and its gradients (a tree like params). use_kernels is the loss's
+    ``ffn_kernels``: the masked FFN through the training kernels, a
+    block-remat recompute in the backward included. The params are not
+    changed and need no ``requires_grad``. Spans (``tracing``):
     ``train.forward`` around the loss, ``train.backward`` around its
     gradients (a remat recompute included)."""
     def grads_of(params, batch, masks=None):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         leaves = tree_leaves(live)
-        with train_kernels_context(ffn=use_kernels):
-            with tracing.span("train.forward"):
-                loss, metrics = model_lib.loss_fn(live, cfg, batch, masks=masks)
-            with tracing.span("train.backward"):
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                            materialize_grads=True)
+        with tracing.span("train.forward"):
+            loss, metrics = model_lib.loss_fn(live, cfg, batch, masks=masks,
+                                              ffn_kernels=use_kernels)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         by_leaf = dict(zip(map(id, leaves), grads))
         metrics = {k: v.detach() for k, v in metrics.items()}
         return (loss.detach(), metrics), tree_map(lambda p: by_leaf[id(p)], live)
@@ -101,14 +100,16 @@ def make_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
 
 
 def make_serve_step(cfg: ModelConfig, mla_absorb: bool = False,
-                    window_override: Optional[int] = None):
+                    window_override: Optional[int] = None,
+                    grouped_decode: bool = False):
     """step(params, caches, token (B,1), pos (B,)) -> (logits (B, V),
-    caches), the caches updated in place. The decode attention's route
-    follows ``launch/sharding``'s decode_cache_context and
-    uniform_pos_context."""
+    caches), the caches updated in place. grouped_decode: GQA layers attend
+    by ``attention._sdpa_grouped`` in place of the flash-decode kernel (the
+    dry-run's sequence-sharded-cache variants)."""
     def step(params, caches, token, pos):
         logits, caches = model_lib.decode_step(params, cfg, caches, token, pos,
                                                mla_absorb=mla_absorb,
-                                               window_override=window_override)
+                                               window_override=window_override,
+                                               grouped_decode=grouped_decode)
         return logits[:, -1], caches
     return step

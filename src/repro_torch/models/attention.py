@@ -7,10 +7,8 @@ cache (port of ``repro/models/attention.py``).
   attn_decode(...)  -- one new token per row against the cache: through
                        the flash-decode kernel (kernels/decode_gqa.py), or,
                        for a windowed layer, the plain windowed attention;
-                       under launch/sharding's decode_cache_context("seq"),
-                       the grouped attention ``_sdpa_grouped`` (no K/V
-                       expansion), and under uniform_pos_context(True) one
-                       slot written for every row
+                       with grouped=True the grouped attention
+                       ``_sdpa_grouped`` (no K/V expansion)
 Cache layout per layer: k, v (B, C, KV, hd). The reference also carries
 per-slot positions; the port derives them from the decode position (see
 ``slot_positions``).
@@ -23,7 +21,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.launch.sharding import decode_cache_mode, uniform_pos
 from repro_torch.models.layers import (TensorSpec, apply_rope, cdtype,
                                        dense_init, pdtype)
 
@@ -174,18 +171,17 @@ def write_slot(cache, pos, new):
         cache[name].index_put_((rows, idx), t)
 
 
-def attn_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
+def attn_decode(p, x, cfg: ModelConfig, cache, pos, window=None, grouped=False):
     """One-token decode. x: (B,1,d); cache: {'k','v'} (B,C,KV,hd), updated
     IN PLACE (the reference returns a rewritten cache); pos: (B,) int.
     Returns y (B,1,d).
 
-    Two routes of the reference's sharding modes (``launch/sharding``),
-    which on one card only change the math: under ``uniform_pos()`` every
-    row's new K/V go to slot pos[0] % C (a synchronized batch, all rows at
-    one position; the slot is indexed by a device tensor, no host sync);
-    under ``decode_cache_mode() == "seq"`` the attention is
+    grouped=True is the route of the reference's sequence-sharded cache,
+    which on one card only changes the math: the attention is
     ``_sdpa_grouped`` over ``slot_positions``, windowed or not, in place of
-    the kernel.
+    the kernel. The reference's uniform-position mode (one slot written for
+    every row) has no route here: when the rows share a position the
+    per-row write fills the same slots.
 
     The new K/V go to slot pos % C. The cache always holds the last
     min(pos+1, C) positions in its first min(pos+1, C) slots: contiguously
@@ -196,13 +192,8 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos, window=None):
     reference keeps it off the flash-decode kernel."""
     C = cache["k"].shape[1]
     q, k_new, v_new = _qkv(p, x, cfg, pos[:, None])
-    if uniform_pos():
-        i0 = (pos[:1] % C).long()
-        for name, t in (("k", k_new), ("v", v_new)):
-            cache[name].index_copy_(1, i0, t)
-    else:
-        write_slot(cache, pos, {"k": k_new[:, 0], "v": v_new[:, 0]})
-    if decode_cache_mode() == "seq":
+    write_slot(cache, pos, {"k": k_new[:, 0], "v": v_new[:, 0]})
+    if grouped:
         out = _sdpa_grouped(q, cache["k"], cache["v"], pos[:, None],
                             slot_positions(pos, C), 1.0 / math.sqrt(cfg.head_dim),
                             window)

@@ -12,7 +12,10 @@ The decoder's cache per layer: the self-attention ring {'k', 'v'}
 'cross_v' (B, M, KV, hd), computed once at prefill. Decode writes the self
 cache in place and carries no slot record, as the decoder-only stacks do;
 its self-attention is the GQA flash-decode kernel on the card
-(``attention.attn_decode``).
+(``attention.attn_decode``), or under ``grouped_decode`` the grouped
+attention. The FFNs carry biases (``use_bias``), which the training
+kernels refuse, so every ``apply_ffn`` here is the dense masked FFN and the
+train step's ``ffn_kernels`` does not reach this stack.
 """
 from __future__ import annotations
 
@@ -119,13 +122,15 @@ def run_decoder_seq(params, x, memory, cfg: ModelConfig, positions, masks=None,
 
 
 def run_decoder_decode(params, caches, x, cfg: ModelConfig, pos, masks=None,
-                       window_override=None):
+                       window_override=None, grouped_decode=False):
     """x: (B,1,d); pos: (B,). Returns x; the self-attention caches are
-    updated in place."""
+    updated in place. grouped_decode: the self-attention by
+    ``attention._sdpa_grouped``."""
     for r in range(cfg.n_layers):
         p, c = _at(params["dec"], r), _at(caches, r)
         x = x + attention.attn_decode(p["attn"], apply_norm(p["norm1"], x, cfg), cfg,
-                                      c["attn"], pos, window=window_override)
+                                      c["attn"], pos, window=window_override,
+                                      grouped=grouped_decode)
         y, _ = attention.attn_seq(p["cross"], apply_norm(p["norm_c"], x, cfg), cfg,
                                   pos[:, None], kv_override=(c["cross_k"], c["cross_v"]),
                                   kv_positions=_mem_positions(c["cross_k"]))

@@ -18,7 +18,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.launch.sharding import train_kernel_flags
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -243,14 +242,15 @@ def _ffn_train_kernel_ok(p, x, cfg, neuron_mask) -> bool:
             and cfg.ffn_kind in _KERNEL_ACT)
 
 
-def apply_ffn(p, x, cfg: ModelConfig, neuron_mask=None):
+def apply_ffn(p, x, cfg: ModelConfig, neuron_mask=None, kernels=False):
     """FFN with an optional 0/1 neuron mask (the invariant-dropout
     sub-model): (f,) for one mask, (B, 1, f) per request at decode, where
-    the masked FFN kernel runs. Under ``train_kernels_context(ffn=True)``
-    an (f,) mask on the (B, S, d) train shape goes through the training
-    kernels (forward, dx and dW skip dropped 128-blocks) at C = 1, M = B·S."""
+    the masked FFN kernel runs. With ``kernels`` (the train step's
+    ``use_kernels``) an (f,) mask on the (B, S, d) train shape goes through
+    the training kernels (forward, dx and dW skip dropped 128-blocks) at
+    C = 1, M = B·S."""
     dt = cdtype(cfg)
-    if train_kernel_flags()["ffn"] and _ffn_train_kernel_ok(p, x, cfg, neuron_mask):
+    if kernels and _ffn_train_kernel_ok(p, x, cfg, neuron_mask):
         act, gated = _KERNEL_ACT[cfg.ffn_kind]
         B, S, d = x.shape
         f = p["w_in"].shape[1]

@@ -61,12 +61,16 @@ def _seg_list(params, cfg):
 
 
 def forward_seq(params, cfg: ModelConfig, batch, masks=None,
-                want_cache=False, cache_len=None, window_override=None):
+                want_cache=False, cache_len=None, window_override=None,
+                ffn_kernels=False):
     """batch: {'tokens': (B,S) int}, and for an encoder–decoder 'frames'
     (B,M,d) with masks {'enc': ..., 'dec': ...}. Returns (logits, caches,
     aux); aux is the MoE router loss summed over layers (0 without MoE).
     window_override: every full-attention layer (the decoder's
-    self-attention) windowed, the long-context variant."""
+    self-attention) windowed, the long-context variant. ffn_kernels: a
+    decoder stack's dense FFNs under an (f,) mask run the training kernels
+    (``layers.apply_ffn``); the encoder–decoder has FFN biases, which the
+    kernels refuse, and ignores it."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
@@ -85,45 +89,54 @@ def forward_seq(params, cfg: ModelConfig, batch, masks=None,
         seg_params, segs = _seg_list(params, cfg)
         x, caches, aux = transformer.run_stack_seq(
             seg_params, segs, x, cfg, positions, masks=masks,
-            want_cache=want_cache, cache_len=cache_len, window_override=window_override)
+            want_cache=want_cache, cache_len=cache_len, window_override=window_override,
+            ffn_kernels=ffn_kernels)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params["tok"], x, cfg)
     return logits, (caches if want_cache else None), aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch, masks=None, window_override=None):
+def loss_fn(params, cfg: ModelConfig, batch, masks=None, window_override=None,
+            ffn_kernels=False):
     """The training loss: the mean next-token xent (``batch['loss_mask']``
     weights it when given) plus cfg.router_aux_coef × the MoE router loss.
-    Returns (loss, {'xent', 'aux'})."""
+    Returns (loss, {'xent', 'aux'}). ffn_kernels as in ``forward_seq``."""
     logits, _, aux = forward_seq(params, cfg, batch, masks=masks,
-                                 window_override=window_override)
+                                 window_override=window_override,
+                                 ffn_kernels=ffn_kernels)
     xent = softmax_xent(logits, batch["targets"], batch.get("loss_mask"))
     return xent + cfg.router_aux_coef * aux, {"xent": xent, "aux": aux}
 
 
 def decode_hidden(params, cfg: ModelConfig, caches, token, pos, masks=None,
-                  mla_absorb=False, window_override=None):
+                  mla_absorb=False, window_override=None, grouped_decode=False):
     """The final-normed hidden state (B,1,d) of one decode step; the caches
-    are updated in place. mla_absorb: MLA layers attend in latent space."""
+    are updated in place. mla_absorb: MLA layers attend in latent space.
+    grouped_decode: GQA layers attend by ``attention._sdpa_grouped`` in
+    place of the flash-decode kernel (``attention.attn_decode``)."""
     x = embed_tokens(params["tok"], token, cfg)
     if cfg.is_encdec:
         x = encdec.run_decoder_decode(params["stack"], caches[0], x, cfg, pos,
                                       masks=masks["dec"] if masks else None,
-                                      window_override=window_override)
+                                      window_override=window_override,
+                                      grouped_decode=grouped_decode)
     else:
         seg_params, segs = _seg_list(params, cfg)
         x = transformer.run_stack_decode(seg_params, segs, caches, x, cfg, pos,
                                          masks=masks, mla_absorb=mla_absorb,
-                                         window_override=window_override)
+                                         window_override=window_override,
+                                         grouped_decode=grouped_decode)
     return apply_norm(params["final_norm"], x, cfg)
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos, masks=None,
-                mla_absorb=False, window_override=None):
+                mla_absorb=False, window_override=None, grouped_decode=False):
     """token: (B,1) int; pos: (B,) int. Returns (logits, caches); unlike
-    the reference the caches are updated in place and returned as given."""
+    the reference the caches are updated in place and returned as given.
+    The routes as in ``decode_hidden``."""
     x = decode_hidden(params, cfg, caches, token, pos, masks=masks,
-                      mla_absorb=mla_absorb, window_override=window_override)
+                      mla_absorb=mla_absorb, window_override=window_override,
+                      grouped_decode=grouped_decode)
     return lm_logits(params["tok"], x, cfg), caches
 
 

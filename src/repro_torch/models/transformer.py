@@ -17,7 +17,6 @@ checkpoints each scanned unit.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -26,7 +25,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_leaves
-from repro_torch.launch.sharding import train_kernel_flags, train_kernels_context
 from repro_torch.models import attention, mla, moe, rglru, rwkv6
 from repro_torch.models.layers import (TensorSpec, apply_ffn, apply_norm,
                                        cdtype, init_ffn, init_norm)
@@ -164,16 +162,19 @@ def _ring_from_seq(tensors, positions, window=None, cache_len=None):
     return out
 
 
-def _apply_ffn_or_moe(spec, p, h2, cfg: ModelConfig, masks):
-    """The layer's FFN on the normed h2: (y, aux), aux 0 for a dense FFN."""
+def _apply_ffn_or_moe(spec, p, h2, cfg: ModelConfig, masks, ffn_kernels=False):
+    """The layer's FFN on the normed h2: (y, aux), aux 0 for a dense FFN.
+    ffn_kernels: a dense FFN takes the training kernels (``apply_ffn``)."""
     if spec[1] == "moe":
         return moe.apply_moe(p["moe"], h2, cfg, neuron_mask=_m(masks, "moe"),
                              expert_mask=_m(masks, "experts"))
-    return apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn")), 0.0
+    return apply_ffn(p["ffn"], h2, cfg, neuron_mask=_m(masks, "ffn"),
+                     kernels=ffn_kernels), 0.0
 
 
 def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
-                     want_cache, cache_len=None, window_override=None):
+                     want_cache, cache_len=None, window_override=None,
+                     ffn_kernels=False):
     """Returns (x, cache_entry, aux)."""
     _check_ported(spec, cfg)
     mixer = spec[0]
@@ -204,9 +205,11 @@ def _apply_layer_seq(spec, p, x, cfg: ModelConfig, positions, masks,
                                       _layer_window(mixer, cfg, window_override), cache_len)
                  for name, c in cache.items()}
     if cfg.parallel_block:
-        return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn")), cache, 0.0
+        return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn"),
+                                 kernels=ffn_kernels), cache, 0.0
     x = x + y
-    f, aux = _apply_ffn_or_moe(spec, p, apply_norm(p["norm2"], x, cfg), cfg, masks)
+    f, aux = _apply_ffn_or_moe(spec, p, apply_norm(p["norm2"], x, cfg), cfg, masks,
+                               ffn_kernels)
     return x + f, cache, aux
 
 
@@ -222,36 +225,37 @@ def remat(cfg: ModelConfig, fn, *args):
     """fn(*args); under cfg.remat == "block", when the call is
     differentiated, its activations are dropped and recomputed in the
     backward (``torch.utils.checkpoint``), the reference's jax.checkpoint.
-    The recompute takes the FFN route the forward took: the train-kernel
-    flags of the call are restored around it."""
+    fn carries its routes in its closure, so the recompute takes the
+    forward's."""
     if not (cfg.remat == "block" and torch.is_grad_enabled()
             and any(isinstance(t, torch.Tensor) and t.requires_grad
                     for t in tree_leaves(args))):
         return fn(*args)
-    flags = train_kernel_flags()
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (
-        contextlib.nullcontext(), train_kernels_context(**flags)))
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
-                  masks=None, want_cache=False, cache_len=None, window_override=None):
+                  masks=None, want_cache=False, cache_len=None, window_override=None,
+                  ffn_kernels=False):
     """x: (B,S,d). Returns (x, caches, aux): aux the MoE router losses
     summed in layer order (0 without an MoE layer). masks: list per segment
     of per-unit dicts with stacked (R, ...) leaves, or None.
-    window_override: a window for every full-attention layer."""
+    window_override: a window for every full-attention layer. ffn_kernels:
+    dense FFNs under an (f,) mask take the training kernels."""
     caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (seg, sp) in enumerate(zip(segs, seg_params)):
         smasks = masks[si] if masks is not None else None
 
-        # the unit is bound now: remat runs the body again in the backward
+        # the unit and the routes are bound now: remat runs the body again
+        # in the backward
         def unit_body(x, aux_total, up, um, unit=seg.unit):
             cache_u = {}
             for i, spec in enumerate(unit):
                 lm = um[f"l{i}"] if um is not None else None
                 x, cache_u[f"l{i}"], aux = _apply_layer_seq(
                     spec, up[f"l{i}"], x, cfg, positions, lm, want_cache, cache_len,
-                    window_override)
+                    window_override, ffn_kernels)
                 aux_total = aux_total + aux
             return x, aux_total, cache_u
 
@@ -268,7 +272,7 @@ def run_stack_seq(seg_params, segs, x, cfg: ModelConfig, positions,
 # decode pass
 
 def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
-                        mla_absorb=False, window_override=None):
+                        mla_absorb=False, window_override=None, grouped_decode=False):
     _check_ported(spec, cfg)
     mixer = spec[0]
     h = apply_norm(p["norm1"], x, cfg)
@@ -289,7 +293,8 @@ def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
         y = mla.mla_decode(p["mla"], h, cfg, cache["mla"], pos, absorb=mla_absorb)
     else:
         y = attention.attn_decode(p["attn"], h, cfg, cache["attn"], pos,
-                                  window=_layer_window(mixer, cfg, window_override))
+                                  window=_layer_window(mixer, cfg, window_override),
+                                  grouped=grouped_decode)
     if cfg.parallel_block:
         return x + y + apply_ffn(p["ffn"], h, cfg, neuron_mask=_m(masks, "ffn"))
     x = x + y
@@ -297,8 +302,10 @@ def _apply_layer_decode(spec, p, x, cache, cfg: ModelConfig, pos, masks,
 
 
 def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
-                     masks=None, mla_absorb=False, window_override=None):
-    """x: (B,1,d). Returns x; the caches are updated in place."""
+                     masks=None, mla_absorb=False, window_override=None,
+                     grouped_decode=False):
+    """x: (B,1,d). Returns x; the caches are updated in place.
+    grouped_decode: GQA layers attend by ``attention._sdpa_grouped``."""
     for si, (seg, sp) in enumerate(zip(segs, seg_params)):
         smasks = masks[si] if masks is not None else None
         for r in range(seg.repeats):
@@ -306,7 +313,7 @@ def run_stack_decode(seg_params, segs, caches, x, cfg: ModelConfig, pos,
                 lm = _at(smasks[f"l{i}"], r) if smasks is not None else None
                 x = _apply_layer_decode(spec, _at(sp[f"l{i}"], r), x,
                                         _at(caches[si][f"l{i}"], r), cfg, pos,
-                                        lm, mla_absorb, window_override)
+                                        lm, mla_absorb, window_override, grouped_decode)
     return x
 
 

@@ -191,8 +191,8 @@ def test_mask_as_data_catches_a_mask_dependent_program(monkeypatch):
     from repro_torch.models import transformer
     orig = transformer.apply_ffn
 
-    def leaky(p, x, cfg, neuron_mask=None):
-        y = orig(p, x, cfg, neuron_mask)
+    def leaky(p, x, cfg, neuron_mask=None, kernels=False):
+        y = orig(p, x, cfg, neuron_mask, kernels)
         if neuron_mask is not None and bool((neuron_mask == 0).any()):
             y = y * 1.0                    # an op only a partial mask runs
         return y

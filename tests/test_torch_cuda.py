@@ -1320,7 +1320,6 @@ def test_train_route_c1_matches_plain(dev, M, d, F):
     once each, each within 1e-2 of its plain version, and a dropped block's
     dW columns and rows are exactly 0."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.sharding import train_kernels_context
     from repro_torch.models.layers import apply_ffn
     cfg = get_config("stablelm-12b").with_overrides(d_model=d, d_ff=F)
     g = torch.Generator(device=dev).manual_seed(M + F)
@@ -1333,10 +1332,9 @@ def test_train_route_c1_matches_plain(dev, M, d, F):
     keep[torch.randperm(nb, generator=g, device=dev)[:nb - round(nb * 0.75)]] = 0
     mask = keep.repeat_interleave(128)
     ops.reset_launch_counts()
-    with train_kernels_context(ffn=True):
-        y = apply_ffn(p, x, cfg, neuron_mask=mask)
-        gy = r(*y.shape, fan=1).to(torch.bfloat16)
-        y.backward(gy)
+    y = apply_ffn(p, x, cfg, neuron_mask=mask, kernels=True)
+    gy = r(*y.shape, fan=1).to(torch.bfloat16)
+    y.backward(gy)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert [counts[k] for k in ("masked_ffn_train_fwd", "masked_ffn_dx", "masked_ffn_dw")] == [1, 1, 1]

@@ -1,10 +1,10 @@
 """The decode routes that the dry-run's variants select, against the JAX
 reference at fp32 (1e-5): ``attention._sdpa_grouped`` (GQA without
-expanding K/V), ``attn_decode`` under ``decode_cache_context("seq")``
-(plain, and windowed over a ring that has wrapped) and under
-``uniform_pos_context(True)`` (one slot written for every row of a
-synchronized batch). The reference returns a new cache, the port updates
-its cache in place: the caches are compared too.
+expanding K/V), ``attn_decode(grouped=True)`` (plain, and windowed over a
+ring that has wrapped), and the reference's uniform-position mode (one
+slot written for every row of a synchronized batch) against the port's
+per-row write. The reference returns a new cache, the port updates its
+cache in place: the caches are compared too.
 """
 import numpy as np
 import pytest
@@ -21,7 +21,6 @@ from repro.models import attention as jax_attention  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -74,14 +73,16 @@ def _decode_case(arch, pos, window=None, seed=0, **over):
 
 
 def _run(jcfg, tcfg, jp, tp, x, kc, vc, slots, pos, window, mode, upos):
+    """The reference under its (mode, upos) contexts, the port with
+    grouped = (mode == 'seq') and its per-row write."""
     with jax_sharding.decode_cache_context(mode), jax_sharding.uniform_pos_context(upos):
         yj, cj, _ = jax_attention.attn_decode(
             jp, jnp.asarray(x), jcfg, {"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
             jnp.asarray(slots), jnp.asarray(pos), window=window)
     cache = {"k": torch.tensor(kc), "v": torch.tensor(vc)}
-    with sharding.decode_cache_context(mode), sharding.uniform_pos_context(upos):
-        yt = attention.attn_decode(tp, torch.from_numpy(x), tcfg, cache,
-                                   torch.from_numpy(pos), window=window)
+    yt = attention.attn_decode(tp, torch.from_numpy(x), tcfg, cache,
+                               torch.from_numpy(pos), window=window,
+                               grouped=mode == "seq")
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
     for name in ("k", "v"):
         np.testing.assert_allclose(cache[name].numpy(), np.asarray(cj[name]), **TOL)
@@ -92,8 +93,9 @@ def _run(jcfg, tcfg, jp, tp, x, kc, vc, slots, pos, window, mode, upos):
                                        ("granite-20b", {})])
 @pytest.mark.parametrize("window", [None, 9])
 def test_attn_decode_seq_route_matches_reference(arch, over, window):
-    """decode_cache_mode 'seq': _sdpa_grouped over the ring's slot
-    positions; rows at different positions, the windowed ring wrapped."""
+    """grouped=True (the reference's 'seq' cache mode): _sdpa_grouped over
+    the ring's slot positions; rows at different positions, the windowed
+    ring wrapped."""
     pos = np.array([5, 17, 40], np.int32)          # 40 > C: the ring has wrapped
     case = _decode_case(arch, pos, window, **over)
     ops.reset_launch_counts()
@@ -105,26 +107,15 @@ def test_attn_decode_seq_route_matches_reference(arch, over, window):
                                        ("granite-20b", {})])
 @pytest.mark.parametrize("mode", ["auto", "seq"])
 def test_attn_decode_uniform_pos_matches_reference(arch, over, mode):
-    """uniform_pos: every row at one position, its K/V written to slot
-    pos[0] % C of each row; the attention by the default route (auto) or
-    the grouped one (seq). Past the ring's end the slot wraps."""
+    """Every row at one position: the reference's uniform_pos mode writes
+    slot pos[0] % C of every row at once, the port writes each row's own
+    slot, the same slot; the outputs and the caches agree. The attention by
+    the default route (auto) or the grouped one (seq). Past the ring's end
+    the slot wraps."""
     for p in (11, C + 6):
         pos = np.full(B, p, np.int32)
         case = _decode_case(arch, pos, **over)
         y_upos = _run(*case, pos, None, mode, True)
-        # the same step with the per-row write gives the same numbers
-        cache = {"k": torch.tensor(case[5]), "v": torch.tensor(case[6])}
-        with sharding.decode_cache_context(mode):
-            y = attention.attn_decode(case[3], torch.from_numpy(case[4]), case[1], cache,
-                                      torch.from_numpy(pos))
+        # and the reference's per-row write gives the same numbers
+        y = _run(*case, pos, None, mode, False)
         np.testing.assert_allclose(y.numpy(), y_upos.numpy(), **TOL)
-
-
-def test_route_contexts_restore_and_refuse():
-    assert sharding.decode_cache_mode() == "auto" and not sharding.uniform_pos()
-    with sharding.decode_cache_context("seq"), sharding.uniform_pos_context(True):
-        assert sharding.decode_cache_mode() == "seq" and sharding.uniform_pos()
-    assert sharding.decode_cache_mode() == "auto" and not sharding.uniform_pos()
-    with pytest.raises(ValueError, match="decode cache mode"):
-        with sharding.decode_cache_context("model"):
-            pass

@@ -98,6 +98,22 @@ def test_masked_train_step_counts_the_dense_flops():
     assert masked.flops == dense.flops > 0
 
 
+@pytest.mark.parametrize("variant,grouped", [("serve_tp_bf16", False),
+                                             ("serve_seqcache", True), ("serve_upos", True)])
+def test_decode_variants_take_their_attention_route(monkeypatch, variant, grouped):
+    """The sequence-sharded-cache variants pass grouped_decode to the serve
+    step: every layer's decode attention runs ``_sdpa_grouped`` on meta
+    tensors, and no layer's does under the others."""
+    from repro_torch.models import attention
+    calls, orig = [], attention._sdpa_grouped
+    monkeypatch.setattr(attention, "_sdpa_grouped",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    cfg = dryrun.variant_config("stablelm-12b", variant).smoke()
+    terms, _ = dryrun.dry_step(cfg, InputShape("d", 64, 2, "decode"), dryrun.VARIANTS[variant])
+    assert terms.flops > 0
+    assert len(calls) == (cfg.n_layers if grouped else 0)
+
+
 def test_meta_input_the_card_refuses_raises_its_error():
     """RWKV head size 48 (the kernel takes 16, 32, 64) and a decode head
     dim of 40 in bf16 (80 B: not 16 B times a power of two) raise the

@@ -292,20 +292,38 @@ def test_port_imports_no_jax_at_run_time():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _imported_roots(path):
+def _imported_modules(path):
+    """The absolute names a file imports; ``from a import b`` gives a and
+    a.b, since b may be a submodule."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
-                yield a.name.split(".")[0]
+                yield a.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module.split(".")[0]
+            yield node.module
+            for a in node.names:
+                yield f"{node.module}.{a.name}"
 
 
-def test_port_sources_import_no_jax():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+_PORT = ROOT / "src" / "repro_torch"
+_SUBPACKAGES = sorted(p.parent.name for p in _PORT.glob("*/__init__.py"))
+
+
+@pytest.mark.parametrize("subtree,forbidden", [
+    ("", ("jax", "jaxlib", "repro")),
+    ("models", ("repro_torch.launch", "repro_torch.fl")),
+    ("kernels", tuple(f"repro_torch.{s}" for s in _SUBPACKAGES if s != "kernels")),
+], ids=["port-no-jax", "models-not-launch-fl", "kernels-self-contained"])
+def test_port_sources_import_no_jax(subtree, forbidden):
+    """The port imports no JAX and no reference, and its layers import
+    only downward: models/ nothing of launch/ or fl/, kernels/ no other
+    subpackage of the port."""
+    files = sorted((_PORT / subtree).rglob("*.py"))
+    if not subtree:
+        files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 5
     for f in files:
-        bad = {m for m in _imported_roots(f) if m in ("jax", "jaxlib", "repro")}
+        bad = {m for m in _imported_modules(f)
+               if any(m == b or m.startswith(b + ".") for b in forbidden)}
         assert not bad, (f, bad)
