@@ -136,7 +136,8 @@ the seconds the phase took (``phase_s``):
              first with every launch held against its plain version (1e-2),
              the last profiled (busy share); 2 dense masked steps (no
              launch), the last with AdamW timed alone; loss falling, every
-             param finite, peak memory; B1-B3 at this shape (C 1, M 1024)
+             param finite, peak memory; every step's AdamW one kernel
+             launch a leaf; B1-B3 at this shape (C 1, M 1024)
              against their bounds, plain versions and the dense route's
              cuBLAS forward and backward; launch.train.run_fluid (6 steps,
              calibrated every 3: statistics > 0, 81 blocks kept, no
@@ -149,6 +150,14 @@ the seconds the phase took (``phase_s``):
              AdamW state bytes equal to the card's allocation within 512 B
              a tensor; its peak estimate printed beside the card's peak,
              and a serving decode step's byte floor beside decode_bytes
+  adamw      AdamW's one-pass kernel (kernels/adamw.py) on the StableLM
+             train cell's tree (head_dim 160, parallel LayerNorm blocks, 8
+             layers: 13 leaves, 3.25B fp32 params): one step of its largest
+             leaf bitwise the plain chain's, one launch a leaf a step;
+             device time on the largest leaf and over the tree beside the
+             byte bound (28 B a parameter), the plain chain's time and
+             torch.optim.AdamW(fused=True)'s at the same shapes (the
+             library yardstick; the port never calls it)
   train_rwkv RWKV-6-3B at full width on 2 of its 32 layers in fp32: one
              make_train_step AdamW step on the card against the same step
              on the CPU (loss 1e-4, gradients 1e-3 relative 2-norm); the
@@ -314,6 +323,13 @@ ZOO_CKPT = dict(steps=3, batch=2, seq=32)      # run_plain's checkpoint, smoke c
 # (relative 2-norm); every launch of the first kernel step against its plain
 # version at the bf16 per-launch gate
 ZOO_LOSS_TOL, ZOO_GRAD_TOL, BF16_HOLD_TOL = 1e-2, 2e-2, 1e-2
+# adamw: the StableLM train cell's tree (the port's stablelm-12b at the
+# published 12B's head_dim 160, parallel block and LayerNorm, 8 layers:
+# 3.25B fp32 params), AdamW's hyperparameters as its configuration's
+ADAMW_TREE = dict(arch="stablelm-12b", layers=8,
+                  overrides=dict(head_dim=160, parallel_block=True, norm_kind="layernorm"))
+ADAMW_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8)
+ADAMW_BYTES = 28               # a parameter: p, g, m, v read and p, m, v written, fp32
 # train_rwkv: RWKV-6-3B at full width on 2 of its 32 layers in fp32, one
 # AdamW step on the card against the same step on the CPU
 RWKV_TRAIN = dict(arch="rwkv6-3b", layers=2, batch=2, seq=128)
@@ -2541,6 +2557,91 @@ def zoo_kernel_times(torch, cfg, mask, dev):
     return out
 
 
+def phase_adamw(torch, np, dev="cuda"):
+    """AdamW's one-pass kernel (kernels/adamw.py) on the StableLM train
+    cell's tree, on its largest leaf and over the whole tree: device time
+    (CUDA events, median) beside the byte bound (28 B a parameter at the
+    HBM rate), the plain chain's time, and torch.optim.AdamW(fused=True)
+    at the same shapes as the library yardstick (the port never calls it;
+    its state is given the same m and v, so it allocates none). First, one
+    step of the largest leaf through the kernel is held bitwise to the
+    plain chain's; every step launches the kernel once a leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels import adamw as adamw_kernel
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+    h = ADAMW_HYPER
+    b1, b2, eps, lr = h["b1"], h["b2"], h["eps"], h["lr"]
+    cfg = get_config(ADAMW_TREE["arch"]).with_overrides(n_layers=ADAMW_TREE["layers"],
+                                                        **ADAMW_TREE["overrides"])
+    g = torch.Generator(device=dev).manual_seed(0)
+    draw = lambda s, sd: torch.randn(s.shape, generator=g, device=dev).mul_(sd)
+    specs = tree_leaves(model.param_specs(cfg))
+    params, grads = [draw(s, 0.02) for s in specs], [draw(s, 1e-3) for s in specs]
+    opt = adamw(b1=b1, b2=b2, eps=eps)
+    state = opt.init(params)
+    big = max(range(len(params)), key=lambda i: params[i].numel())
+
+    t = torch.ones((), device=dev)
+    bc = (1 - torch.pow(b1, t), 1 - torch.pow(b2, t))
+    leaf = [params[big].clone(), state["m"][big].add(1e-4), state["v"][big].add(1e-8)]
+    want = [x.clone() for x in leaf]
+    before = adamw_kernel.launches.n
+    adamw_kernel.adamw_update(leaf[0], grads[big], *leaf[1:], *bc, b1=b1, b2=b2, eps=eps,
+                              weight_decay=0.0, lr=lr)
+    adamw_kernel.adamw_plain(want[0], grads[big], *want[1:], *bc, b1, b2, eps, 0.0, lr)
+    torch.cuda.synchronize()
+    check(adamw_kernel.launches.n == before + 1, "adamw: a leaf took other than one launch")
+    check(all(torch.equal(a, b) for a, b in zip(leaf, want)),
+          "adamw: the kernel's update is not the plain chain's, bit for bit")
+    del leaf, want
+
+    def kernel_steps(ps, gs, ms, vs):
+        st = {"m": ms, "v": vs, "t": state["t"]}
+        return lambda: opt.update(gs, st, ps, lr)
+
+    def plain_steps(ps, gs, ms, vs):
+        def step():
+            t.add_(1)
+            c1, c2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
+            for p, gg, m, v in zip(ps, gs, ms, vs):
+                adamw_kernel.adamw_plain(p, gg, m, v, c1, c2, b1, b2, eps, 0.0, lr)
+        return step
+
+    def library_steps(ps, gs, ms, vs):
+        for p, gg in zip(ps, gs):
+            p.grad = gg
+        lib = torch.optim.AdamW(ps, lr=lr, betas=(b1, b2), eps=eps, weight_decay=0.0,
+                                fused=True)
+        for p, m, v in zip(ps, ms, vs):
+            lib.state[p] = {"step": torch.zeros((), device=dev), "exp_avg": m, "exp_avg_sq": v}
+        return lib.step
+
+    out = {"tree": {"arch": cfg.name, "layers": cfg.n_layers, **ADAMW_TREE["overrides"],
+                    "leaves": len(params)},
+           "largest_leaf": {"shape": list(params[big].shape)}}
+    for name, sel in (("largest_leaf", [big]), ("tree", range(len(params)))):
+        args = [[x[i] for i in sel] for x in (params, grads, state["m"], state["v"])]
+        n = sum(p.numel() for p in args[0])
+        before = adamw_kernel.launches.n
+        ms = time_ms(kernel_steps(*args), torch, n=10)       # 3 warm-up calls, 10 timed
+        check(adamw_kernel.launches.n == before + 13 * len(args[0]),
+              f"adamw: {adamw_kernel.launches.n - before} launches for 13 steps of "
+              f"{len(args[0])} leaves")
+        bound = ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3
+        out[name].update({"params": n, "ms": ms, "bound_ms": bound, "share_of_bound": bound / ms,
+                          "plain_ms": time_ms(plain_steps(*args), torch, n=5, warmup=1),
+                          "library_ms": time_ms(library_steps(*args), torch, n=10)})
+        for p in args[0]:
+            p.grad = None
+    out["card"] = nvidia_smi()
+    del params, grads, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_zoo(torch, np, dev="cuda", regions=None):
     """StableLM-2-12B at full width on 8 of its 40 layers through the port's
     train step (fp32 params, bf16 compute, AdamW, block remat) on the
@@ -2561,6 +2662,7 @@ def phase_train_zoo(torch, np, dev="cuda", regions=None):
     from repro_torch.core import transformer_hooks as hooks
     from repro_torch.core.straggler import pick_rate
     from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.kernels import adamw as adamw_kernel
     from repro_torch.kernels import ops
     from repro_torch.launch import steps, train
     from repro_torch.models import model
@@ -2588,11 +2690,13 @@ def phase_train_zoo(torch, np, dev="cuda", regions=None):
     snap = train.ffn_snapshot(params, cfg)
     losses, ms, counts = [], {"full": [], "kernel": [], "dense": []}, []
     zero = dict.fromkeys(ops.LAUNCHES, 0)
+    n_leaves = len(tree_leaves(params))        # AdamW's launches a step, one a leaf
 
     def run(kind, fn, b=None, *extra):
         nonlocal params, state
         b = b if b is not None else train.synth_batch(rng, cfg, B, S + 1, dev)
         ops.reset_launch_counts()
+        adamw_kernel.launches.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, state, met = fn(params, state, b, *extra)
@@ -2600,6 +2704,9 @@ def phase_train_zoo(torch, np, dev="cuda", regions=None):
         ms[kind].append(1e3 * (time.perf_counter() - t0))
         losses.append(loss)
         counts.append((kind, ops.launch_counts()))
+        check(adamw_kernel.launches.n == n_leaves,
+              f"train_zoo: a {kind} step's AdamW launched {adamw_kernel.launches.n} "
+              f"times for {n_leaves} leaves")
         return counts[-1][1]
 
     full = steps.make_train_step(cfg)
@@ -4286,6 +4393,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         emit("dryrun", **phase_dryrun(torch, np, line))
+        emit("adamw", **phase_adamw(torch, np))
         emit("train_rwkv", **phase_train_rwkv(torch, np))
         gc.collect()
         torch.cuda.empty_cache()

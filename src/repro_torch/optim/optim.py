@@ -5,7 +5,8 @@
 reference's signature but updates in place and returns the same tensors:
 the reference's functional update would hold a second copy of every param
 and moment (50 GB more for StableLM-2-12B on 8 layers). The arithmetic is
-the reference's, operation for operation.
+the reference's, operation for operation (AdamW's on the card in one
+kernel a leaf, ``kernels/adamw.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.kernels import adamw as adamw_kernel
 
 
 @dataclass(frozen=True)
@@ -60,7 +62,9 @@ def sgdm(momentum=0.9):
 
 def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
     """m and v in fp32, the step count ``t`` an int32 scalar on the params'
-    device, the bias corrections computed in fp32 there (no host sync)."""
+    device, the bias corrections computed in fp32 there (no host sync).
+    Each leaf's step is ``kernels/adamw.adamw_update``: one hand-written
+    kernel launch on the card, the plain chain on the CPU, the same bits."""
     def init(params):
         dev = tree_leaves(params)[0].device
         return {"m": _zeros_like_tree(params, torch.float32),
@@ -72,13 +76,8 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0):
         t = state["t"].add_(1).float()
         bc1, bc2 = 1 - torch.pow(b1, t), 1 - torch.pow(b2, t)
         for p, m, v, g in _leaves(params, state["m"], state["v"], grads):
-            gf = g.float()
-            m.mul_(b1).add_(gf.mul(1 - b1))
-            v.mul_(b2).add_(gf.square().mul_(1 - b2))
-            step = m.div(bc1).div_(v.div(bc2).sqrt_().add_(eps))
-            if weight_decay:
-                step.add_(p.float().mul(weight_decay))
-            p.sub_(step.mul_(lr).to(p.dtype))
+            adamw_kernel.adamw_update(p, g, m, v, bc1, bc2, b1=b1, b2=b2, eps=eps,
+                                      weight_decay=weight_decay, lr=lr)
         return params, state
     return Optimizer("adamw", init, update)
 
